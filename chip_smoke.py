@@ -1,33 +1,46 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tpu_ctc_torch``) on one NVIDIA GPU.
 
-Drives the port's serving path, preset 4 (``swbd_beam_decode``: 2 dense
-pre-layers and 5 bidirectional layers at H = 1824, vocab 29, bf16 compute;
-prefix beam search at K = 128 with a trigram char LM), and holds each CUDA
-kernel of that path against its plain PyTorch version on the same inputs:
+Drives the port's two main paths and holds each CUDA kernel on them
+against its plain PyTorch version on the same inputs:
 
   1. the card: name and power limit, and the build of every kernel from
-     ``tpu_ctc_torch/csrc`` (one ``nvcc`` each, all started together);
+     ``tpu_ctc_torch/csrc`` (one ``nvcc`` per source, all started together);
   2. kernel B1 (``ops/birnn_cuda.py``, the forward BiRNN recurrence) at
      H = 1824, B = 64, T = 800, bf16, both directions;
   3. kernel B5 (``ops/beam_cuda.py``, the fused prefix beam search) at
      B = 64, T = 800, A = 29, K = 128 with a trigram;
-  4. end to end: 64 synthetic utterances (400-800 frames) through
-     ``BucketedLoader`` and ``make_beam_decoder`` on random seeded weights,
-     with every kernel's launch count read around that run.
+  4. serving, end to end: preset 4 (``swbd_beam_decode``: 2 dense
+     pre-layers and 5 bidirectional layers at H = 1824, vocab 29, bf16
+     compute; K = 128 with a trigram char LM), 64 synthetic utterances
+     (400-800 frames) through ``BucketedLoader`` and ``make_beam_decoder``
+     on random seeded weights;
+  5. kernel B2 (``ops/birnn_cuda.py``, the backward delta sweep) at
+     H = 1024, B = 32, T = 800, bf16, both directions;
+  6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
+     at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
+     with ``torch.nn.functional.ctc_loss`` timed beside them;
+  7. training, end to end: preset 2 (``timit_full_3layer``: 1 dense
+     pre-layer and 3 bidirectional layers at H = 1024, bf16 compute,
+     Nesterov SGD with clipping at 5) on 64 synthetic utterances (two
+     800-frame batches of 32), ``train_step`` as ``train`` calls it from
+     seeded random weights; its loss and gradients against the plain path.
 
-Every check raises on failure, so the script exits non-zero and prints no
-result line.  Every time, of a kernel and of its plain version alike, is
-the median of CUDA-event times of single calls after a warm-up call.  The
-last two lines are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``.
+Each main path (phases 4 and 7) is run with every launch count set to 0
+just before it and read just after; a kernel's ``launches`` in the record
+is the sum over the paths that run it.  Every check raises on failure, so
+the script exits non-zero and prints no result line.  Every time, of a
+kernel and of its plain version alike, is the median of CUDA-event times of
+single calls after a warm-up call.  The last two lines are the per-kernel
+JSON record and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all four phases, one card
+    python3 chip_smoke.py                 # all seven phases, one card
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,10 +59,24 @@ SCALAR_INSTR_PER_S = 67e12 / 2
 REPS = 5                        # timed calls per kernel, after a warm-up
 PLAIN_REPS = 3                  # timed calls per plain version
 
-B1_SOURCE = "tpu_ctc_torch/csrc/birnn_fwd.cu"
+BIRNN_SOURCE = "tpu_ctc_torch/csrc/birnn.cu"          # B1 and B2
 B1_REPLACES = "tpu_ctc/ops/birnn_pallas.py:103"
 B5_SOURCE = "tpu_ctc_torch/csrc/beam_search.cu"
 B5_REPLACES = "tpu_ctc/ops/beam_pallas.py:197"
+B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
+B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
+B3_REPLACES = "tpu_ctc/ops/ctc_pallas.py:134"
+B4_REPLACES = "tpu_ctc/ops/ctc_pallas.py:190"
+# Phase 7's bound on |g_kernel - g_plain| / |g_plain| per parameter.  The
+# two paths share every bf16 rounding point and differ only in the order
+# of f32 sums, but the cotangent is rounded to bf16 at each dense layer, so
+# a change of order flips bf16 ulps there.  On the CPU, with the paths
+# differing in the CTC's sum order alone, the gradients differ by
+# 1.5-1.7e-3; bf16 against f32 by ~2e-2; a weight gradient paired with the
+# wrong frame by O(1) (tests/test_torch_train.py::
+# test_bf16_gradient_tolerance_of_the_chip_check).
+GRAD_REL_TOL = 1e-2
+LOSS_REL_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -87,17 +114,39 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def all_kernels():
+    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
+    return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, ctc_cuda.ALPHA,
+            ctc_cuda.BETA, beam_cuda.KERNEL)
+
+
 def phase_build():
-    from tpu_ctc_torch.ops import _build, beam_cuda, birnn_cuda
+    from tpu_ctc_torch.ops import _build
     log(f"phase 1: card {card_line()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    logs = _build.build_all([birnn_cuda.KERNEL, beam_cuda.KERNEL])
-    log(f"phase 1: built {len(logs)} kernels in {time.time() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
+    logs = _build.build_all(all_kernels())
+    log(f"phase 1: built {len(logs)} kernels from "
+        f"{len({k.library for k in all_kernels()})} sources in "
+        f"{time.time() - t0:.1f} s")
+    shown = set()
+    for kern in all_kernels():
+        if kern.library in shown:
+            continue
+        shown.add(kern.library)
+        for line in logs[kern.name].splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {os.path.basename(kern.source)}: "
+                    f"{line.strip()}")
+
+
+def run_main_path(run):
+    """``run()`` with every launch count set to 0 just before it; returns
+    (its result, {kernel name: launches during it})."""
+    for kern in all_kernels():
+        kern.launches = 0
+    out = run()
+    return out, {k.name: k.launches for k in all_kernels()}
 
 
 def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
@@ -110,10 +159,11 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
     lens = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(np.int32))
     z, w, lens = (z.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
                   lens.to(dev))
-    err = 0.0
+    err, states = 0.0, []
     for d, reverse in enumerate((False, True)):
         got = birnn_cuda.fwd_recurrence_cuda(z, w[d], lens, reverse=reverse,
                                              clip=20.0).float()
+        states.append(got)
         torch.cuda.synchronize()
         want = birnn_cuda.fwd_recurrence_plain(z, w[d], lens,
                                                reverse=reverse,
@@ -134,14 +184,22 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
         z, w[0], lens, reverse=False, clip=20.0), reps)
     plain_ms = time_ms(lambda: birnn_cuda.fwd_recurrence_plain(
         z, w[0], lens, reverse=False, clip=20.0), PLAIN_REPS)
-    live = int(lens.sum())
-    n_bytes = 2 * n_t * n_b * n_h * 2 + n_h * n_h * 2 + n_b * 4
-    n_ops = 2 * n_h * n_h * live
+    # What the timed forward sweep needs: z read at live frames only (a
+    # padded frame's h is 0 whatever z holds), hs written in full, W and
+    # the lengths read once; h_{t-1} @ W at each live frame over the
+    # nonzero entries of h_{t-1} alone (a sparse product: the clipped-ReLU
+    # zeros add nothing).
+    live_tb = (torch.arange(n_t, device=dev)[:, None] < lens[None, :])
+    hs_f = states[0]
+    prev_nnz = torch.cat([torch.zeros_like(hs_f[:1]), hs_f[:-1]]).ne(0).sum(2)
+    n_bytes = ((int(live_tb.sum()) + n_t * n_b) * n_h * 2 + n_h * n_h * 2
+               + n_b * 4)
+    n_ops = 2 * n_h * int((prev_nnz * live_tb).sum())
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
     log(f"phase 2: B1 one direction {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
         f"computes a clipped-ReLU recurrence)")
-    return dict(name="birnn_fwd", route="cuda", source=B1_SOURCE,
+    return dict(name="birnn_fwd", route="cuda", source=BIRNN_SOURCE,
                 replaces=B1_REPLACES, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -195,7 +253,8 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
     live = int(lens.sum())
-    n_bytes = (n_b * n_t * a * 4 + n_b * 4 + a ** 3 * 4 + n_b * n_t * k * 4
+    # the posteriors read and the backpointers written at live frames only
+    n_bytes = (live * a * 4 + n_b * 4 + a ** 3 * 4 + live * k * 4
                + n_b * 3 * k * 4)
     # What the search needs per live frame, whatever the method: for each of
     # the A K candidates the add of its posterior, the LM lookup, the
@@ -243,21 +302,18 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
         return [decode(model, batch_to_device_dict(b)) for b in batches]
 
     run()                                   # warm-up: cuBLAS, LM table
-    kernels = (birnn_cuda.KERNEL, beam_cuda.KERNEL)
-    for kern in kernels:
-        kern.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    outs = run()
+    outs, launches = run_main_path(run)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k: n for k, n in launches.items() if n}
     log(f"phase 4: decoded in {wall:.3f} s = {n_frames / 100 / wall:.1f} "
         f"audio-s/s; launches on the path {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    for kern in (birnn_cuda.KERNEL, beam_cuda.KERNEL):
+        if not launches.get(kern.name):
+            raise AssertionError(f"kernel {kern.name} was not launched on "
+                                 f"the main path")
 
     refs, hyps = {}, {}
     checked = agree = 0
@@ -309,11 +365,271 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
     cer = score_corpus(refs, hyps, "char")[0]
     log(f"phase 4: {format_score_line(cer, 'char')} (random weights: not "
         f"a model quality number)")
-    device_breakdown(run)
+    device_breakdown(run, "phase 4")
     return launches, n_frames / 100 / wall
 
 
-def device_breakdown(run) -> None:
+def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
+    """B2 against its plain loop: H = 1024, B = 32, T = 800, bf16, both
+    directions, on states that B1 computed from random projections."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    r = np.random.RandomState(5)
+    z = torch.from_numpy(3.0 * r.randn(n_t, n_b, n_h).astype(np.float32))
+    w = torch.from_numpy((0.5 / np.sqrt(n_h))
+                         * r.randn(n_h, n_h).astype(np.float32))
+    g = torch.from_numpy(r.randn(n_t, n_b, n_h).astype(np.float32))
+    lens = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(np.int32))
+    z, w, g, lens = (z.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+                     g.to(dev, torch.bfloat16), lens.to(dev))
+    wt = w.t().contiguous()
+    err, states, deltas = 0.0, {}, {}
+    # the forward direction's deltas run right to left over its states
+    for reverse in (True, False):
+        hs = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=not reverse,
+                                            clip=20.0)
+        states[reverse] = hs
+        got = birnn_cuda.bwd_recurrence_cuda(g, hs, wt, reverse=reverse,
+                                             clip=20.0).float()
+        deltas[reverse] = got
+        torch.cuda.synchronize()
+        want = birnn_cuda.bwd_recurrence_plain(g, hs, wt, reverse=reverse,
+                                               clip=20.0).float()
+        diff = (got - want).abs()
+        # bf16 d_t: as for B1, a stored delta may round the other way
+        tol = 2 ** -6 * want.abs() + 2e-2
+        bad = int((diff > tol).sum())
+        err = max(err, float(diff.max()))
+        log(f"phase 5: B2 {'right to left' if reverse else 'left to right'}"
+            f" max abs err {float(diff.max()):.3e}, {bad} beyond tolerance,"
+            f" max |d| {float(want.abs().max()):.2f}, active share "
+            f"{float(((hs.float() > 0) & (hs.float() < 20)).float().mean()):.3f}")
+        if bad:
+            raise AssertionError("B2 disagrees with its plain version")
+    hs = states[True]
+    ms = time_ms(lambda: birnn_cuda.bwd_recurrence_cuda(
+        g, hs, wt, reverse=True, clip=20.0), reps)
+    plain_ms = time_ms(lambda: birnn_cuda.bwd_recurrence_plain(
+        g, hs, wt, reverse=True, clip=20.0), PLAIN_REPS)
+    # What the timed right-to-left sweep needs: hs read in full (it alone
+    # says which units are active), d written in full, g read at active
+    # units only (an inactive unit's d is 0 whatever g holds), W^T read
+    # once; d_{t+1} @ W^T only for the active units of frame t and over
+    # the nonzero entries of d_{t+1} (a sparse product).
+    act = (hs.float() > 0) & (hs.float() < 20.0)
+    d_r = deltas[True]
+    next_nnz = torch.cat([d_r[1:], torch.zeros_like(d_r[:1])]).ne(0).sum(2)
+    n_bytes = ((2 * n_t * n_b * n_h + int(act.sum())) * 2
+               + n_h * n_h * 2)
+    n_ops = 2 * int((act.sum(2) * next_nnz).sum())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
+    log(f"phase 5: B2 one direction {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
+        f"computes a clipped-ReLU delta sweep)")
+    return dict(name="birnn_bwd", route="cuda", source=BIRNN_SOURCE,
+                replaces=B2_REPLACES, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def dp_close(got, want, what):
+    """Max abs error over live states; raises unless live states agree
+    within 1e-3 + 1e-6 |want| and dead states (<= NEG_INF / 2) are dead on
+    both sides with equal sentinel values."""
+    from tpu_ctc_torch.losses.ctc_ref import NEG_INF
+    dead = want <= NEG_INF / 2
+    if not (torch.equal(dead, got <= NEG_INF / 2)
+            and torch.equal(got[dead], want[dead])):
+        raise AssertionError(f"{what}: dead states differ from the plain "
+                             f"sweep's")
+    diff = (got - want).abs()[~dead]
+    bad = int((diff > 1e-3 + 1e-6 * want.abs()[~dead]).sum())
+    err = float(diff.max()) if diff.numel() else 0.0
+    log(f"phase 6: {what} max abs err {err:.3e} on {diff.numel()} live "
+        f"states (max |value| {float(want.abs()[~dead].max()):.1f}), {bad} "
+        f"beyond 1e-3 + 1e-6 |value|; {int(dead.sum())} dead states agree")
+    if bad:
+        raise AssertionError(f"{what} disagrees with its plain sweep")
+    return err
+
+
+def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
+              dev="cuda"):
+    """B3 and B4 against their plain sweeps: B = 32, T = 800, A = 29,
+    labels of 50-100 characters (S <= 201)."""
+    import torch.nn.functional as F
+    from tpu_ctc_torch.ops import ctc_cuda
+    r = np.random.RandomState(6)
+    lp, _ = peaked_posteriors(7, n_b, n_t, a)
+    lp = lp.to(dev)
+    labels = torch.from_numpy(r.randint(1, a, (n_b, chars[1])).astype(
+        np.int32))
+    lab_len = torch.from_numpy(r.randint(chars[0], chars[1] + 1, n_b).astype(
+        np.int32))
+    frames = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(
+        np.int32))
+    labels, lab_len, frames = labels.to(dev), lab_len.to(dev), frames.to(dev)
+    emit, skip, skip2, init, final, lengths = ctc_cuda.lattice(
+        lp, labels, frames, lab_len)
+    n_s = emit.shape[2]
+    err_a = dp_close(ctc_cuda.alpha_cuda(emit, skip, init, lengths),
+                     ctc_cuda.alpha_plain(emit, skip, init, lengths),
+                     f"B3 alpha (S={n_s})")
+    err_b = dp_close(ctc_cuda.beta_cuda(emit, skip2, final, lengths),
+                     ctc_cuda.beta_plain(emit, skip2, final, lengths),
+                     f"B4 beta (S={n_s})")
+    ms_a = time_ms(lambda: ctc_cuda.alpha_cuda(emit, skip, init, lengths),
+                   reps)
+    ms_b = time_ms(lambda: ctc_cuda.beta_cuda(emit, skip2, final, lengths),
+                   reps)
+    plain_a = time_ms(lambda: ctc_cuda.alpha_plain(emit, skip, init, lengths),
+                      PLAIN_REPS)
+    plain_b = time_ms(lambda: ctc_cuda.beta_plain(emit, skip2, final,
+                                                  lengths), PLAIN_REPS)
+
+    # The library yardstick: one F.ctc_loss call on the same log probs
+    # (time-major), forward for B3, forward + backward less forward for B4.
+    lp_req = lp.detach().transpose(0, 1).contiguous().requires_grad_(True)
+
+    def lib_fwd():
+        return F.ctc_loss(lp_req, labels, frames, lab_len, reduction="none")
+
+    def lib_fwd_bwd():
+        lib_fwd().sum().backward()
+
+    lib_ms = time_ms(lib_fwd, reps)
+    lib_total = time_ms(lib_fwd_bwd, reps)
+    lib_err = float((lib_fwd().detach() - ctc_cuda.ctc_loss_from_log_probs(
+        lp, labels, frames, lab_len)).abs().max())
+    lp_port = lp.detach().clone().requires_grad_(True)
+
+    def port_fwd_bwd():
+        ctc_cuda.ctc_loss_from_log_probs(lp_port, labels, frames,
+                                         lab_len).sum().backward()
+
+    port_total = time_ms(port_fwd_bwd, reps)
+    live_states = int(frames.sum()) * n_s
+    # emit is read at live frames only (alpha freezes after a row's length,
+    # beta is NEG_INF there); alpha or beta is written in full; the two
+    # masks and the lengths are read once
+    n_bytes = ((int(frames.sum()) + n_b * n_t) * n_s * 4
+               + 2 * n_b * n_s * 4 + n_b * 4)
+    n_ops = 13 * live_states      # 2 max, 3 sub, 3 exp, 3 add, log, add
+    b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
+    log(f"phase 6: B3 {ms_a:.3f} ms, plain {plain_a:.1f} ms; B4 {ms_b:.3f} "
+        f"ms, plain {plain_b:.1f} ms; bound each {b_ms:.4f} ms ({b_by})")
+    log(f"phase 6: library F.ctc_loss forward {lib_ms:.3f} ms, forward + "
+        f"backward {lib_total:.3f} ms (NLL vs the port's max abs err "
+        f"{lib_err:.3e}); the port's loss with gradient {port_total:.3f} ms")
+    common = dict(route="cuda", source=B34_SOURCE, bound_ms=b_ms,
+                  bound_by=b_by)
+    return [dict(name="ctc_alpha", replaces=B3_REPLACES, max_abs_err=err_a,
+                 ms=ms_a, plain_ms=plain_a, library_ms=lib_ms, **common),
+            dict(name="ctc_beta", replaces=B4_REPLACES, max_abs_err=err_b,
+                 ms=ms_b, plain_ms=plain_b,
+                 library_ms=max(lib_total - lib_ms, 0.0), **common)]
+
+
+def rel_err(a, b) -> float:
+    return float(torch.linalg.norm((a - b).float())
+                 / torch.linalg.norm(b.float()).clamp_min(1e-30))
+
+
+def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
+                **overrides):
+    """Preset 2 at full width and depth: ``train_step`` on two 800-frame
+    batches of 32, from seeded random weights."""
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+    cfg = get_config("timit_full_3layer", **overrides)
+    corpus = SyntheticCorpus(n_utts, feature_dim=cfg.model.input_dim,
+                             min_chars=chars[0], max_chars=chars[1],
+                             seed=seed)
+    batches = [b for _, b in BucketedLoader(corpus.all_utterances(),
+                                            cfg.data).epoch(0)]
+    state = step.create_train_state(cfg, device=dev)
+    log(f"phase 7: preset {cfg.name}: {birnn.count_params(state.model)} "
+        f"params, {len(batches)} batch(es) of "
+        f"{[b.feats.shape for b in batches]}, labels up to "
+        f"{max(int(b.label_lengths.max()) for b in batches)}")
+
+    def train_once(i):
+        batch = batches[i % len(batches)]
+        return step.train_step(state, step.batch_to_tensors(
+            batch_to_device_dict(batch), dev), cfg)
+
+    state, m0 = train_once(0)                  # warm-up: cuBLAS, buffers
+    first_loss = float(m0["loss"])
+
+    def run():
+        nonlocal state
+        metrics = []
+        for i in range(1, steps + 1):
+            state, m = train_once(i)
+            metrics.append(m)
+        return metrics
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics, launches = run_main_path(run)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    frames = sum(int(batches[i % len(batches)].frame_lengths.sum())
+                 for i in range(1, steps + 1))
+    log(f"phase 7: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
+        f"ms a step, {frames / 100 / wall:.1f} audio-s/s; launches on the "
+        f"path {launches}")
+    n_bi = cfg.model.num_bi_layers
+    want = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
+            "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0}
+    for name, n in launches.items():
+        if name != "beam_search" and n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"training path")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"phase 7: losses {[round(x, 2) for x in [first_loss] + losses]}, "
+        f"grad norms {[round(float(m['grad_norm']), 1) for m in metrics]}")
+
+    bt0 = step.batch_to_tensors(batch_to_device_dict(batches[0]), dev)
+    with torch.no_grad():
+        after = float(step.loss_fn(state.model, cfg, bt0)[0])
+    log(f"phase 7: loss on the first batch {first_loss:.3f} before, "
+        f"{after:.3f} after {steps + 1} steps")
+    if not (np.isfinite(after) and after < first_loss):
+        raise AssertionError("training did not lower the loss")
+
+    plain = cfg.override(**{"model.birnn_impl": "scan", "ctc_impl": "jnp"})
+    res = []
+    for c in (cfg, plain):
+        params = dict(state.model.named_parameters())
+        with torch.enable_grad():
+            loss, _ = step.loss_fn(state.model, c, bt0)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        res.append((float(loss.detach()), dict(zip(params, grads))))
+    loss_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    g_rel = {k: rel_err(res[0][1][k], res[1][1][k]) for k in res[0][1]}
+    worst = max(g_rel, key=g_rel.get)
+    log(f"phase 7: kernel vs plain path: loss {res[0][0]:.4f} vs "
+        f"{res[1][0]:.4f} (rel {loss_rel:.2e}, limit {LOSS_REL_TOL}); "
+        f"gradient rel err max {g_rel[worst]:.2e} ({worst}), limit "
+        f"{GRAD_REL_TOL}")
+    if loss_rel > LOSS_REL_TOL or g_rel[worst] > GRAD_REL_TOL:
+        raise AssertionError("the training step's kernel path disagrees "
+                             "with its plain path")
+    torch.cuda.reset_peak_memory_stats()
+    device_breakdown(lambda: train_once(1), "phase 7")
+    log(f"phase 7: peak device memory of one step "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return launches, frames / 100 / wall
+
+
+def device_breakdown(run, phase: str) -> None:
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
     own overhead lengthens the pass, so the idle share is an upper
@@ -334,10 +650,10 @@ def device_breakdown(run) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("phase 4: profiler recorded no device time: breakdown not "
+        log(f"{phase}: profiler recorded no device time: breakdown not "
             "measured")
         return
-    log(f"phase 4: profiled pass {wall_ms:.1f} ms wall, device busy "
+    log(f"{phase}: profiled pass {wall_ms:.1f} ms wall, device busy "
         f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}")
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         log(f"  device {ms:9.2f} ms  x{count:<5d} {name[:90]}")
@@ -353,9 +669,15 @@ def main() -> int:
     t_start = time.time()
     phase_build()
     records = [phase_birnn(REPS), phase_beam(REPS)]
-    launches, _ = phase_end_to_end(seed=0)
+    decode_launches, _ = phase_end_to_end(seed=0)
+    records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
+    train_launches, _ = phase_train(seed=0)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = (decode_launches.get(rec["name"], 0)
+                           + train_launches.get(rec["name"], 0))
+    records.sort(key=lambda rec: ["birnn_fwd", "birnn_bwd", "ctc_alpha",
+                                  "ctc_beta", "beam_search"].index(
+                                      rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [

@@ -1,4 +1,5 @@
-"""The port's BiRNN recurrence and acoustic model against the JAX package.
+"""The port's BiRNN recurrence and acoustic model against the JAX package,
+forward and backward.
 
 Weights and inputs come from numpy seeds (the JAX PRNG has no torch
 counterpart) and reach the port through the npz weight bridge.  At f32 the
@@ -8,6 +9,17 @@ bf16 it is held against the Pallas kernel only: the scan keeps z in f32,
 the kernel (and the port) round z and each h_t to bf16 (tolerance 2e-2,
 a few bf16 ulps of the O(1) states).  Kernel B1 itself runs only on a
 CUDA card (``chip_smoke.py`` holds it against this plain version).
+
+Gradients: the recurrence's custom backward (``BiRecurrence``, the plain
+delta sweep that kernel B2 replaces on a card) against ``jax.vjp`` of the
+Pallas ``bi_recurrence`` in interpret mode: dz, dwf and dwb at f32 within
+1e-5 of the largest magnitude (dW sums T B products of values up to 20 in
+another order), and at bf16 within 2e-2 of
+the largest magnitude: both sides round g and every stored delta to bf16 at
+the same points, so they differ only where an f32 sum taken in another
+order rounds a stored bf16 value the other way.  The dense layers' gradient
+rounds where JAX rounds: dx and dw of ``dot_f32`` are rounded to the
+compute dtype (checked against ``jax.vjp`` exactly, up to f32 order).
 """
 import dataclasses
 
@@ -121,6 +133,145 @@ class TestRecurrence:
                                    rtol=1e-5, atol=1e-5)
 
 
+def _flat(tree):
+    """JAX param tree -> {'pre.0.w': array, ...} (the port's names)."""
+    return {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in kp): np.asarray(leaf)
+            for kp, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _jax_vjp(z, wf, wb, mask, g, dtype, bidirectional=True):
+    def f(z, wf, wb):
+        return birnn_pallas.bi_recurrence(
+            z, wf, wb, jnp.asarray(mask), clip=20.0, compute_dtype=dtype,
+            time_major=True, bidirectional=bidirectional)
+    out, vjp = jax.vjp(f, jnp.asarray(z), jnp.asarray(wf), jnp.asarray(wb))
+    return [np.asarray(v) for v in (out, *vjp(jnp.asarray(g)))]
+
+
+def _port_vjp(z, wf, wb, lens, g, dtype, bidirectional=True):
+    z, wf, wb = (torch.from_numpy(v).requires_grad_(True)
+                 for v in (z, wf, wb))
+    out = birnn_cuda.bi_recurrence(z, wf, wb, torch.from_numpy(lens),
+                                   clip=20.0, compute_dtype=dtype,
+                                   bidirectional=bidirectional)
+    out.backward(torch.from_numpy(g))
+    return [v.detach().numpy() for v in (out, z.grad, wf.grad, wb.grad)]
+
+
+class TestRecurrenceGrad:
+    @pytest.mark.parametrize("t,b,h", [(9, 2, 16), (24, 3, 40), (17, 5, 8)])
+    def test_f32_vjp_matches_pallas(self, t, b, h):
+        z, wf, wb, lens, mask = _recurrence_inputs(t * 3 + h, t, b, h, 0.3)
+        g = np.random.RandomState(t).randn(t, b, h).astype(np.float32)
+        want = _jax_vjp(z, wf, wb, mask, g, "float32")
+        got = _port_vjp(z, wf, wb, lens, g, torch.float32)
+        for name, a, w in zip(("out", "dz", "dwf", "dwb"), got, want):
+            np.testing.assert_allclose(a, w, rtol=1e-5,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=name)
+
+    @pytest.mark.parametrize("t,b,h", [(12, 3, 32), (20, 2, 24)])
+    def test_bf16_vjp_matches_pallas(self, t, b, h):
+        z, wf, wb, lens, mask = _recurrence_inputs(t + 2 * h, t, b, h,
+                                                   0.5 / np.sqrt(h))
+        z = 3.0 * z
+        g = np.random.RandomState(h).randn(t, b, h).astype(np.float32)
+        want = _jax_vjp(z, wf, wb, mask, g, "bfloat16")
+        got = _port_vjp(z, wf, wb, lens, g, torch.bfloat16)
+        for name, a, w in zip(("out", "dz", "dwf", "dwb"), got, want):
+            np.testing.assert_allclose(a, w, rtol=0,
+                                       atol=2e-2 * np.abs(w).max(),
+                                       err_msg=name)
+
+    def test_unidirectional_vjp(self):
+        z, wf, wb, lens, mask = _recurrence_inputs(8, 10, 3, 12, 0.3)
+        g = np.random.RandomState(1).randn(10, 3, 12).astype(np.float32)
+        want = _jax_vjp(z, wf, wb, mask, g, "float32", bidirectional=False)
+        got = _port_vjp(z, wf, wb, lens, g, torch.float32,
+                        bidirectional=False)
+        for name, a, w in zip(("out", "dz", "dwf", "dwb"), got, want):
+            np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        assert not got[3].any()
+
+    @pytest.mark.parametrize("reverse", [False, True])
+    def test_delta_sweep_is_the_pallas_kernel(self, reverse):
+        """bwd_recurrence_plain computes what _bwd_kernel computes."""
+        t, b, h = 16, 16, 128                  # the kernel's own tiling
+        z, wf, _, lens, _ = _recurrence_inputs(4 + reverse, t, b, h,
+                                               0.5 / np.sqrt(h))
+        hs = birnn_cuda.fwd_recurrence_plain(
+            torch.from_numpy(3 * z), torch.from_numpy(wf),
+            torch.from_numpy(lens), reverse=not reverse, clip=20.0)
+        g = np.random.RandomState(3).randn(t, b, h).astype(np.float32)
+        want = birnn_pallas._run_bwd(
+            jnp.asarray(g), jnp.asarray(hs.numpy()), jnp.asarray(wf.T),
+            reverse=reverse, clip=20.0, bb=16, tc=8, t_true=t)
+        got = birnn_cuda.bwd_recurrence_plain(
+            torch.from_numpy(g), hs, torch.from_numpy(wf).t(),
+            reverse=reverse, clip=20.0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_dot_f32_vjp_rounds_where_jax_does(self, dtype):
+        r = np.random.RandomState(6)
+        x = r.randn(2, 5, 33).astype(np.float32)
+        w = r.randn(33, 7).astype(np.float32)
+        g = r.randn(2, 5, 7).astype(np.float32)
+        cdt = getattr(jnp, dtype)
+        _, vjp = jax.vjp(lambda x, w: jnp.dot(
+            x.astype(cdt), w.astype(cdt), preferred_element_type=jnp.float32),
+            jnp.asarray(x), jnp.asarray(w))
+        dx, dw = vjp(jnp.asarray(g))
+        tx, tw = (torch.from_numpy(v).requires_grad_(True) for v in (x, w))
+        birnn_cuda.dot_f32(tx, tw, getattr(torch, dtype)).backward(
+            torch.from_numpy(g))
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_model_grad_matches_jax(self, tmp_path):
+        jcfg, tcfg = _cfgs(hidden=16)
+        params, model = _both_models(jcfg, tcfg, tmp_path)
+        feats, mask, _ = _inputs(3, 3, 11, jcfg.input_dim)
+        cot = np.random.RandomState(5).randn(3, 11, 7).astype(np.float32)
+        want = jax.grad(lambda p: jnp.sum(jax_birnn.forward(
+            p, dataclasses.replace(jcfg, birnn_impl="pallas"),
+            jnp.asarray(feats), jnp.asarray(mask)) * cot))(params)
+        out = birnn.forward(model, tcfg, torch.from_numpy(feats),
+                            torch.from_numpy(mask))
+        (out * torch.from_numpy(cot)).sum().backward()
+        flat = _flat(want)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), flat[name], rtol=1e-5,
+                                       atol=1e-4, err_msg=name)
+
+    def test_model_grad_matches_jax_bf16(self, tmp_path):
+        """bf16 compute: the same rounding points on both sides (each dense
+        layer's dx and dw rounded to bf16, g and the deltas stored in bf16),
+        so the gradients differ only where a sum taken in another order
+        rounds a bf16 value the other way: within 1e-2 of each parameter's
+        gradient norm (2.5 bf16 ulps; see test_torch_train.py's
+        test_bf16_gradient_tolerance_of_the_chip_check)."""
+        jcfg, tcfg = _cfgs(hidden=32, dtype="bfloat16")
+        params, model = _both_models(jcfg, tcfg, tmp_path, seed=1)
+        feats, mask, _ = _inputs(4, 3, 13, jcfg.input_dim)
+        cot = np.random.RandomState(6).randn(3, 13, 7).astype(np.float32)
+        want = jax.grad(lambda p: jnp.sum(jax_birnn.forward(
+            p, dataclasses.replace(jcfg, birnn_impl="pallas"),
+            jnp.asarray(feats), jnp.asarray(mask)) * cot))(params)
+        out = birnn.forward(model, tcfg, torch.from_numpy(feats),
+                            torch.from_numpy(mask))
+        (out * torch.from_numpy(cot)).sum().backward()
+        flat = _flat(want)
+        for name, p in model.named_parameters():
+            err = np.linalg.norm(p.grad.numpy() - flat[name])
+            assert err <= 1e-2 * np.linalg.norm(flat[name]), name
+
+
 class TestModel:
     @pytest.mark.parametrize("impl", ["scan", "pallas"])
     def test_log_posteriors_f32(self, tmp_path, impl):
@@ -130,8 +281,9 @@ class TestModel:
         want = jax_birnn.log_posteriors(
             params, dataclasses.replace(jcfg, birnn_impl=impl),
             jnp.asarray(feats), jnp.asarray(mask))
-        got = birnn.log_posteriors(model, tcfg, torch.from_numpy(feats),
-                                   torch.from_numpy(mask))
+        with torch.no_grad():
+            got = birnn.log_posteriors(model, tcfg, torch.from_numpy(feats),
+                                       torch.from_numpy(mask))
         assert got.shape == (3, 14, 7)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
@@ -193,6 +345,22 @@ class TestKernelGuards:
             birnn_cuda.fwd_recurrence_cuda(
                 torch.from_numpy(z), torch.from_numpy(wf),
                 torch.from_numpy(lens), reverse=False, clip=20.0)
+
+    def test_cpu_tensors_use_the_plain_delta_loop(self):
+        z, wf, _, lens, _ = _recurrence_inputs(7, 6, 2, 8, 0.3)
+        z, wf = torch.from_numpy(z), torch.from_numpy(wf)
+        hs = birnn_cuda.fwd_recurrence_plain(z, wf, torch.from_numpy(lens),
+                                             reverse=False, clip=20.0)
+        before = birnn_cuda.BWD_KERNEL.launches
+        a = birnn_cuda.bwd_recurrence(z, hs, wf.t(), reverse=True,
+                                      clip=20.0)
+        b = birnn_cuda.bwd_recurrence_plain(z, hs, wf.t(), reverse=True,
+                                            clip=20.0)
+        assert torch.equal(a, b)
+        assert birnn_cuda.BWD_KERNEL.launches == before
+        with pytest.raises(ValueError):
+            birnn_cuda.bwd_recurrence_cuda(z, hs, wf.t(), reverse=True,
+                                           clip=20.0)
 
     @pytest.mark.parametrize("b,h,dtype,ok", [
         (64, 1824, torch.bfloat16, True), (128, 2048, torch.bfloat16, True),

@@ -1,0 +1,264 @@
+"""The port's CTC loss against the JAX package, the torch oracle fixture
+and ``torch.nn.functional.ctc_loss``.
+
+Both of the port's paths are held here on the CPU: the oracle
+(``losses/ctc_ref.py``, autograd through a loop over T) and the kernel
+path (``ops/ctc_cuda.CtcDp`` with the plain alpha/beta sweeps that CPU
+tensors take; kernels B3/B4 replace exactly those sweeps on a card, where
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold them against
+them).  Inputs come from numpy seeds.  Tolerance is f32 summation order:
+rtol 1e-5 and atol 1e-4 on NLLs of order 10-100 and on their gradients,
+as the JAX package's own Pallas-vs-scan tests allow.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tpu_ctc.losses import ctc_ref as jax_ref
+from tpu_ctc.ops import ctc_pallas
+from tpu_ctc_torch.losses import ctc, ctc_ref
+from tpu_ctc_torch.ops import ctc_cuda
+
+torch.set_num_threads(2)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+RTOL, ATOL = 1e-5, 1e-4
+IMPLS = ["jnp", "auto"]          # the oracle, the kernel path's glue
+
+
+def _case(seed, b, t, a, lmax):
+    r = np.random.RandomState(seed)
+    logits = r.randn(b, t, a).astype(np.float32)
+    labels = r.randint(1, a, (b, lmax)).astype(np.int32)
+    tl = r.randint(max(2 * lmax + 1, 2), t + 1, b).astype(np.int32)
+    ll = r.randint(0, lmax + 1, b).astype(np.int32)
+    return logits, labels, tl, ll
+
+
+def _port(impl, logits, labels, tl, ll, from_log_probs=False):
+    """(nll, d sum(nll) / d input) of the port."""
+    x = torch.from_numpy(np.array(logits)).requires_grad_(True)
+    nll = ctc.ctc_loss(x, torch.from_numpy(labels), torch.from_numpy(tl),
+                       torch.from_numpy(ll), impl=impl,
+                       from_log_probs=from_log_probs)
+    nll.sum().backward()
+    return nll.detach().numpy(), x.grad.numpy()
+
+
+def _jax(fn, logits, labels, tl, ll):
+    args = [jnp.asarray(v) for v in (labels, tl, ll)]
+    x = jnp.asarray(logits)
+    return (np.asarray(fn(x, *args)),
+            np.asarray(jax.grad(lambda v: jnp.sum(fn(v, *args)))(x)))
+
+
+class TestAgainstJax:
+    @pytest.mark.parametrize("impl", IMPLS)
+    @pytest.mark.parametrize("b,t,a,lmax", [
+        (2, 16, 6, 4), (3, 40, 29, 12), (5, 33, 5, 3), (8, 48, 29, 10)])
+    def test_nll_and_grad_match_the_scan(self, impl, b, t, a, lmax):
+        case = _case(b * 100 + t, b, t, a, lmax)
+        want, g_want = _jax(jax_ref.ctc_loss, *case)
+        got, g_got = _port(impl, *case)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_matches_the_pallas_kernel(self, impl):
+        case = _case(7, 3, 24, 8, 5)
+        want, g_want = _jax(ctc_pallas.ctc_loss, *case)
+        got, g_got = _port(impl, *case)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_from_log_probs(self, impl):
+        logits, labels, tl, ll = _case(3, 3, 20, 7, 4)
+        lp = np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
+        want, g_want = _jax(jax_ref.ctc_loss_from_log_probs, lp, labels, tl,
+                            ll)
+        got, g_got = _port(impl, lp, labels, tl, ll, from_log_probs=True)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_neg_inf_log_probs(self, impl):
+        """-inf vocab entries (a masked class) stay finite, as the Pallas
+        path's test_neg_inf_log_probs requires."""
+        b, t, a, lmax = 2, 20, 8, 4
+        logits, labels, tl, ll = _case(11, b, t, a, lmax)
+        labels = np.minimum(labels, a - 2)          # keep labels feasible
+        lp = np.array(jax.nn.log_softmax(jnp.asarray(logits), -1))
+        lp[:, :, a - 1] = -np.inf
+        want, g_want = _jax(jax_ref.ctc_loss_from_log_probs, lp, labels, tl,
+                            ll)
+        got, g_got = _port(impl, lp, labels, tl, ll, from_log_probs=True)
+        assert np.all(np.isfinite(got)) and np.all(np.isfinite(g_got))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    def test_alignment_posteriors_and_mean(self):
+        logits, labels, tl, ll = _case(5, 3, 18, 6, 4)
+        lp = np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
+        args = [jnp.asarray(v) for v in (labels, tl, ll)]
+        want = np.asarray(jax_ref.ctc_alignment_posteriors(jnp.asarray(lp),
+                                                           *args))
+        targs = [torch.from_numpy(v) for v in (labels, tl, ll)]
+        got = ctc_ref.ctc_alignment_posteriors(torch.from_numpy(lp), *targs)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+        mean = ctc_ref.ctc_loss_mean(torch.from_numpy(logits), *targs)
+        np.testing.assert_allclose(
+            float(mean), float(jax_ref.ctc_loss_mean(jnp.asarray(logits),
+                                                     *args)), rtol=RTOL)
+
+    def test_extend_labels(self):
+        labels = np.array([[3, 3, 5, 0], [1, 2, 2, 2]], np.int32)
+        ext, skip = ctc_ref.extend_labels(torch.from_numpy(labels))
+        j_ext, j_skip = jax_ref.extend_labels(jnp.asarray(labels))
+        np.testing.assert_array_equal(ext.numpy(), np.asarray(j_ext))
+        np.testing.assert_array_equal(skip.numpy(), np.asarray(j_skip))
+
+
+class TestSweeps:
+    """The plain sweeps compute exactly what the Pallas kernels compute
+    (interpret mode, unpacked: one utterance per 128-lane row)."""
+
+    def _lattice(self, seed, b=8, t=16, lmax=20):
+        logits, labels, tl, ll = _case(seed, b, t, 29, lmax // 4)
+        tl[1], ll[2] = 0, 0                  # an empty row and no labels
+        lp = torch.log_softmax(torch.from_numpy(logits), -1)
+        return ctc_cuda.lattice(lp, torch.from_numpy(labels),
+                                torch.from_numpy(tl), torch.from_numpy(ll))
+
+    @staticmethod
+    def _lanes(x, fill):
+        """[B, S] -> the Pallas kernels' [B, 128] lane tile."""
+        return jnp.pad(jnp.asarray(x.numpy()),
+                       ((0, 0), (0, 128 - x.shape[1])), constant_values=fill)
+
+    def test_alpha_plain_is_the_alpha_kernel(self):
+        emit, skip, _, init, _, lengths = self._lattice(1)
+        b, t, s = emit.shape
+        want = ctc_pallas._run_alpha(
+            jnp.pad(jnp.asarray(emit.numpy()),
+                    ((0, 0), (0, 0), (0, 128 - s)),
+                    constant_values=ctc_ref.NEG_INF),
+            self._lanes(skip, 0.0), self._lanes(init, ctc_ref.NEG_INF),
+            jnp.broadcast_to(jnp.asarray(lengths.numpy(), jnp.float32)[:, None],
+                             (b, 128)), 8, 8, 128)
+        got = ctc_cuda.alpha_plain(emit, skip, init, lengths)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :, :s],
+                                   rtol=1e-6, atol=1e-4)
+
+    def test_beta_plain_is_the_beta_kernel(self):
+        emit, _, skip2, _, final, lengths = self._lattice(2)
+        b, t, s = emit.shape
+        want = ctc_pallas._run_beta(
+            jnp.pad(jnp.asarray(emit.numpy()),
+                    ((0, 0), (0, 0), (0, 128 - s)),
+                    constant_values=ctc_ref.NEG_INF),
+            self._lanes(skip2, 0.0), self._lanes(final, ctc_ref.NEG_INF),
+            jnp.broadcast_to(jnp.asarray(lengths.numpy(), jnp.float32)[:, None],
+                             (b, 128)), 8, 8, 128)
+        got = ctc_cuda.beta_plain(emit, skip2, final, lengths)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :, :s],
+                                   rtol=1e-6, atol=1e-4)
+
+    def test_lattice_is_cut_to_the_longest_label(self):
+        emit, skip, skip2, init, final, lengths = self._lattice(3)
+        assert emit.shape[2] == skip.shape[1] == 2 * 5 + 1
+        assert lengths.dtype == torch.int32
+
+    def test_cpu_tensors_use_the_plain_sweeps(self):
+        emit, skip, skip2, init, final, lengths = self._lattice(4)
+        before = (ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
+        assert torch.equal(ctc_cuda.alpha(emit, skip, init, lengths),
+                           ctc_cuda.alpha_plain(emit, skip, init, lengths))
+        assert torch.equal(ctc_cuda.beta(emit, skip2, final, lengths),
+                           ctc_cuda.beta_plain(emit, skip2, final, lengths))
+        assert (ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches) == before
+        with pytest.raises(ValueError):
+            ctc_cuda.alpha_cuda(emit, skip, init, lengths)
+        with pytest.raises(ValueError):
+            ctc_cuda.beta_cuda(emit, skip2, final, lengths)
+
+
+class TestOracles:
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_torch_oracle_fixture(self, impl):
+        d = np.load(os.path.join(DATA, "ctc_torch_oracle.npz"))
+        for ci in range(int(d["num_cases"])):
+            got, g_got = _port(impl, d[f"logits_{ci}"], d[f"labels_{ci}"],
+                               d[f"tl_{ci}"], d[f"ll_{ci}"])
+            np.testing.assert_allclose(got, d[f"loss_{ci}"], rtol=RTOL,
+                                       atol=ATOL)
+            np.testing.assert_allclose(g_got, d[f"grad_{ci}"], rtol=RTOL,
+                                       atol=ATOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_functional_ctc_loss(self, impl):
+        logits, labels, tl, ll = _case(9, 4, 30, 12, 6)
+        x = torch.from_numpy(logits).requires_grad_(True)
+        want = F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1),
+                          torch.from_numpy(labels), torch.from_numpy(tl),
+                          torch.from_numpy(ll), reduction="none")
+        want.sum().backward()
+        got, g_got = _port(impl, logits, labels, tl, ll)
+        np.testing.assert_allclose(got, want.detach().numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(g_got, x.grad.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+class TestEdgeCases:
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_infeasible_is_clamped_without_gradient(self, impl):
+        logits = np.zeros((2, 3, 4), np.float32)
+        labels = np.array([[1, 2, 3], [1, 0, 0]], np.int32)
+        got, grad = _port(impl, logits, labels, np.array([2, 3], np.int32),
+                          np.array([3, 1], np.int32))
+        assert got[0] == pytest.approx(1e9) and got[1] < 10
+        np.testing.assert_array_equal(grad[0], 0.0)
+        assert np.abs(grad[1]).sum() > 0
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_label_len_zero(self, impl):
+        logits, labels, tl, _ = _case(13, 3, 12, 5, 3)
+        ll = np.array([0, 2, 0], np.int32)
+        want, g_want = _jax(jax_ref.ctc_loss, logits, labels, tl, ll)
+        got, g_got = _port(impl, logits, labels, tl, ll)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+        # all blanks: -sum of the blank log probs over the live frames
+        lp = torch.log_softmax(torch.from_numpy(logits), -1).numpy()
+        np.testing.assert_allclose(got[0], -lp[0, :tl[0], 0].sum(),
+                                   rtol=RTOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_all_label_lengths_zero(self, impl):
+        logits, labels, tl, _ = _case(17, 2, 9, 5, 2)
+        ll = np.zeros(2, np.int32)
+        want, g_want = _jax(jax_ref.ctc_loss, logits, labels, tl, ll)
+        got, g_got = _port(impl, logits, labels, tl, ll)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_zero_gradient_on_padding(self, impl):
+        logits, labels, _, ll = _case(19, 2, 20, 6, 4)
+        got, grad = _port(impl, logits, labels, np.array([12, 20], np.int32),
+                          ll)
+        np.testing.assert_array_equal(grad[0, 12:], 0.0)
+        assert np.abs(grad[0, :12]).sum() > 0
+
+    def test_unknown_impl_raises(self):
+        logits, labels, tl, ll = _case(1, 1, 5, 4, 1)
+        with pytest.raises(ValueError):
+            ctc.ctc_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                         torch.from_numpy(tl), torch.from_numpy(ll),
+                         impl="nope")

@@ -8,9 +8,13 @@ that has only the port's dependencies:
 
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX.)  Kernel B5
 must equal the plain search exactly (hypotheses, lengths, scores within
-1e-3: it does the plain version's float steps in the same order).  Kernel
-B1 stores bf16 states that may round the other way where the two sum the
-f32 dot in different orders: within 2^-6 |h| + 2e-2 at bf16, 1e-4 at f32.
+1e-3: it does the plain version's float steps in the same order).  Kernels
+B1 and B2 store bf16 states (deltas) that may round the other way where
+the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
+bf16, 1e-4 at f32.  Kernels B3 and B4 do the plain sweeps' float steps
+with expf/logf: live states within 1e-3 + 1e-6 |alpha| (an ulp or two of
+values up to a few thousand), dead states (<= NEG_INF / 2) dead on both
+sides with the same sentinel values.
 """
 import dataclasses
 
@@ -22,7 +26,9 @@ from tpu_ctc_torch.config import get_config
 from tpu_ctc_torch.decode import beam
 from tpu_ctc_torch.decode.lm import train_ngram_lm
 from tpu_ctc_torch.models import birnn
-from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
+from tpu_ctc_torch.losses import ctc, ctc_ref
+from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
+from tpu_ctc_torch.train import step
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +100,154 @@ def test_model_kernel_path_matches_plain(dev):
         model, dataclasses.replace(cfg.model, birnn_impl="scan"), feats, mask)
     assert got.shape == (6, 50, 29) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (20, 128, 64, torch.bfloat16), (12, 32, 1024, torch.bfloat16),
+    (8, 16, 1824, torch.bfloat16), (15, 7, 72, torch.float32),
+    (9, 5, 1024, torch.float32), (6, 3, 1824, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_birnn_bwd_kernel_matches_plain(dev, t, b, h, dtype, reverse):
+    z, w, lens = _recurrence_inputs(t * b + h + 1, t, b, h)
+    z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
+    hs = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=not reverse,
+                                         clip=20.0)
+    g = torch.from_numpy(np.random.RandomState(h).randn(t, b, h).astype(
+        np.float32)).to(dev, dtype)
+    before = birnn_cuda.BWD_KERNEL.launches
+    got = birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=reverse,
+                                         clip=20.0).float()
+    torch.cuda.synchronize()
+    assert birnn_cuda.BWD_KERNEL.launches == before + 1
+    want = birnn_cuda.bwd_recurrence_plain(g, hs, w.t(), reverse=reverse,
+                                           clip=20.0).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
+    assert torch.all(got[hs.float() <= 0] == 0)       # inactive frames
+
+
+def test_bi_recurrence_grad_kernel_matches_plain(dev):
+    t, b, h = 30, 6, 256
+    z, w, lens = _recurrence_inputs(5, t, b, h)
+    wb = w.flip(0).contiguous()
+    g = torch.from_numpy(np.random.RandomState(6).randn(t, b, h).astype(
+        np.float32)).to(dev)
+    grads = []
+    for plain in (False, True):
+        zz, wf_, wb_ = (x.to(dev).requires_grad_(True) for x in (z, w, wb))
+        out = birnn_cuda.bi_recurrence(zz, wf_, wb_, lens.to(dev), clip=20.0,
+                                       compute_dtype=torch.float32,
+                                       plain=plain)
+        out.backward(g)
+        grads.append((out.detach(), zz.grad, wf_.grad, wb_.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def _lattice(dev, seed, b, t, a, lmax, tl=None, ll=None):
+    r = np.random.RandomState(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        2.0 * r.randn(b, t, a).astype(np.float32)), -1)
+    labels = torch.from_numpy(r.randint(1, a, (b, lmax)).astype(np.int32))
+    if tl is None:
+        tl = r.randint(2 * lmax + 1, t + 1, b)
+    if ll is None:
+        ll = r.randint(lmax // 2, lmax + 1, b)
+        ll[0] = lmax
+    return ctc_cuda.lattice(lp.to(dev), labels.to(dev),
+                            torch.as_tensor(tl, dtype=torch.int32, device=dev),
+                            torch.as_tensor(ll, dtype=torch.int32, device=dev))
+
+
+def _assert_dp_close(got, want):
+    dead = want <= ctc_ref.NEG_INF / 2
+    assert torch.equal(dead, got <= ctc_ref.NEG_INF / 2)
+    assert torch.equal(got[dead], want[dead])
+    diff = (got - want).abs()[~dead]
+    assert bool(torch.all(diff <= 1e-3 + 1e-6 * want.abs()[~dead]))
+
+
+@pytest.mark.parametrize("b,t,a,lmax,tl,ll", [
+    (6, 90, 29, 20, None, None),
+    (4, 300, 29, 127, None, None),                       # S = 255
+    (5, 40, 12, 8, [40, 0, 40, 3, 17], [8, 2, 0, 8, 0]),  # empty, no labels,
+    (3, 64, 29, 30, [20, 64, 64], [30, 0, 0])])           # infeasible
+def test_ctc_kernels_match_plain(dev, b, t, a, lmax, tl, ll):
+    emit, skip, skip2, init, final, lengths = _lattice(
+        dev, b + t, b, t, a, lmax, tl, ll)
+    before = (ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
+    alpha = ctc_cuda.alpha_cuda(emit, skip, init, lengths)
+    beta = ctc_cuda.beta_cuda(emit, skip2, final, lengths)
+    torch.cuda.synchronize()
+    assert (ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_dp_close(alpha, ctc_cuda.alpha_plain(emit, skip, init, lengths))
+    _assert_dp_close(beta, ctc_cuda.beta_plain(emit, skip2, final, lengths))
+
+
+def test_ctc_loss_kernel_path_matches_the_oracle(dev):
+    r = np.random.RandomState(3)
+    b, t, a, lmax = 8, 120, 29, 30
+    logits = torch.from_numpy(r.randn(b, t, a).astype(np.float32))
+    labels = torch.from_numpy(r.randint(1, a, (b, lmax)).astype(np.int32))
+    tl = torch.from_numpy(r.randint(70, t + 1, b).astype(np.int32))
+    ll = torch.from_numpy(r.randint(0, lmax + 1, b).astype(np.int32))
+    ll[1], tl[2], ll[2] = 0, 20, 30                      # blank-only; infeasible
+    args = [x.to(dev) for x in (labels, tl, ll)]
+    res = []
+    for impl in ("auto", "jnp"):
+        x = logits.to(dev).requires_grad_(True)
+        nll = ctc.ctc_loss(x, *args, impl=impl)
+        nll.sum().backward()
+        res.append((nll.detach(), x.grad))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=1e-4, atol=1e-4)
+    assert float(res[0][0][2]) == 1e9 and not res[0][1][2].any()
+
+
+def test_ctc_kernels_refuse_what_they_cannot_take(dev):
+    emit = torch.zeros((2, 4, 1025), device=dev)
+    masks = torch.zeros((2, 1025), device=dev)
+    lens = torch.tensor([4, 4], device=dev)
+    with pytest.raises(NotImplementedError):
+        ctc_cuda.alpha_cuda(emit, masks, masks, lens)
+    with pytest.raises(ValueError):
+        ctc_cuda.beta_cuda(emit, masks[:, :3], masks, lens)
+
+
+def test_train_step_kernel_path_matches_plain(dev):
+    over = {"model.hidden_dim": 128, "model.num_bi_layers": 2,
+            "model.compute_dtype": "float32", "data.batch_size": 6}
+    cfg = get_config("2", **over)
+    plain = cfg.override(**{"model.birnn_impl": "scan", "ctc_impl": "jnp"})
+    r = np.random.RandomState(4)
+    batch = {"feats": r.randn(6, 60, 120).astype(np.float32),
+             "frame_lengths": np.array([60, 55, 41, 60, 33, 48], np.int32),
+             "labels": r.randint(1, 29, (6, 12)).astype(np.int32),
+             "label_lengths": np.array([12, 9, 0, 5, 12, 7], np.int32),
+             "weights": np.ones(6, np.float32)}
+    batch["frame_mask"] = (np.arange(60)[None] < batch["frame_lengths"][:, None]
+                           ).astype(np.float32)
+    bt = step.batch_to_tensors(batch, dev)
+    out = []
+    for c in (cfg, plain):
+        state = step.create_train_state(c, device=dev)
+        counts = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
+                  ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
+        state, m = step.train_step(state, bt, c)
+        after = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
+                 ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
+        out.append((m, dict(state.model.named_parameters()),
+                    [y - x for x, y in zip(counts, after)]))
+    assert out[0][2] == [4, 4, 1, 1] and out[1][2] == [0, 0, 0, 0]
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(out[0][0][key], out[1][0][key], rtol=1e-4,
+                                   atol=0)
+    for name, p in out[0][1].items():
+        torch.testing.assert_close(p, out[1][1][name], rtol=1e-4, atol=1e-6)
 
 
 def _posteriors(seed, b, t, a, scale=2.0):

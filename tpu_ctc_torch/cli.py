@@ -1,4 +1,5 @@
-"""Command line of the PyTorch/CUDA port: decode, score and print-config.
+"""Command line of the PyTorch/CUDA port: train, decode, score and
+print-config.
 
 Counterpart of ``tpu_ctc.cli`` with the same flags, except:
 
@@ -7,10 +8,12 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, except:
     read here); without it the model is random-initialised from ``--seed``;
   * ``--device`` picks the torch device (default ``cuda``: without a card
     the command fails rather than run on the CPU);
+  * ``train --seed`` overrides the config's seed of the initial weights;
   * ``--synthetic-audio`` and ``--data`` need the feature frontend, which
     is not ported yet (ROADMAP.md queue A, frontend and data items).
 
 Usage:
+  python -m tpu_ctc_torch.cli train --config 2 --synthetic 64 --work-dir runs/x
   python -m tpu_ctc_torch.cli decode --config 4 --synthetic 64 --beam
   python -m tpu_ctc_torch.cli decode --config 4 --weights w.npz --synthetic 64
   python -m tpu_ctc_torch.cli score --ref ref.trn --hyp hyp.trn
@@ -54,6 +57,25 @@ def _dataset(cfg, args):
                              feature_dim=cfg.model.input_dim,
                              frames_per_char=8)
     return corpus.all_utterances(), corpus.alphabet
+
+
+def cmd_train(args):
+    """Train on ``--synthetic N`` utterances, the first tenth held out for
+    eval; metrics and checkpoints go to ``--work-dir``."""
+    from tpu_ctc_torch import resolve_device
+    from tpu_ctc_torch.train.loop import train
+
+    cfg = _load_config(args)
+    if args.seed is not None:
+        cfg = cfg.override(seed=args.seed)
+    dev = resolve_device(args.device)
+    data, _ = _dataset(cfg, args)
+    n_eval = max(len(data) // 10, 1)
+    _, metrics = train(cfg, data[n_eval:], eval_data=data[:n_eval],
+                       work_dir=args.work_dir, resume=args.resume,
+                       device=dev)
+    print("final metrics:", metrics)
+    return 0
 
 
 def cmd_decode(args):
@@ -161,6 +183,16 @@ def main(argv=None):
                         help="N synthetic tone-waveform utterances through "
                              "the frontend (not ported yet)")
     common.add_argument("--data", help="manifest directory (not ported yet)")
+
+    t = sub.add_parser("train", parents=[common])
+    t.add_argument("--work-dir", default=".")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--seed", type=int, default=None,
+                   help="seed of the initial weights (default: the "
+                        "config's seed)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device (default cuda)")
+    t.set_defaults(fn=cmd_train)
 
     d = sub.add_parser("decode", parents=[common])
     d.add_argument("--weights",

@@ -11,6 +11,14 @@ Parameters keep the JAX tree's names and layouts (``pre.0.w`` is
 [fan_in, fan_out]), so ``train.checkpoint`` maps the JAX npz export one
 to one.  Dense matmuls take ``compute_dtype`` inputs and return f32
 (``ops.birnn_cuda.dot_f32``).
+
+The model trains: parameters require gradients, the dense layers
+differentiate through ``ops.birnn_cuda.DotF32`` (the cotangent is rounded
+to ``compute_dtype`` where JAX rounds it, at the transpose of each
+``astype(compute_dtype)``) and the recurrence through
+``ops.birnn_cuda.BiRecurrence`` (kernel B2 on a card).  Inference callers
+run under ``torch.no_grad()``.  ``cfg.remat`` is not ported yet: it is
+ignored (the recurrence keeps its io-dtype states for the backward).
 """
 from __future__ import annotations
 
@@ -42,9 +50,9 @@ class Dense(nn.Module):
     def __init__(self, fan_in: int, fan_out: int, dtype, device=None):
         super().__init__()
         self.w = nn.Parameter(torch.zeros((fan_in, fan_out), dtype=dtype,
-                                          device=device), requires_grad=False)
+                                          device=device))
         self.b = nn.Parameter(torch.zeros((fan_out,), dtype=dtype,
-                                          device=device), requires_grad=False)
+                                          device=device))
 
 
 class BiLayer(Dense):
@@ -53,9 +61,9 @@ class BiLayer(Dense):
     def __init__(self, fan_in: int, hidden: int, dtype, device=None):
         super().__init__(fan_in, hidden, dtype, device)
         self.wf = nn.Parameter(torch.zeros((hidden, hidden), dtype=dtype,
-                                           device=device), requires_grad=False)
+                                           device=device))
         self.wb = nn.Parameter(torch.zeros((hidden, hidden), dtype=dtype,
-                                           device=device), requires_grad=False)
+                                           device=device))
 
 
 class BiRNN(nn.Module):

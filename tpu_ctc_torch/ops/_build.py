@@ -5,7 +5,11 @@ Each kernel source ``tpu_ctc_torch/csrc/<name>.cu`` becomes
 ``build/tpu_ctc_torch/lib<name>.so`` under the repository root (``build/``
 is git-ignored).  Nothing is compiled when a module is imported: the first
 launch builds, and :func:`build_all` builds several sources in parallel
-(one ``nvcc`` process each).
+(one ``nvcc`` process each).  Each source is self-contained (no shared
+header), so the library is stale exactly when its one ``.cu`` is newer.
+Two kernels of one source (the BiRNN forward and backward sweeps, the CTC
+alpha and beta sweeps) are two :class:`CudaKernel` objects, each with its
+own launch count, over one library.
 """
 from __future__ import annotations
 
@@ -38,10 +42,11 @@ class CudaKernel:
     ``launches``, the number of kernel launches made through its wrapper
     (the wrapper adds one per launch)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str = ""):
         self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
-        self.library = os.path.join(BUILD_DIR, f"lib{name}.so")
+        source = source or name
+        self.source = os.path.join(CSRC, source + ".cu")
+        self.library = os.path.join(BUILD_DIR, f"lib{source}.so")
         self.launches = 0
         self._lib = None
         self.build_log = ""
@@ -65,12 +70,16 @@ class CudaKernel:
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
-    """Compile every kernel's source at once, one ``nvcc`` each; raise
-    with the compiler's output if any fails.  Returns name -> nvcc log."""
+    """Compile every kernel's source at once, one ``nvcc`` per library;
+    raise with the compiler's output if any fails.  Returns name -> nvcc
+    log (kernels that share a library share its log)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    by_lib: Dict[str, CudaKernel] = {}
+    for k in kernels:
+        by_lib.setdefault(k.library, k)
     procs = [(k, subprocess.Popen(k.command(), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
-             for k in kernels]
+             for k in by_lib.values()]
     failed = []
     for k, p in procs:
         k.build_log = p.communicate()[0]
@@ -79,6 +88,8 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
                           f"{k.build_log}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    for k in kernels:
+        k.build_log = by_lib[k.library].build_log
     return {k.name: k.build_log for k in kernels}
 
 

@@ -1,20 +1,31 @@
-"""Fused BiRNN forward recurrence: CUDA kernel B1 and its plain version.
+"""Fused BiRNN recurrence: CUDA kernels B1 (forward) and B2 (backward),
+their plain versions, and the autograd Function over them.
 
-Counterpart of ``tpu_ctc.ops.birnn_pallas`` (forward only: this package
-does not train yet).  One direction computes
+Counterpart of ``tpu_ctc.ops.birnn_pallas``.  One direction computes
 
     h_t = clip(z_t + bf16(h_{t-1}) @ W, 0, clip) * 1{t < length}
 
-from a zero carry, forward or reversed in time; :func:`bi_recurrence` sums
-the two directions in f32.  Rounding points are the Pallas kernel's
-(``birnn_pallas.py:252-291``): z is rounded to the io dtype before the
-sweep, the dot input is the state in the compute dtype with f32
-accumulation, each ``h_t`` is stored in the io dtype.
+from a zero carry, forward or reversed in time; its backward is the delta
+sweep in the opposite time order,
 
-Layout is time-major [T, B, H].  :func:`fwd_recurrence` launches the
-kernel (``csrc/birnn_fwd.cu``) for CUDA tensors and runs
-:func:`fwd_recurrence_plain` for CPU tensors; for a CUDA tensor it never
-falls back: what the kernel cannot take raises.
+    d_t = (g_t + bf16(d_next) @ W^T) * 1{0 < h_t < clip}.
+
+:func:`bi_recurrence` sums the two directions in f32 and differentiates
+through :class:`BiRecurrence`, which mirrors ``_make_bi_recurrence``
+(``birnn_pallas.py:228-326``).  Rounding points are the Pallas kernels':
+z and g are rounded to the io dtype before a sweep, the dot input is the
+state (or delta) in the compute dtype with f32 accumulation, and each
+``h_t`` and ``d_t`` is stored in the io dtype.  The weight gradients
+dW = sum_t h_neighbour^T d_t are one large f32 product each, outside the
+kernels, as the JAX package leaves them to XLA.
+
+Layout is time-major [T, B, H].  :func:`fwd_recurrence` and
+:func:`bwd_recurrence` launch the kernels (one source, ``csrc/birnn.cu``)
+for CUDA tensors and run the plain loops for CPU tensors; for a CUDA tensor
+they never fall back: what a kernel cannot take raises.
+
+Every matrix product here goes through :func:`matmul_f32`, which switches
+TF32 off around the call, in the forward and in the backward alike.
 """
 from __future__ import annotations
 
@@ -24,31 +35,65 @@ import torch
 
 from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
-KERNEL = CudaKernel("birnn_fwd")
-MAX_BATCH = 128                    # kMaxB of the kernel
-_COLS, _KC = 16, 64                # kCols, kKc of the kernel
+KERNEL = CudaKernel("birnn_fwd", source="birnn")
+BWD_KERNEL = CudaKernel("birnn_bwd", source="birnn")
+MAX_BATCH = 128                    # kMaxB of the kernels
+_COLS, _KC = 16, 64                # kCols, kKc of the kernels
 _SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 _COOP_TOO_LARGE = 720              # cudaErrorCooperativeLaunchTooLarge
 
 
-def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """``x @ w`` with inputs rounded to ``compute_dtype`` and an f32 result
-    that is not rounded again, as JAX's ``preferred_element_type=f32``.
-
-    Form: an f32 matmul of the rounded operands.  A product of two bf16
-    values is exact in f32, so with TF32 off this is bf16 inputs with f32
-    accumulation; TF32 is switched off for the call.
-    """
-    xc = x.to(compute_dtype).to(torch.float32)
-    wc = w.to(compute_dtype).to(torch.float32)
-    if not xc.is_cuda:
-        return xc @ wc
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full f32: TF32 is switched off for the call on a card
+    (a product of two bf16 values is exact in f32, so with TF32 off a
+    product of bf16-rounded operands has f32 accumulation)."""
+    if not a.is_cuda:
+        return a @ b
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return xc @ wc
+        return a @ b
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class DotF32(torch.autograd.Function):
+    """``x @ w`` with inputs rounded to the compute dtype and an f32 result,
+    as JAX's ``jnp.dot(x.astype(cdt), w.astype(cdt),
+    preferred_element_type=f32)``, and JAX's gradient of it: the f32
+    cotangent g enters both products unrounded, and dx = g w_c^T and
+    dw = x_c^T g are each rounded to the compute dtype (the transpose of
+    ``astype(cdt)``) before they return to the inputs' f32.  x is [..., K],
+    w [K, N]."""
+
+    @staticmethod
+    def forward(ctx, x, w, compute_dtype):
+        xc = x.to(compute_dtype).to(torch.float32)
+        wc = w.to(compute_dtype).to(torch.float32)
+        ctx.save_for_backward(xc, wc)
+        ctx.cdt = compute_dtype
+        ctx.dtypes = (x.dtype, w.dtype)
+        return matmul_f32(xc, wc)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        g = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul_f32(g, wc.t()).to(ctx.cdt).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = matmul_f32(xc.reshape(-1, xc.shape[-1]).t(),
+                            g.reshape(-1, g.shape[-1]))
+            dw = dw.to(ctx.cdt).to(ctx.dtypes[1])
+        return dx, dw, None
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x @ w`` with inputs rounded to ``compute_dtype`` and an f32 result
+    that is not rounded again, as JAX's ``preferred_element_type=f32``;
+    differentiable as :class:`DotF32`."""
+    return DotF32.apply(x, w, compute_dtype)
 
 
 def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
@@ -70,20 +115,60 @@ def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def check_supported(n_b: int, n_h: int, dtype: torch.dtype) -> None:
-    """Raise if the kernel cannot take this shape or dtype."""
+def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
+                    what: str = "birnn_fwd") -> None:
+    """Raise if the kernels (B1 and B2 share their limits) cannot take
+    this shape or dtype."""
     if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"birnn_fwd kernel: io dtype {dtype} "
+        raise NotImplementedError(f"{what} kernel: io dtype {dtype} "
                                   "(bfloat16 or float32 only)")
     if not 1 <= n_b <= MAX_BATCH:
         raise NotImplementedError(
-            f"birnn_fwd kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
+            f"{what} kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
     item = torch.finfo(dtype).bits // 8
     smem = (n_h * _COLS + MAX_BATCH * (_KC + 4 // item)) * item
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
-            f"birnn_fwd kernel: H={n_h} needs {smem} B of shared memory "
+            f"{what} kernel: H={n_h} needs {smem} B of shared memory "
             f"per block (limit {_SMEM_LIMIT})")
+
+
+def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
+                w: torch.Tensor, third: torch.Tensor, *, reverse: bool,
+                clip: float) -> torch.Tensor:
+    """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
+    ``third`` the lengths (B1) or the stored states (B2) -> [T, B, H]."""
+    what = kernel.name
+    if not (x.is_cuda and w.is_cuda and third.is_cuda):
+        raise ValueError(f"{what} kernel: tensors must be on a CUDA device")
+    if x.dim() != 3 or w.shape != (x.shape[2], x.shape[2]):
+        raise ValueError(f"{what} kernel: {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not fit [T,B,H] x [H,H]")
+    if w.dtype != x.dtype:
+        raise NotImplementedError(
+            f"{what} kernel: io dtype {x.dtype} with compute dtype "
+            f"{w.dtype} (the kernel takes one dtype for both)")
+    n_t, n_b, n_h = x.shape
+    check_supported(n_b, n_h, x.dtype, what)
+    x = x.contiguous()
+    w = w.contiguous()
+    out = torch.empty_like(x)
+    xbuf = torch.zeros((2, n_b, n_h), dtype=x.dtype, device=x.device)
+    count = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    fn = getattr(kernel.lib(), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    err = fn(ptr(x), ptr(w), ptr(third), ptr(out), ptr(xbuf), ptr(count),
+             n_t, n_b, n_h, int(reverse), float(clip),
+             int(x.dtype == torch.bfloat16), stream_of(x))
+    if err == _COOP_TOO_LARGE:
+        raise NotImplementedError(
+            f"{what} kernel: H={n_h} needs {-(-n_h // _COLS)} co-resident "
+            "blocks, more than the card holds at once")
+    check(err, what)
+    kernel.launches += 1
+    return out
 
 
 def fwd_recurrence_cuda(z: torch.Tensor, w: torch.Tensor,
@@ -91,37 +176,9 @@ def fwd_recurrence_cuda(z: torch.Tensor, w: torch.Tensor,
                         clip: float) -> torch.Tensor:
     """Launch kernel B1 for one direction.  Same contract as
     :func:`fwd_recurrence_plain`; z and w must share the io dtype."""
-    if not (z.is_cuda and w.is_cuda and lengths.is_cuda):
-        raise ValueError("birnn_fwd kernel: tensors must be on a CUDA device")
-    if z.dim() != 3 or w.shape != (z.shape[2], z.shape[2]):
-        raise ValueError(f"birnn_fwd kernel: z {tuple(z.shape)} and w "
-                         f"{tuple(w.shape)} do not fit [T,B,H] x [H,H]")
-    if w.dtype != z.dtype:
-        raise NotImplementedError(
-            f"birnn_fwd kernel: io dtype {z.dtype} with compute dtype "
-            f"{w.dtype} (the kernel takes one dtype for both)")
-    n_t, n_b, n_h = z.shape
-    check_supported(n_b, n_h, z.dtype)
-    z = z.contiguous()
-    w = w.contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    hs = torch.empty_like(z)
-    xbuf = torch.zeros((2, n_b, n_h), dtype=z.dtype, device=z.device)
-    count = torch.zeros((1,), dtype=torch.int32, device=z.device)
-    fn = KERNEL.lib().birnn_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    err = fn(ptr(z), ptr(w), ptr(lengths), ptr(hs), ptr(xbuf), ptr(count),
-             n_t, n_b, n_h, int(reverse), float(clip),
-             int(z.dtype == torch.bfloat16), stream_of(z))
-    if err == _COOP_TOO_LARGE:
-        raise NotImplementedError(
-            f"birnn_fwd kernel: H={n_h} needs {-(-n_h // _COLS)} co-resident "
-            "blocks, more than the card holds at once")
-    check(err, "birnn_fwd")
-    KERNEL.launches += 1
-    return hs
+    return _sweep_cuda(KERNEL, "birnn_fwd_launch", z, w,
+                       lengths.to(torch.int32).contiguous(), reverse=reverse,
+                       clip=clip)
 
 
 def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float):
@@ -132,20 +189,105 @@ def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float):
     return fwd_recurrence_plain(z, w, lengths, reverse=reverse, clip=clip)
 
 
+def bwd_recurrence_plain(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
+                         *, reverse: bool, clip: float) -> torch.Tensor:
+    """Plain delta loop: g, hs [T, B, H] io dtype (hs the stored forward
+    states), wt = W^T [H, H] compute dtype -> d [T, B, H] in g's dtype.
+    ``reverse`` sweeps right to left (the forward direction's backward)."""
+    n_t, n_b, n_h = g.shape
+    d = torch.zeros((n_b, n_h), dtype=torch.float32, device=g.device)
+    out = torch.empty_like(g)
+    for s in range(n_t):
+        t = n_t - 1 - s if reverse else s
+        h = hs[t].to(torch.float32)
+        active = (h > 0.0) & (h < clip)
+        d = torch.where(active, g[t].to(torch.float32)
+                        + dot_f32(d, wt, wt.dtype), torch.zeros_like(h))
+        out[t] = d.to(g.dtype)          # the carry d itself stays f32
+    return out
+
+
+def bwd_recurrence_cuda(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
+                        *, reverse: bool, clip: float) -> torch.Tensor:
+    """Launch kernel B2 for one direction.  Same contract as
+    :func:`bwd_recurrence_plain`; g, hs and wt must share the io dtype."""
+    if hs.shape != g.shape or hs.dtype != g.dtype:
+        raise ValueError(f"birnn_bwd kernel: hs {tuple(hs.shape)} {hs.dtype} "
+                         f"does not match g {tuple(g.shape)} {g.dtype}")
+    return _sweep_cuda(BWD_KERNEL, "birnn_bwd_launch", g, wt,
+                       hs.contiguous(), reverse=reverse, clip=clip)
+
+
+def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
+    """One direction's delta sweep: kernel B2 for CUDA tensors, the plain
+    loop for CPU tensors."""
+    if g.is_cuda:
+        return bwd_recurrence_cuda(g, hs, wt, reverse=reverse, clip=clip)
+    return bwd_recurrence_plain(g, hs, wt, reverse=reverse, clip=clip)
+
+
+def _weight_grad(h_nb: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """dW = sum_t h_nb[t]^T d[t] over [T, B, H] io-dtype streams: one
+    [H, T B] x [T B, H] f32 product of the stored values."""
+    n_h = d.shape[2]
+    return matmul_f32(h_nb.reshape(-1, n_h).to(torch.float32).t(),
+                      d.reshape(-1, n_h).to(torch.float32))
+
+
+class BiRecurrence(torch.autograd.Function):
+    """Fused bidirectional recurrence with the custom gradient of
+    ``_make_bi_recurrence``: the forward saves the io-dtype states of both
+    sweeps; the backward rounds g to the io dtype, runs the delta sweeps
+    (right to left for the forward direction, left to right for the
+    reversed one), forms dz = d_f + d_b in f32 and dwf = h_prev^T d_f,
+    dwb = h_next^T d_b with a zero state at the edge."""
+
+    @staticmethod
+    def forward(ctx, z, wf, wb, lengths, clip, cdt, io, bidirectional,
+                plain):
+        fwd = fwd_recurrence_plain if plain else fwd_recurrence
+        z_io = z.to(io)
+        hs_f = fwd(z_io, wf.to(cdt), lengths, reverse=False, clip=clip)
+        out = hs_f.to(torch.float32)
+        hs_b = None
+        if bidirectional:
+            hs_b = fwd(z_io, wb.to(cdt), lengths, reverse=True, clip=clip)
+            out = out + hs_b.to(torch.float32)
+        ctx.save_for_backward(hs_f, hs_b, wf, wb)
+        ctx.opts = (clip, cdt, io, bidirectional, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        hs_f, hs_b, wf, wb = ctx.saved_tensors
+        clip, cdt, io, bidirectional, plain = ctx.opts
+        bwd = bwd_recurrence_plain if plain else bwd_recurrence
+        g_io = g.to(io)
+        zeros = torch.zeros_like(hs_f[:1])
+        d_f = bwd(g_io, hs_f, wf.to(cdt).t(), reverse=True, clip=clip)
+        dz = d_f.to(torch.float32)
+        dwf = _weight_grad(torch.cat([zeros, hs_f[:-1]]), d_f)
+        if bidirectional:
+            d_b = bwd(g_io, hs_b, wb.to(cdt).t(), reverse=False, clip=clip)
+            dz = dz + d_b.to(torch.float32)
+            dwb = _weight_grad(torch.cat([hs_b[1:], zeros]), d_b).to(wb.dtype)
+        else:
+            dwb = torch.zeros_like(wb)
+        return (dz, dwf.to(wf.dtype), dwb, None, None, None, None, None,
+                None)
+
+
 def bi_recurrence(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
                   lengths: torch.Tensor, *, clip: float, compute_dtype,
                   io_dtype=None, bidirectional: bool = True,
                   plain: bool = False) -> torch.Tensor:
     """Fused bidirectional recurrence (``birnn_pallas.bi_recurrence`` with
     ``time_major=True``): z [T, B, H] f32 projection, wf/wb [H, H],
-    lengths [B] -> f + b summed in f32, [T, B, H].  ``plain`` forces the
-    plain loop on any device."""
-    io = io_dtype or compute_dtype
-    z_io = z.to(io)
-    run = fwd_recurrence_plain if plain else fwd_recurrence
-    out = run(z_io, wf.to(compute_dtype), lengths, reverse=False,
-              clip=clip).to(torch.float32)
-    if bidirectional:
-        out = out + run(z_io, wb.to(compute_dtype), lengths, reverse=True,
-                        clip=clip).to(torch.float32)
-    return out
+    lengths [B] -> f + b summed in f32, [T, B, H], differentiable in z, wf
+    and wb.  ``plain`` forces the plain loops on any device.  With
+    ``bidirectional=False`` only the forward sweep runs and wb gets a zero
+    gradient."""
+    return BiRecurrence.apply(z.to(torch.float32), wf, wb, lengths,
+                              float(clip), compute_dtype,
+                              io_dtype or compute_dtype, bool(bidirectional),
+                              bool(plain))

@@ -1,21 +1,184 @@
-"""Pieces of ``tpu_ctc.train.loop`` that the decode path uses.
+"""Training loop: epochs over bucketed batches, metrics, checkpoints, eval.
 
-Only the batch-to-dict helper is ported so far; the training loop, its
-metrics logger and preemption guard come with the training slice.
+Counterpart of ``tpu_ctc.train.loop`` on one card: a plain loop over
+``BucketedLoader.epoch`` calling ``train.step.train_step``, JSONL metrics
+(:class:`MetricsLogger`), checkpoints of the full state with the data
+cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
+(:class:`PreemptionGuard`), and greedy-CER/NLL evaluation.  The step's
+metrics stay on the card; they are read (one synchronisation) every
+``log_every`` steps.  Beam-search eval (``train.eval_beam``) and host
+prefetch are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import signal
+import threading
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_ctc_torch.data.bucketing import Batch
+from tpu_ctc_torch import resolve_device
+from tpu_ctc_torch.config import Config
+from tpu_ctc_torch.data.bucketing import Batch, BucketedLoader
+from tpu_ctc_torch.decode.wer import cer
+from tpu_ctc_torch.train import checkpoint
+from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
+                                      create_train_state, eval_step,
+                                      train_step)
+
+
+class MetricsLogger:
+    """Structured JSONL metrics writer (one line per event)."""
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        self._f = open(path, "a") if path else None
+
+    def log(self, **event):
+        event.setdefault("time", time.time())
+        if self._f:
+            self._f.write(json.dumps(event) + "\n")
+            self._f.flush()
+
+    def close(self):
+        if self._f:
+            self._f.close()
+
+
+class PreemptionGuard:
+    """On SIGTERM/SIGINT a flag is set; the train loop checks it each
+    step, writes a checkpoint with the exact data cursor and returns, so a
+    ``--resume`` run continues mid-epoch.  Handlers install only on the main
+    thread; elsewhere the guard is inert."""
+
+    def __init__(self, enable: bool = True):
+        self.requested = False
+        self._prev = {}
+        if enable and threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    self._prev[sig] = signal.signal(sig, self._handler)
+                except (ValueError, OSError):
+                    pass
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def restore(self):
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
 
 
 def batch_to_device_dict(batch: Batch) -> Dict[str, np.ndarray]:
-    """The arrays a decode or eval step reads from a :class:`Batch`."""
+    """The arrays a train, decode or eval step reads from a :class:`Batch`."""
     return {
         "feats": batch.feats, "frame_mask": batch.frame_mask,
         "frame_lengths": batch.frame_lengths, "labels": batch.labels,
         "label_lengths": batch.label_lengths, "weights": batch.weights,
     }
+
+
+def evaluate(model, cfg: Config, loader: BucketedLoader,
+             device) -> Dict[str, float]:
+    """Greedy-decode CER (host edit distance) and mean NLL over an eval
+    set."""
+    refs, hyps, nlls = [], [], []
+    for _, batch in loader.epoch(0):
+        out = eval_step(model, cfg, batch_to_tensors(
+            batch_to_device_dict(batch), device))
+        hyp = out["hyp"].cpu().numpy()
+        hyp_len = out["hyp_len"].cpu().numpy()
+        nll = out["nll"].cpu().numpy()
+        for b in range(len(hyp)):
+            if batch.weights[b] > 0:
+                refs.append(list(batch.labels[b][: batch.label_lengths[b]]))
+                hyps.append(list(hyp[b][: hyp_len[b]]))
+                nlls.append(float(nll[b]))
+    return {"cer": cer(refs, hyps),
+            "nll": float(np.mean(nlls)) if nlls else 0.0,
+            "num_utts": len(refs)}
+
+
+def train(cfg: Config,
+          train_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+          eval_data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None,
+          work_dir: Optional[str] = None, resume: bool = False,
+          device=None) -> Tuple[TrainState, Dict[str, float]]:
+    """Run the training job on ``device`` (default ``cuda``); returns
+    (final state, last logged metrics)."""
+    device = resolve_device(device)
+    loader = BucketedLoader(train_data, cfg.data)
+    eval_loader = (BucketedLoader(eval_data, cfg.data)
+                   if eval_data is not None else None)
+    if loader.num_dropped:
+        print(f"[data] dropped {loader.num_dropped} utterances longer than "
+              f"{cfg.data.bucket_boundaries[-1]} frames")
+
+    work_dir = work_dir or "."
+    os.makedirs(work_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(work_dir, cfg.train.metrics_path)
+                           if cfg.train.metrics_path else None)
+    ckpt_dir = os.path.join(work_dir, cfg.train.checkpoint_dir)
+    keep = cfg.train.keep_checkpoints
+
+    state = create_train_state(cfg, device=device)
+    start_epoch, start_batch = 0, 0
+    if resume:
+        restored = checkpoint.restore(ckpt_dir, state)
+        if restored is not None:
+            state, start_epoch, start_batch = restored
+            print(f"[ckpt] resumed at epoch {start_epoch} batch {start_batch} "
+                  f"step {state.step}")
+
+    last_metrics: Dict[str, float] = {}
+    t_start = time.time()
+    guard = PreemptionGuard()
+    t_win, audio_win, steps_win = time.time(), 0.0, 0
+    for epoch in range(start_epoch, cfg.train.num_epochs):
+        sb = start_batch if epoch == start_epoch else 0
+        for cursor, batch in loader.epoch(epoch, sb):
+            if guard.requested:
+                checkpoint.save(ckpt_dir, state, epoch, cursor, keep)
+                logger.log(kind="preempted", epoch=epoch, cursor=cursor,
+                           step=state.step)
+                logger.close()
+                guard.restore()
+                print(f"[preempt] checkpointed at step {state.step} "
+                      f"(epoch {epoch}, batch {cursor}); exiting")
+                return state, last_metrics
+            state, m = train_step(state, batch_to_tensors(
+                batch_to_device_dict(batch), device), cfg)
+            audio_win += batch.audio_seconds()
+            steps_win += 1
+            if state.step % cfg.train.log_every == 0:
+                # Reading the metrics waits for the card.
+                m = {k: float(v) for k, v in m.items()}
+                dt = time.time() - t_win
+                m.update(step=state.step, epoch=epoch,
+                         audio_s_per_s=audio_win / max(dt, 1e-9),
+                         step_time_s=dt / max(steps_win, 1))
+                logger.log(kind="train", **m)
+                last_metrics = m
+                t_win, audio_win, steps_win = time.time(), 0.0, 0
+            if cfg.train.checkpoint_every and \
+                    state.step % cfg.train.checkpoint_every == 0:
+                t0 = time.time()
+                checkpoint.save(ckpt_dir, state, epoch, cursor + 1, keep)
+                t_win += time.time() - t0     # exclude the save
+            if (eval_loader is not None and cfg.train.eval_every
+                    and state.step % cfg.train.eval_every == 0):
+                t0 = time.time()
+                ev = evaluate(state.model, cfg, eval_loader, device)
+                logger.log(kind="eval", step=state.step, **ev)
+                t_win += time.time() - t0     # exclude the eval
+        logger.log(kind="epoch_end", epoch=epoch, wall_s=time.time() - t_start)
+    guard.restore()
+    checkpoint.save(ckpt_dir, state, cfg.train.num_epochs, 0, keep)
+    logger.close()
+    return state, last_metrics
