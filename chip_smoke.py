@@ -24,17 +24,33 @@ against its plain PyTorch version on the same inputs:
      pre-layer and 3 bidirectional layers at H = 1024, bf16 compute,
      Nesterov SGD with clipping at 5) on 64 synthetic utterances (two
      800-frame batches of 32), ``train_step`` as ``train`` calls it from
-     seeded random weights; its loss and gradients against the plain path.
+     seeded random weights; its loss and gradients against the plain path;
+  8. kernel B5's GRU char-LM branch at B = 64, T = 800, A = 29, K = 128,
+     a seeded GRU at E = 64, H = 128, and the trigram;
+  9. kernel B6 (K in (128, 256], the same source) at K = 256 with the
+     trigram (equal to the plain search slot by slot) and at K = 200 with
+     the GRU and the trigram;
+ 10. the GRU decode end to end, as ``cli decode --beam --set
+     decode.neural_lm=True`` runs it: ``train_nlm_from_data`` trains the GRU
+     char LM (300 Adam steps) on the transcripts of 64 synthetic
+     utterances, then preset 4 decodes them at K = 128 (B5) and at K = 200
+     (B6) with the GRU fused beside the trigram.
 
-Each main path (phases 4 and 7) is run with every launch count set to 0
-just before it and read just after; a kernel's ``launches`` in the record
-is the sum over the paths that run it.  Every check raises on failure, so
+Each main path (phases 4, 7 and both widths of 10) is run with every launch
+count set to 0 just before it and read just after; a kernel's ``launches``
+in the record is the sum over the paths that run it.  The GRU's sums run in
+another order in a kernel than in the plain version's matmuls, so over 800
+frames its scores drift apart by float rounding: the GRU checks hold
+hypotheses equal on every utterance whose top-2 beam gap exceeds 1e-2 and
+scores within 1e-2, and explain every utterance that fails: its beams must
+first part where two candidates tied within that drift swap places at the
+beam boundary (bisected over the utterance's length).  Every check raises on failure, so
 the script exits non-zero and prints no result line.  Every time, of a
 kernel and of its plain version alike, is the median of CUDA-event times of
 single calls after a warm-up call.  The last two lines are the per-kernel
 JSON record and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all seven phases, one card
+    python3 chip_smoke.py                 # all ten phases, one card
 """
 from __future__ import annotations
 
@@ -63,6 +79,7 @@ BIRNN_SOURCE = "tpu_ctc_torch/csrc/birnn.cu"          # B1 and B2
 B1_REPLACES = "tpu_ctc/ops/birnn_pallas.py:103"
 B5_SOURCE = "tpu_ctc_torch/csrc/beam_search.cu"
 B5_REPLACES = "tpu_ctc/ops/beam_pallas.py:197"
+B6_REPLACES = "tpu_ctc/ops/beam_pallas.py:696"
 B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
 B3_REPLACES = "tpu_ctc/ops/ctc_pallas.py:134"
@@ -77,6 +94,11 @@ B4_REPLACES = "tpu_ctc/ops/ctc_pallas.py:190"
 # test_bf16_gradient_tolerance_of_the_chip_check).
 GRAD_REL_TOL = 1e-2
 LOSS_REL_TOL = 1e-3
+# The GRU-LM searches (phases 8-10): hypotheses are compared where the
+# plain search's top-2 beam gap exceeds GRU_GAP, scores within GRU_TOL (the
+# reference's own kernel drifts ~2e-3 from its XLA search over 400 frames).
+GRU_GAP = 1e-2
+GRU_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -117,7 +139,7 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 def all_kernels():
     from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
     return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, ctc_cuda.ALPHA,
-            ctc_cuda.BETA, beam_cuda.KERNEL)
+            ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL)
 
 
 def phase_build():
@@ -241,8 +263,8 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
         f"mean hyp length {float(got[1].float().mean()):.1f}")
     if not same or err > 1e-3:
         raise AssertionError("B5 disagrees with the plain search")
-    lp_k, lens_k, lm_k, _ = beam_cuda.prepare(lp, lens, k, lm_table=lm,
-                                             lm_order=3)
+    lp_k, lens_k, lm_k, _, _ = beam_cuda.prepare(lp, lens, k, lm_table=lm,
+                                                lm_order=3)
     ms = time_ms(lambda: beam_cuda.launch(
         lp_k, lens_k, k, max_len, lm=lm_k, lm_order=3, lm_alpha=1.25,
         lm_beta=1.5, prune_logp=-12.0), reps)
@@ -337,7 +359,7 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
             raise AssertionError("the model's kernel path disagrees with "
                                  "its plain path")
         max_len = int(hyp.shape[1])
-        ph, pl, _, score, _ = beam.prefix_beam_search(
+        ph, pl, _, score, _, _ = beam.prefix_beam_search(
             lp, lens, beam_width=cfg.decode.beam_width, max_len=max_len,
             lm_table=lm.tables(dev), lm_order=lm.order,
             lm_alpha=cfg.decode.lm_alpha, lm_beta=cfg.decode.lm_beta,
@@ -585,9 +607,10 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
         f"path {launches}")
     n_bi = cfg.model.num_bi_layers
     want = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
-            "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0}
+            "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
+            "beam_search_wide": 0}
     for name, n in launches.items():
-        if name != "beam_search" and n == 0:
+        if not name.startswith("beam_search") and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"training path")
     if launches != want:
@@ -627,6 +650,321 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
     log(f"phase 7: peak device memory of one step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return launches, frames / 100 / wall
+
+
+def seeded_gru(seed, a, e, h, dev="cuda"):
+    from tpu_ctc_torch.decode import neural_lm
+    return neural_lm.init_params(neural_lm.CharRNNLMConfig(a, e, h), seed,
+                                 device=dev)
+
+
+def gru_search_bound(bp, lens, a, k, n_e, n_h):
+    """(bytes, operations) a GRU + trigram search needs on this run's data:
+    the n-gram search's work (``phase_beam``), the GRU's weights read once,
+    the LM rows' A H FMAs for every live beam at every live frame, and
+    3 H H FMAs for every survivor that extends (its input projection is a
+    row of the per-char table xw, made once: A E 3H FMAs, counted too).  A
+    dead slot's backpointer is 0, like one live stay of slot 0, so beams
+    are counted live by nonzero backpointers: one too few at most."""
+    n_b, n_t, _ = bp.shape
+    live_t = (torch.arange(n_t, device=bp.device)[None, :]
+              < lens[:, None].to(bp.device))                  # [B, T]
+    live = int(lens.sum())
+    ext = int((((bp >> 8) > 0) & live_t[:, :, None]).sum())
+    nz = (bp != 0).sum(2)                                     # [B, T]
+    beams = int(live_t[:, 0].sum()) + int(
+        (nz[:, :-1] * live_t[:, 1:]).sum())
+    n_bytes = (live * a * 4 + n_b * 4 + a ** 3 * 4 + live * k * 4
+               + n_b * 3 * k * 4
+               + (a * 3 * n_h + 3 * n_h * n_h + 3 * n_h + n_h * a + a + n_h)
+               * 4)
+    n_ops = (live * (5 * a * k + 5 * k) + beams * a * n_h
+             + ext * 3 * n_h * n_h + a * n_e * 3 * n_h)
+    return n_bytes, n_ops, ext, beams
+
+
+def first_divergence(lp, lens, i, kw):
+    """Where the kernel's and the plain search's beams first part on
+    utterance i: bisection over the frames for the first after which some
+    slot's prefix, length or score (within 1e-3) differs.  Returns (that
+    frame or None, the largest difference of the two sides' sorted live
+    slot scores after it).  While the beams agree, every candidate's score
+    agrees within their drift, so the first parting can only swap
+    candidates tied within it at the beam boundary: the sorted scores
+    still agree.  A wrong score shows there.  Each probe runs the whole
+    batch cut to its first t frames: the plain search's matmuls round by
+    the batch's shape."""
+    from tpu_ctc_torch.decode import beam
+    from tpu_ctc_torch.ops import beam_cuda
+    k, max_len = kw["beam_width"], kw["max_len"]
+    pos = torch.arange(max_len, device=lp.device)
+
+    def slots(t):
+        x, n = lp[:, :t], lens.clamp(max=t)
+        lp_k, lens_k, lm_k, thr, gru = beam_cuda.prepare(
+            x, n, k, lm_table=kw["lm_table"], lm_order=kw["lm_order"],
+            char_topk=kw.get("char_topk", 0), nlm_params=kw["nlm_params"])
+        bp, fin = beam_cuda.launch(
+            lp_k, lens_k, k, max_len, lm=lm_k, lm_order=kw["lm_order"],
+            lm_alpha=kw["lm_alpha"], lm_beta=kw["lm_beta"],
+            prune_logp=kw["prune_logp"], thr=thr, gru=gru)
+        pre_k = beam_cuda.reconstruct(bp[i:i + 1].expand(k, -1, -1),
+                                      torch.arange(k, device=lp.device),
+                                      max_len)
+        want = beam.prefix_beam_search(x, n, return_beams=True, **kw)
+        return (beam._lse2(fin[i, 0], fin[i, 1]), fin[i, 2].int(), pre_k,
+                want[3][i], want[4][i], want[5][i])
+
+    def agree(t):
+        sk, nk, pre_k, sp, n_p, pre_p = slots(t)
+        live = sp > -1e29
+        if not (torch.equal(live, sk > -1e29)
+                and torch.equal(nk[live], n_p[live])):
+            return False
+        mask = (pos[None, :] < n_p[:, None]) & live[:, None]
+        return (torch.equal(pre_k * mask, pre_p * mask)
+                and float((sk - sp).abs()[live].max()) <= 1e-3)
+
+    lo, hi = 0, int(lens[i])
+    if agree(hi):
+        return None, 0.0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if agree(mid) else (lo, mid)
+    sk, _, _, sp, _, _ = slots(hi)
+    sk, sp = sk[sk > -1e29].sort().values, sp[sp > -1e29].sort().values
+    if sk.numel() != sp.numel():
+        return hi - 1, float("inf")
+    return hi - 1, float((sk - sp).abs().max())
+
+
+def check_gru_search(phase, what, lp, lens, kw, got, want_beams):
+    """Hold a GRU search's (hyps, lens, scores) against the plain search's
+    return_beams output on the same inputs (``kw``): hypotheses equal on
+    every utterance whose top-2 gap > GRU_GAP and scores within GRU_TOL.
+    An utterance that fails either must be explained: its beams first part
+    at a swap of candidates tied within rounding at the beam boundary
+    (:func:`first_divergence`), on at most a quarter of the utterances.
+    Returns the max score error over the other utterances."""
+    hyp, hyp_len, score = got
+    ph, pl, ps, slots = want_beams[:4]
+    diff = (score - ps).abs()
+    top2 = torch.topk(slots, 2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    checked = agree = 0
+    odd = []
+    for i in range(hyp.shape[0]):
+        n = int(hyp_len[i])
+        same = n == int(pl[i]) and torch.equal(hyp[i, :n], ph[i, :n])
+        if float(gap[i]) > GRU_GAP:
+            checked += 1
+            agree += int(same)
+        if (float(gap[i]) > GRU_GAP and not same) or float(diff[i]) > GRU_TOL:
+            odd.append(i)
+    err = max((float(diff[i]) for i in range(len(diff)) if i not in odd),
+              default=0.0)
+    log(f"{phase}: {what}: hyps equal on {agree} of {checked} utterances "
+        f"with a top-2 gap > {GRU_GAP} ({hyp.shape[0]} in all); max score "
+        f"err {err:.3e} (limit {GRU_TOL}) on the {hyp.shape[0] - len(odd)} "
+        f"utterances without a boundary tie")
+    for i in odd:
+        frame, sorted_err = first_divergence(lp, lens, i, kw)
+        log(f"{phase}:   utt {i}: score err {float(diff[i]):.3e}; the beams "
+            f"first part at frame {frame} of {int(lens[i])}, where the sorted "
+            f"slot scores differ by {sorted_err:.3e}")
+        if frame is None or sorted_err > 1e-3:
+            raise AssertionError(f"{what}: utterance {i} disagrees with the "
+                                 f"plain search, not at a boundary tie")
+    if checked == 0 or len(odd) > hyp.shape[0] // 4:
+        raise AssertionError(f"{what} disagrees with the plain search")
+    return err
+
+
+def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
+                   dev="cuda"):
+    """B5 (K <= 128) or B6 with the GRU char LM (E = 64, H = 128, seeded)
+    and the trigram against the plain search: B = 64, T = 800, A = 29."""
+    from tpu_ctc_torch.decode import beam
+    from tpu_ctc_torch.ops import beam_cuda
+    a, max_len, n_e, n_h = 29, 216, 64, 128
+    lp, lens = peaked_posteriors(8, n_b, n_t, a)
+    lp, lens = lp.to(dev), lens.to(dev)
+    lm = seeded_trigram(3, a).tables(dev)
+    gru = seeded_gru(9, a, n_e, n_h, dev)
+    kw = dict(beam_width=k, max_len=max_len, lm_table=lm, lm_order=3,
+              lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0, nlm_params=gru)
+    kern = beam_cuda.kernel_for(k)
+    before = kern.launches
+    got = beam_cuda.beam_search_cuda(lp, lens, **kw)
+    torch.cuda.synchronize()
+    if kern.launches != before + 1:
+        raise AssertionError(f"{kern.name} was not launched")
+    want = beam.prefix_beam_search(lp, lens, return_beams=True, **kw)
+    err = check_gru_search(phase, f"{kern.name} K={k} GRU + trigram", lp,
+                           lens, kw, got, want)
+    prep = beam_cuda.prepare(lp, lens, k, lm_table=lm, lm_order=3,
+                             nlm_params=gru)
+
+    def run_kernel():
+        return beam_cuda.launch(prep[0], prep[1], k, max_len, lm=prep[2],
+                                lm_order=3, lm_alpha=1.25, lm_beta=1.5,
+                                prune_logp=-12.0, gru=prep[4])
+
+    bp, fin = run_kernel()
+    bp2, fin2 = run_kernel()
+    if not (torch.equal(bp, bp2) and torch.equal(fin, fin2)):
+        raise AssertionError(f"{kern.name}: two launches on the same "
+                             f"inputs differ")
+    log(f"{phase}: two launches give bit-equal backpointers and states")
+    ms = time_ms(run_kernel, reps)
+    plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
+                       PLAIN_REPS)
+    n_bytes, n_ops, ext, beams = gru_search_bound(bp, lens, a, k, n_e, n_h)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
+    log(f"{phase}: {kern.name} K={k} GRU + trigram {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: {ext} GRU steps "
+        f"of extending survivors, LM rows of {beams} live beams over "
+        f"{int(lens.sum())} live frames); library: none (no PyTorch call "
+        f"computes a prefix beam search)")
+    return dict(name=kern.name, route="cuda", source=B5_SOURCE,
+                replaces=B5_REPLACES if k <= 128 else B6_REPLACES,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, dev="cuda"):
+    """B6 with the trigram against the plain search at K = 256: hypotheses,
+    lengths and every slot's final score and length equal."""
+    from tpu_ctc_torch.decode import beam
+    from tpu_ctc_torch.ops import beam_cuda
+    a, max_len = 29, 216
+    lp, lens = peaked_posteriors(4, n_b, n_t, a)
+    lp, lens = lp.to(dev), lens.to(dev)
+    lm = seeded_trigram(3, a).tables(dev)
+    kw = dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)
+    prep = beam_cuda.prepare(lp, lens, k, lm_table=lm, lm_order=3)
+
+    def run_kernel():
+        return beam_cuda.launch(prep[0], prep[1], k, max_len, lm=prep[2],
+                                lm_order=3, **kw)
+
+    bp, fin = run_kernel()
+    got = beam_cuda.beam_search_cuda(lp, lens, k, max_len, lm_table=lm,
+                                     lm_order=3, **kw)
+    want = beam.prefix_beam_search(lp, lens, beam_width=k, max_len=max_len,
+                                   lm_table=lm, lm_order=3,
+                                   return_beams=True, **kw)
+    slots = beam._lse2(fin[:, 0], fin[:, 1])
+    live = want[3] > -1e29
+    same = bool(torch.equal(got[1], want[1]) and torch.equal(
+        got[0] * (torch.arange(max_len, device=dev) < got[1][:, None]),
+        want[0] * (torch.arange(max_len, device=dev) < want[1][:, None]))
+        and torch.equal(slots, want[3]) and torch.equal(
+            fin[:, 2].to(torch.int32)[live], want[4][live]))
+    err = float((got[2] - want[2]).abs().max())
+    log(f"phase 9: beam_search_wide K={k} trigram: hyps and all {k} slots' "
+        f"scores and lengths equal: {same}, max score err {err:.3e}, "
+        f"{int(live.sum())} live slots")
+    if not same or err != 0.0:
+        raise AssertionError("B6 disagrees with the plain search")
+    ms = time_ms(run_kernel, reps)
+    plain_ms = time_ms(lambda: beam.prefix_beam_search(
+        lp, lens, beam_width=k, max_len=max_len, lm_table=lm, lm_order=3,
+        **kw), PLAIN_REPS)
+    live_f = int(lens.sum())
+    n_bytes = (live_f * a * 4 + n_b * 4 + a ** 3 * 4 + live_f * k * 4
+               + n_b * 3 * k * 4)
+    n_ops = live_f * (5 * a * k + 5 * k)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
+    log(f"phase 9: beam_search_wide K={k} trigram {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
+    """The GRU decode end to end: the GRU char LM trained as the CLI trains
+    it, then preset 4 at K = 128 and K = 200 over 64 utterances."""
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.decode import beam, neural_lm
+    from tpu_ctc_torch.decode.lm import label_seqs_of, train_char_lm_from_data
+    from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+    cfg = get_config("swbd_beam_decode", **{"decode.neural_lm": True,
+                                            **overrides})
+    corpus = SyntheticCorpus(n_utts, feature_dim=cfg.model.input_dim,
+                             min_chars=50, max_chars=100, seed=seed)
+    data = corpus.all_utterances()
+    lm = train_char_lm_from_data(data, cfg)
+    t0 = time.time()
+    nlm = neural_lm.train_nlm_from_data(data, cfg, device=dev)
+    train_s = time.time() - t0
+    padded, plens = neural_lm.pad_label_seqs(label_seqs_of(data))
+    padded = torch.from_numpy(padded).to(dev)
+    plens = torch.from_numpy(plens).to(dev)
+    with torch.no_grad():
+        nll0 = float(neural_lm.sequence_nll(neural_lm.init_params(
+            nlm.cfg, 0, device=dev), padded, plens))
+        nll = float(neural_lm.sequence_nll(nlm, padded, plens))
+    log(f"phase 10: GRU char LM (E={nlm.cfg.embed_dim}, "
+        f"H={nlm.cfg.hidden_dim}) trained {cfg.decode.neural_lm_steps} Adam "
+        f"steps in {train_s:.1f} s: corpus NLL {nll0:.3f} -> {nll:.3f} "
+        f"nats a char")
+    if not nll < nll0:
+        raise AssertionError("the GRU char LM did not train")
+    model = birnn.init_params(cfg.model, seed=seed, device=dev)
+    batches = [b for _, b in BucketedLoader(data, cfg.data).epoch(0)]
+    n_frames = sum(int(b.frame_lengths[b.weights > 0].sum()) for b in batches)
+    all_launches, rates = {}, {}
+    for k, kern in ((128, beam_cuda.KERNEL), (200, beam_cuda.WIDE_KERNEL)):
+        kcfg = cfg.override(**{"decode.beam_width": k})
+        decode = beam.make_beam_decoder(kcfg, lm=lm, nlm_params=nlm,
+                                        device=dev)
+
+        def run():
+            return [decode(model, batch_to_device_dict(b)) for b in batches]
+
+        run()                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs, launches = run_main_path(run)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: n for name, n in launches.items() if n}
+        rates[k] = n_frames / 100 / wall
+        log(f"phase 10: K={k} decoded {n_frames} frames in {wall:.3f} s = "
+            f"{rates[k]:.1f} audio-s/s; launches on the path {launches}")
+        want = {birnn_cuda.KERNEL.name: 2 * cfg.model.num_bi_layers
+                * len(batches), kern.name: len(batches)}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        for name, n in launches.items():
+            all_launches[name] = all_launches.get(name, 0) + n
+        for batch, (hyp, hyp_len) in zip(batches, outs):
+            feats = torch.as_tensor(batch.feats, device=dev)
+            mask = torch.as_tensor(batch.frame_mask, device=dev)
+            lens = torch.as_tensor(batch.frame_lengths, device=dev)
+            with torch.no_grad():
+                lp = birnn.log_posteriors(model, cfg.model, feats, mask)
+            if not bool(torch.isfinite(lp).all()):
+                raise AssertionError("log posteriors not finite")
+            kw = dict(beam_width=k, max_len=int(hyp.shape[1]),
+                      lm_table=lm.tables(dev), lm_order=lm.order,
+                      lm_alpha=cfg.decode.lm_alpha,
+                      lm_beta=cfg.decode.lm_beta,
+                      prune_logp=cfg.decode.prune_logp, nlm_params=nlm)
+            got = beam_cuda.beam_search_cuda(lp, lens, **kw)
+            if not (torch.equal(got[0], hyp) and torch.equal(got[1],
+                                                             hyp_len)):
+                raise AssertionError("the decoder's output is not the "
+                                     "kernel's")
+            check_gru_search("phase 10", f"preset 4 at K={k}", lp, lens, kw,
+                             got, beam.prefix_beam_search(
+                                 lp, lens, return_beams=True, **kw))
+        device_breakdown(run, f"phase 10 K={k}")
+    return all_launches, rates
 
 
 def device_breakdown(run, phase: str) -> None:
@@ -672,12 +1010,16 @@ def main() -> int:
     decode_launches, _ = phase_end_to_end(seed=0)
     records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
     train_launches, _ = phase_train(seed=0)
+    phase_beam_gru(REPS, "phase 8", k=128)
+    phase_wide_ngram(REPS)
+    records.append(phase_beam_gru(REPS, "phase 9", k=200))
+    gru_launches, _ = phase_gru_decode(seed=0)
     for rec in records:
-        rec["launches"] = (decode_launches.get(rec["name"], 0)
-                           + train_launches.get(rec["name"], 0))
+        rec["launches"] = sum(path.get(rec["name"], 0) for path in (
+            decode_launches, train_launches, gru_launches))
     records.sort(key=lambda rec: ["birnn_fwd", "birnn_bwd", "ctc_alpha",
-                                  "ctc_beta", "beam_search"].index(
-                                      rec["name"]))
+                                  "ctc_beta", "beam_search",
+                                  "beam_search_wide"].index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [

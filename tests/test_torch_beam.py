@@ -4,8 +4,10 @@ Posteriors are peaked log-softmaxes of seeded numpy logits; the trigram
 comes from ``train_ngram_lm`` on seeded label sequences, so both packages
 see the same table.  Hypotheses and lengths must be equal; scores agree to
 1e-4 (torch and XLA compute exp and log differently, and the error stays
-in the last few f32 ulps of O(100) scores).  The CUDA kernel B5 runs only
-on a card (``chip_smoke.py`` holds it against this plain search); its
+in the last few f32 ulps of O(100) scores).  At the wide beams of kernel
+B6 (K = 160-256) every slot's length must be equal and every slot's score
+within 1e-4, position by position.  The CUDA kernels B5 and B6 run only on
+a card (``chip_smoke.py`` holds them against this plain search); their
 wrapper's host-side pieces (admission bar, backpointer walk, guards) are
 tested here.
 """
@@ -18,7 +20,7 @@ import torch
 from tpu_ctc.decode import beam as jax_beam
 from tpu_ctc.decode.lm import train_ngram_lm as jax_train_ngram_lm
 from tpu_ctc.ops import beam_pallas
-from tpu_ctc_torch.decode import beam
+from tpu_ctc_torch.decode import beam, neural_lm
 from tpu_ctc_torch.decode.lm import train_ngram_lm
 from tpu_ctc_torch.ops import beam_cuda
 
@@ -101,6 +103,41 @@ class TestAgainstXlaSearch:
         assert torch.equal(lm.tables("cpu"), torch.from_numpy(jlm.logp))
 
 
+class TestWideBeams:
+    """The n-gram plain search at B6's widths against the XLA search."""
+
+    @pytest.mark.parametrize("k,t,kw", [
+        (160, 20, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+        (200, 16, dict(lm_alpha=0.7, lm_beta=0.3, char_topk=6)),
+        (256, 14, dict(lm_alpha=1.0, lm_beta=0.5, prune_logp=-9.0)),
+    ])
+    def test_trigram(self, k, t, kw):
+        lp, lens = _posteriors(k + t, 2, t, 29)
+        lm, _ = _trigram(5, 29)
+        want = jax_beam.prefix_beam_search(
+            jnp.asarray(lp), jnp.asarray(lens), beam_width=k, max_len=24,
+            lm_table=jnp.asarray(lm.logp), lm_order=3, **kw)
+        got = _torch_search(lp, lens, lm, beam_width=k, max_len=24, **kw)
+        _assert_same(got, want)
+
+    def test_every_slot_at_k200(self):
+        """All 200 slots' final scores and lengths over 40 frames
+        (``test_beam_pallas.py::TestWideBeam::test_beam_state_parity``)."""
+        r = np.random.RandomState(9)
+        x = r.randn(2, 40, 29).astype(np.float32) * 2
+        lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(
+            np.float32)
+        lens = np.array([40, 33], np.int32)
+        kw = dict(beam_width=200, max_len=48, return_beams=True)
+        want = jax_beam.prefix_beam_search(jnp.asarray(lp),
+                                           jnp.asarray(lens), **kw)
+        got = _torch_search(lp, lens, **kw)
+        np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
+                                   rtol=0, atol=1e-4)
+        assert (got[3].numpy() > -1e29).sum() == 400
+
+
 def test_against_pallas_kernel_k128():
     lp, lens = _posteriors(11, 2, 16, 29)
     lm, _ = _trigram(4, 29)
@@ -149,15 +186,57 @@ class TestWrapperHostSide:
         got = beam_cuda.admission_bar(torch.from_numpy(lp), 6)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+    @staticmethod
+    def _gru(e, h, v=29):
+        return neural_lm.CharRNNLM(neural_lm.CharRNNLMConfig(v, e, h),
+                                   device="cpu")
+
     @pytest.mark.parametrize("k,a,order,nlm", [
-        (129, 29, 3, None), (128, 65, 3, None), (64, 29, 4, None),
-        (64, 29, 3, {"embed": 0})])
+        (257, 29, 3, None), (128, 65, 3, None), (64, 29, 4, None),
+        (64, 29, 3, (64, 300))])
     def test_unsupported_configs_raise(self, k, a, order, nlm):
+        gru = self._gru(*nlm) if nlm else None
         with pytest.raises(NotImplementedError):
-            beam_cuda.check_supported(k, a, order, nlm)
+            beam_cuda.check_supported(k, a, order, gru)
 
     def test_supported_config(self):
         beam_cuda.check_supported(128, 29, 3)
+        beam_cuda.check_supported(200, 29, 3, self._gru(64, 128))
+        beam_cuda.check_supported(256, 64, 0, self._gru(125, 250))
+        with pytest.raises(NotImplementedError):          # E rounds to 136
+            beam_cuda.check_supported(64, 29, 0, self._gru(129, 16))
+        assert beam_cuda.kernel_for(128) is beam_cuda.KERNEL
+        assert beam_cuda.kernel_for(129) is beam_cuda.WIDE_KERNEL
+        assert beam_cuda.WIDE_KERNEL.library == beam_cuda.KERNEL.library
+
+    def test_gru_layout(self):
+        gru = neural_lm.init_params(neural_lm.CharRNNLMConfig(9, 5, 7), 3,
+                                    device="cpu")
+        xw, wh, b, wo, bo, h_bos = beam_cuda.gru_layout(gru, 9, "cpu")
+        assert (xw.shape, wh.shape, b.shape, wo.shape, bo.shape,
+                h_bos.shape) == ((9, 21), (7, 21), (21,), (7, 9), (9,), (7,))
+        with torch.no_grad():
+            x = gru.embed[4]
+            for g, w in enumerate((gru.wz, gru.wr, gru.wh)):
+                torch.testing.assert_close(xw[4, 7 * g:7 * g + 7], x @ w[:5])
+                assert torch.equal(wh[:, 7 * g:7 * g + 7], w[5:])
+            assert torch.equal(h_bos, neural_lm.init_state(gru))
+        with pytest.raises(ValueError):
+            beam_cuda.gru_layout(gru, 29, "cpu")
+
+    def test_cpu_tensors_run_the_plain_gru_search(self):
+        lp, lens = _posteriors(6, 2, 12, 8)
+        gru = neural_lm.init_params(neural_lm.CharRNNLMConfig(8, 6, 10), 1,
+                                    device="cpu")
+        before = (beam_cuda.KERNEL.launches, beam_cuda.WIDE_KERNEL.launches)
+        kw = dict(beam_width=160, max_len=16, nlm_params=gru, lm_alpha=0.5)
+        got = beam_cuda.beam_search(torch.from_numpy(lp),
+                                    torch.from_numpy(lens), **kw)
+        want = _torch_search(lp, lens, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (beam_cuda.KERNEL.launches,
+                beam_cuda.WIDE_KERNEL.launches) == before
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
         lp, lens = _posteriors(5, 2, 20, 8)

@@ -153,13 +153,15 @@ class TestImportHygiene:
             "n.startswith('jax.') or n == 'tpu_ctc' or "
             "n.startswith('tpu_ctc.')]\n"
             "assert not bad, bad\n"
-            "print(len([n for n in sys.modules "
-            "if n.startswith('tpu_ctc_torch')]))\n")
+            "print(' '.join(n for n in sys.modules "
+            "if n.startswith('tpu_ctc_torch')))\n")
         env = dict(os.environ, PYTHONPATH=REPO)
         out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                              text=True, cwd=REPO, env=env, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.strip()) >= 15
+        modules = out.stdout.split()
+        assert len(modules) >= 16
+        assert "tpu_ctc_torch.decode.neural_lm" in modules
 
     def test_sources_never_name_jax(self):
         root = os.path.join(REPO, "tpu_ctc_torch")

@@ -6,9 +6,12 @@ that has only the port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-(``--noconftest`` because ``tests/conftest.py`` sets up JAX.)  Kernel B5
-must equal the plain search exactly (hypotheses, lengths, scores within
-1e-3: it does the plain version's float steps in the same order).  Kernels
+(``--noconftest`` because ``tests/conftest.py`` sets up JAX.)  Kernels B5
+and B6 with an n-gram LM must equal the plain search exactly (hypotheses,
+lengths, every slot's final state: they do the plain version's float steps
+in the same order); with the GRU char LM the hypotheses must be equal and
+the scores within 1e-4 (the GRU's f32 sums run in another order than the
+plain version's matmuls).  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
 bf16, 1e-4 at f32.  Kernels B3 and B4 do the plain sweeps' float steps
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from tpu_ctc_torch.config import get_config
-from tpu_ctc_torch.decode import beam
+from tpu_ctc_torch.decode import beam, neural_lm
 from tpu_ctc_torch.decode.lm import train_ngram_lm
 from tpu_ctc_torch.models import birnn
 from tpu_ctc_torch.losses import ctc, ctc_ref
@@ -296,11 +299,11 @@ def test_beam_kernel_state_equals_plain_slot_by_slot(dev):
     lp, lens = lp.to(dev), lens.to(dev)
     lm = _lm(3, 29, 3).tables(dev)
     kw = dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)
-    lp_k, lens_k, lm_k, _ = beam_cuda.prepare(lp, lens, 16, lm_table=lm,
-                                              lm_order=3)
+    lp_k, lens_k, lm_k, _, _ = beam_cuda.prepare(lp, lens, 16, lm_table=lm,
+                                                 lm_order=3)
     _, fin = beam_cuda.launch(lp_k, lens_k, 16, 64, lm=lm_k, lm_order=3,
                               **kw)
-    *_, score, plen = beam.prefix_beam_search(
+    *_, score, plen, _ = beam.prefix_beam_search(
         lp, lens, beam_width=16, max_len=64, lm_table=lm, lm_order=3,
         return_beams=True, **kw)
     torch.testing.assert_close(beam._lse2(fin[:, 0], fin[:, 1]), score,
@@ -317,6 +320,113 @@ def test_beam_kernel_zero_length_utterance(dev):
 
 
 def test_decoder_raises_for_what_the_kernel_lacks(dev):
-    cfg = get_config("4", **{"decode.beam_width": 200})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = get_config("4", **{"decode.beam_width": 257})
+    with pytest.raises(NotImplementedError, match="257"):
         beam.make_beam_decoder(cfg, device=dev)
+    lp, lens = _posteriors(1, 2, 10, 29)
+    with pytest.raises(NotImplementedError):
+        beam_cuda.beam_search_cuda(lp.to(dev), lens.to(dev), 257, 12)
+
+
+def _gru(seed, a, e, h, dev):
+    return neural_lm.init_params(neural_lm.CharRNNLMConfig(a, e, h), seed,
+                                 device=dev)
+
+
+def _assert_search_equal(got, want, atol):
+    assert torch.equal(got[1], want[1])
+    for i in range(got[0].shape[0]):
+        n = int(got[1][i])
+        assert torch.equal(got[0][i, :n], want[0][i, :n])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("k,order,e,h,kw", [
+    (8, 0, 10, 13, dict(lm_alpha=0.6, lm_beta=0.3)),
+    (64, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (128, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (64, 2, 20, 50, dict(lm_alpha=0.7, lm_beta=0.3, char_topk=6)),
+    (128, 0, 33, 256, dict(lm_alpha=0.5, lm_beta=0.2, prune_logp=-5.0)),
+])
+def test_beam_kernel_with_gru_matches_plain(dev, k, order, e, h, kw):
+    lp, lens = _posteriors(k + h, 4, 60, 29)
+    lp, lens = lp.to(dev), lens.to(dev)
+    lm = _lm(order, 29, order).tables(dev) if order else None
+    args = dict(beam_width=k, max_len=40, lm_table=lm, lm_order=order,
+                nlm_params=_gru(k, 29, e, h, dev), **kw)
+    before = beam_cuda.KERNEL.launches
+    got = beam_cuda.beam_search_cuda(lp, lens, **args)
+    torch.cuda.synchronize()
+    assert beam_cuda.KERNEL.launches == before + 1
+    _assert_search_equal(got, beam.prefix_beam_search(lp, lens, **args),
+                         atol=1e-4)
+
+
+@pytest.mark.parametrize("k,a,order,kw", [
+    (160, 29, 3, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (200, 29, 3, dict(lm_alpha=0.7, lm_beta=0.3, char_topk=8)),
+    (256, 29, 2, dict(lm_alpha=1.0, lm_beta=0.5)),
+    (256, 64, 0, dict(prune_logp=-7.0)),
+])
+def test_wide_beam_kernel_matches_plain(dev, k, a, order, kw):
+    """B6 with an n-gram LM: every slot's final (pb, pnb, plen) equals the
+    plain search's."""
+    lp, lens = _posteriors(k + a + order, 4, 70, a)
+    lp, lens = lp.to(dev), lens.to(dev)
+    lm = _lm(order, a, order).tables(dev) if order else None
+    args = dict(beam_width=k, max_len=40, lm_table=lm, lm_order=order, **kw)
+    before = (beam_cuda.KERNEL.launches, beam_cuda.WIDE_KERNEL.launches)
+    got = beam_cuda.beam_search_cuda(lp, lens, **args)
+    torch.cuda.synchronize()
+    assert (beam_cuda.KERNEL.launches,
+            beam_cuda.WIDE_KERNEL.launches) == (before[0], before[1] + 1)
+    want = beam.prefix_beam_search(lp, lens, return_beams=True, **args)
+    _assert_search_equal(got, want[:3], atol=0.0)
+    kernel_args = {x: kw[x] for x in ("lm_alpha", "lm_beta", "prune_logp")
+                   if x in kw}
+    lp_k, lens_k, lm_k, thr, _ = beam_cuda.prepare(
+        lp, lens, k, lm_table=lm, lm_order=order,
+        char_topk=kw.get("char_topk", 0))
+    _, fin = beam_cuda.launch(lp_k, lens_k, k, 40, lm=lm_k, lm_order=order,
+                              thr=thr, **kernel_args)
+    assert torch.equal(beam._lse2(fin[:, 0], fin[:, 1]), want[3])
+    live = want[3] > -1e29            # a dead slot's length is not kept
+    assert torch.equal(fin[:, 2].to(torch.int32)[live], want[4][live])
+
+
+@pytest.mark.parametrize("k,order,e,h", [
+    (160, 0, 8, 16), (200, 3, 64, 128), (256, 2, 10, 13)])
+def test_wide_beam_kernel_with_gru_matches_plain(dev, k, order, e, h):
+    lp, lens = _posteriors(k + h, 3, 50, 29)
+    lp, lens = lp.to(dev), lens.to(dev)
+    lm = _lm(order, 29, order).tables(dev) if order else None
+    args = dict(beam_width=k, max_len=40, lm_table=lm, lm_order=order,
+                lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0,
+                nlm_params=_gru(h, 29, e, h, dev))
+    before = beam_cuda.WIDE_KERNEL.launches
+    got = beam_cuda.beam_search_cuda(lp, lens, **args)
+    torch.cuda.synchronize()
+    assert beam_cuda.WIDE_KERNEL.launches == before + 1
+    _assert_search_equal(got, beam.prefix_beam_search(lp, lens, **args),
+                         atol=1e-4)
+
+
+def test_decoder_runs_the_wide_kernel_with_gru(dev):
+    cfg = get_config("4", **{"model.hidden_dim": 32,
+                             "model.num_bi_layers": 1,
+                             "decode.beam_width": 200})
+    model = birnn.init_params(cfg.model, seed=2, device=dev)
+    r = np.random.RandomState(3)
+    batch = {"feats": r.randn(3, 40, 120).astype(np.float32),
+             "frame_lengths": np.array([40, 31, 22], np.int32),
+             "labels": np.zeros((3, 10), np.int32)}
+    batch["frame_mask"] = (np.arange(40)[None]
+                           < batch["frame_lengths"][:, None]).astype(
+                               np.float32)
+    gru = _gru(4, 29, 16, 24, "cpu")
+    before = beam_cuda.WIDE_KERNEL.launches
+    hyps, lens = beam.make_beam_decoder(cfg, nlm_params=gru,
+                                        device=dev)(model, batch)
+    torch.cuda.synchronize()
+    assert beam_cuda.WIDE_KERNEL.launches == before + 1
+    assert hyps.shape == (3, 36) and hyps.is_cuda and lens.is_cuda

@@ -15,6 +15,8 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, except:
 Usage:
   python -m tpu_ctc_torch.cli train --config 2 --synthetic 64 --work-dir runs/x
   python -m tpu_ctc_torch.cli decode --config 4 --synthetic 64 --beam
+  python -m tpu_ctc_torch.cli decode --config 4 --synthetic 64 --beam \
+      --set decode.neural_lm=True            # + the GRU char LM
   python -m tpu_ctc_torch.cli decode --config 4 --weights w.npz --synthetic 64
   python -m tpu_ctc_torch.cli score --ref ref.trn --hyp hyp.trn
   python -m tpu_ctc_torch.cli print-config --config 4
@@ -103,15 +105,19 @@ def cmd_decode(args):
         model = birnn.init_params(cfg.model, seed=args.seed, device=dev)
 
     if args.beam:
-        if getattr(cfg.decode, "neural_lm", False):
-            raise NotImplementedError(
-                "decode.neural_lm: the GRU char LM is not ported yet "
-                "(ROADMAP.md queue A, the GRU char LM item)")
         from tpu_ctc_torch.decode.beam import make_beam_decoder
         from tpu_ctc_torch.decode.lm import train_char_lm_from_data
+        from tpu_ctc_torch.decode.neural_lm import train_nlm_from_data
+        from tpu_ctc_torch.ops.beam_cuda import check_supported
+        if cfg.decode.use_fused_kernel:     # refuse before training the LMs
+            check_supported(cfg.decode.beam_width, cfg.model.vocab_size,
+                            cfg.decode.lm_order)
+        # both LMs train on the transcripts of the data being decoded (the
+        # synthetic corpus is the train split)
         lm = (train_char_lm_from_data(data, cfg) if cfg.decode.lm_order
               else None)
-        decode_fn = make_beam_decoder(cfg, lm=lm, device=dev)
+        nlm = train_nlm_from_data(data, cfg, device=dev)
+        decode_fn = make_beam_decoder(cfg, lm=lm, nlm_params=nlm, device=dev)
     else:
         def decode_fn(model, bd):
             feats = torch.as_tensor(bd["feats"], device=dev)

@@ -3,21 +3,30 @@
 Counterpart of ``tpu_ctc.decode.beam.prefix_beam_search`` (the XLA scan
 search): fixed-shape beam tensors [B, K], a Python loop over frames, the
 sort-free duplicate merge through an invertible rolling hash ("mate"
-fold), n-gram LM rows for orders <= 3, ``prune_logp`` and ``char_topk``.
-The candidate grid is laid out in the fused kernel's enumeration order
-(stays on the blank row, then (char, beam)), top-K breaks exact ties by
-lowest enumeration index and the survivors are re-packed in enumeration
-order, dead slots last, so the per-frame beam states equal the kernel's.
+fold), n-gram LM rows for orders <= 3, the GRU char LM (each beam carries
+its state, stepped on its char where it extends), ``prune_logp`` and
+``char_topk``.  The candidate grid is laid out in the fused kernel's
+enumeration order (stays on the blank row, then (char, beam)), top-K
+breaks exact ties by lowest enumeration index and the survivors are
+re-packed in enumeration order, dead slots last, so the per-frame beam
+states equal the kernels'.
 
-:func:`make_beam_decoder` routes CUDA batches through kernel B5
-(``ops.beam_cuda``) and raises for what the kernel lacks.
+:func:`prefix_beam_search_host` is the dict-based host algorithm for one
+utterance, the recompute-from-prefix oracle of the batched search.
+
+:func:`make_beam_decoder` routes CUDA batches through kernel B5 (K <= 128)
+or B6 (K in (128, 256]) in ``ops.beam_cuda`` and raises for what they lack.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from tpu_ctc_torch.decode import neural_lm
 from tpu_ctc_torch.decode.lm import NGramCharLM
 
 NEG_INF = -1e30
@@ -33,9 +42,6 @@ _H1_EMPTY = 0x9E3779B9
 _H2_EMPTY = 0x85EBCA6B
 _MASK32 = 0xFFFFFFFF
 
-_NEURAL_LM_ITEM = ("not ported yet (ROADMAP.md: queue A, the GRU char LM; "
-                   "queue B, the GRU-LM branch of B5)")
-
 
 def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m = torch.maximum(a, b)
@@ -50,6 +56,55 @@ def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
     lo = (h & 0xFFFF) * m
     hi = ((h >> 16) * m) & 0xFFFF
     return (lo + (hi << 16)) & _MASK32
+
+
+def _np_lse(*xs):
+    m = max(xs)
+    if m <= NEG_INF / 2:
+        return NEG_INF
+    return m + math.log(sum(math.exp(x - m) for x in xs))
+
+
+def prefix_beam_search_host(log_probs: np.ndarray,
+                            length: Optional[int] = None,
+                            beam_width: int = 64, blank: int = 0, lm=None,
+                            lm_alpha: float = 1.0,
+                            lm_beta: float = 0.0) -> Tuple[List[int], float]:
+    """Exact dict-based prefix beam search for ONE utterance, in float64.
+
+    log_probs: [T, A] normalized log posteriors; ``lm`` anything with
+    ``score_host(prefix, c)`` (``NGramCharLM``, ``CharRNNLMHost``).
+    Returns (best prefix ids, its log score).
+    """
+    log_probs = np.asarray(log_probs, dtype=np.float64)
+    t_total, a = log_probs.shape
+    if length is None:
+        length = t_total
+    # prefix -> [p_blank, p_non_blank]
+    beams: Dict[Tuple[int, ...], List[float]] = {(): [0.0, NEG_INF]}
+    for t in range(length):
+        lp = log_probs[t]
+        new: Dict[Tuple[int, ...], List[float]] = defaultdict(
+            lambda: [NEG_INF, NEG_INF])
+        for prefix, (pb, pnb) in beams.items():
+            total = _np_lse(pb, pnb)
+            ent = new[prefix]                 # stay: emit blank
+            ent[0] = _np_lse(ent[0], total + lp[blank])
+            if prefix:                        # stay: repeat the last char
+                ent[1] = _np_lse(ent[1], pnb + lp[prefix[-1]])
+            for c in range(a):                # extend with every char
+                if c == blank:
+                    continue
+                contrib = (pb if (prefix and c == prefix[-1]) else total) \
+                    + lp[c]
+                if lm is not None:
+                    contrib += lm_alpha * lm.score_host(prefix, c) + lm_beta
+                ext = new[prefix + (c,)]
+                ext[1] = _np_lse(ext[1], contrib)
+        items = sorted(new.items(), key=lambda kv: -_np_lse(*kv[1]))
+        beams = dict(items[:beam_width])
+    best, (pb, pnb) = max(beams.items(), key=lambda kv: _np_lse(*kv[1]))
+    return list(best), _np_lse(pb, pnb)
 
 
 def _lm_scores(lm_table: torch.Tensor, order: int, last: torch.Tensor,
@@ -71,6 +126,7 @@ def _stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+@torch.no_grad()
 def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                        beam_width: int = 64, max_len: int = 128,
                        blank: int = 0,
@@ -84,11 +140,13 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
 
     log_probs [B, T, A] normalized log posteriors, frame_lengths [B] ->
     (hyps [B, max_len] int32, hyp_lengths [B] int32, scores [B] f32);
-    ``return_beams`` appends every slot's final score and length [B, K].
+    ``return_beams`` appends every slot's final score and length [B, K]
+    and prefix [B, K, max_len] (valid up to its length).
+    ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``) on the
+    tensors' device; its rows ``lm_alpha * log_probs(h) + lm_beta`` are
+    added to the n-gram rows (so beta counts twice when both are on, as in
+    the JAX package).
     """
-    if nlm_params is not None:
-        raise NotImplementedError(
-            f"neural char LM decoding: {_NEURAL_LM_ITEM}")
     dev = log_probs.device
     lp_all = log_probs.to(torch.float32)
     n_b, n_t, a = lp_all.shape
@@ -113,6 +171,10 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
         n_b, k).clone()
     pnb = torch.full((n_b, k), NEG_INF, device=dev)
     neg = torch.tensor(NEG_INF, device=dev)
+    hlm = None
+    if nlm_params is not None:
+        # per-beam GRU state over the prefix, from the BOS-stepped start
+        hlm = neural_lm.init_state(nlm_params, (n_b, k))
 
     for t in range(n_t):
         lp = lp_all[:, t]                                      # [B, A]
@@ -136,6 +198,9 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
         if lm_table is not None:
             lm_row = lm_alpha * _lm_scores(lm_table, lm_order, last,
                                            last2) + lm_beta     # [B, K, A]
+        if hlm is not None:
+            nrow = lm_alpha * neural_lm.log_probs(nlm_params, hlm) + lm_beta
+            lm_row = nrow if lm_row is None else lm_row + nrow
 
         # ---- mate detection (sort-free duplicate merge) -----------------
         ph1 = _mul32((h1 - last) & _MASK32, _H1_INV)
@@ -227,6 +292,11 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                            p_h2)
         n_h1 = torch.where(dead, dead_hash, n_h1)
         n_h2 = torch.where(dead, dead_hash, n_h2)
+        if hlm is not None:
+            # the parent's state, stepped on the char where the slot extends
+            h_par = hlm[bidx, t_parent]                        # [B, K, H]
+            h_ext = neural_lm.gru_step(nlm_params, h_par, ext_c)
+            n_hlm = torch.where(extend[:, :, None], h_ext, h_par)
 
         active = (t < lens)[:, None]                           # [B, 1]
         buf = torch.where(active[:, :, None], n_buf, buf)
@@ -237,6 +307,8 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
         h2 = torch.where(active, n_h2, h2)
         pb = torch.where(active, n_pb, pb)
         pnb = torch.where(active, n_pnb, pnb)
+        if hlm is not None:
+            hlm = torch.where(active[:, :, None], n_hlm, hlm)
 
     score = _lse2(pb, pnb)
     best = torch.argmax(score, dim=1)                          # first max
@@ -244,7 +316,7 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
     out = (buf[rows, best], plen[rows, best].to(torch.int32),
            score[rows, best])
     if return_beams:
-        return out + (score, plen.to(torch.int32))
+        return out + (score, plen.to(torch.int32), buf)
     return out
 
 
@@ -253,27 +325,28 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     """Build a (model, batch) -> (hyps, lens) decode function.
 
     ``batch`` holds ``feats`` [B, T, D], ``frame_mask`` [B, T],
-    ``frame_lengths`` [B] and ``labels`` [B, L] (numpy arrays or tensors).
-    On CUDA the search runs kernel B5 (``ops.beam_cuda``) when
-    ``cfg.decode.use_fused_kernel`` is set, and a configuration the kernel
-    lacks (K > 128, vocab > 64, LM order > 3, a neural LM) raises
-    ``NotImplementedError``: there is no silent fallback.  On the CPU the
-    plain search runs.  The model runs on ``device`` (default ``cuda``).
+    ``frame_lengths`` [B] and ``labels`` [B, L] (numpy arrays or tensors);
+    ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``), moved to the
+    device here.  With ``cfg.decode.use_fused_kernel`` set, a configuration
+    that the kernels lack (K > 256, vocab > 64, LM order > 3, GRU dims over
+    E = 128 or H = 256) raises ``NotImplementedError`` on every device, and
+    on CUDA the search runs kernel B5 (K <= 128) or B6 (K in (128, 256]):
+    there is no silent fallback.  On the CPU the plain search runs.  The
+    model runs on ``device`` (default ``cuda``).
     """
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.models import birnn
     from tpu_ctc_torch.ops import beam_cuda
 
     dev = resolve_device(device)
-    if nlm_params is not None:
-        raise NotImplementedError(
-            f"neural char LM decoding: {_NEURAL_LM_ITEM}")
     lm_table = lm.tables(dev) if lm is not None else None
     lm_order = lm.order if lm is not None else 0
     use_kernel = cfg.decode.use_fused_kernel
-    if use_kernel and dev.type == "cuda":
+    if use_kernel:
         beam_cuda.check_supported(cfg.decode.beam_width, cfg.model.vocab_size,
-                                  lm_order)
+                                  lm_order, nlm_params)
+    if nlm_params is not None:
+        nlm_params = nlm_params.to(dev)
     search = beam_cuda.beam_search if use_kernel else prefix_beam_search
 
     def decode(model, batch):
@@ -288,7 +361,7 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
             log_probs, lengths, beam_width=cfg.decode.beam_width,
             max_len=max_len, lm_table=lm_table, lm_order=lm_order,
             lm_alpha=cfg.decode.lm_alpha, lm_beta=cfg.decode.lm_beta,
-            char_topk=cfg.decode.char_topk,
+            nlm_params=nlm_params, char_topk=cfg.decode.char_topk,
             prune_logp=cfg.decode.prune_logp)
         return hyps, lens
 

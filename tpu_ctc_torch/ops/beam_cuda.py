@@ -1,12 +1,14 @@
-"""Fused CTC prefix beam search: CUDA kernel B5 and its wrapper.
+"""Fused CTC prefix beam search: CUDA kernels B5 and B6 and their wrapper.
 
-Counterpart of ``tpu_ctc.ops.beam_pallas.beam_search_pallas`` for beam
-width K <= 128 with an n-gram LM of order <= 3 (the GRU-LM branch and the
-K in (128, 256] kernel are not ported yet).  The kernel
-(``csrc/beam_search.cu``) runs the whole search, one block per utterance,
-and emits packed backpointers ``parent | (char + 1) << 8`` plus each
-slot's final (pb, pnb, plen); the wrapper here prepares the inputs, takes
-the best slot and follows its backpointers (:func:`reconstruct`).
+Counterpart of ``tpu_ctc.ops.beam_pallas.beam_search_pallas``: an n-gram LM
+of order <= 3 and/or the GRU char LM, kernel B5 for beam width K <= 128 and
+kernel B6 for K in (128, 256].  Both are one template in
+``csrc/beam_search.cu`` (``beam_kernel<kMaxK, kNlm>``), each with its own
+launch count here.  A kernel runs the whole search, one block per
+utterance, and emits packed backpointers ``parent | (char + 1) << 8`` (the
+parent slot <= 255 fits the 8 bits) plus each slot's final (pb, pnb,
+plen); the wrapper here prepares the inputs, takes the best slot and
+follows its backpointers (:func:`reconstruct`).
 
 The plain version of this kernel is
 :func:`tpu_ctc_torch.decode.beam.prefix_beam_search`: :func:`beam_search`
@@ -20,31 +22,44 @@ plain search keeps the C lowest-indexed on an exact tie at the bar.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from tpu_ctc_torch.decode import neural_lm
 from tpu_ctc_torch.decode.beam import NEG_INF, _lse2, prefix_beam_search
 from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
-KERNEL = CudaKernel("beam_search")
-MAX_BEAM = 128
+KERNEL = CudaKernel("beam_search")                          # B5
+WIDE_KERNEL = CudaKernel("beam_search_wide", source="beam_search")  # B6
+NARROW_BEAM = 128               # B5 takes K <= 128, B6 K in (128, 256]
+MAX_BEAM = 256
 MAX_VOCAB = 64
 MAX_ORDER = 3
-TODO_ITEM = ("ROADMAP.md queue B: the GRU-LM branch of B5 and kernel B6, "
-             "K in (128, 256]")
+MAX_EMBED, MAX_HIDDEN = 128, 256   # GRU dims, after rounding up to 8
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def kernel_for(beam_width: int) -> CudaKernel:
+    return KERNEL if beam_width <= NARROW_BEAM else WIDE_KERNEL
 
 
 def check_supported(beam_width: int, vocab: int, lm_order: int,
                     nlm_params=None) -> None:
-    """Raise ``NotImplementedError`` for what kernel B5 does not take."""
+    """Raise ``NotImplementedError`` for what kernels B5 and B6 do not take:
+    what ``beam_pallas.supported`` refuses."""
     if nlm_params is not None:
-        raise NotImplementedError(f"beam_search kernel: a neural char LM is "
-                                  f"not ported yet ({TODO_ITEM})")
+        e, h = nlm_params.embed.shape[1], nlm_params.bz.shape[0]
+        if _round8(e) > MAX_EMBED or _round8(h) > MAX_HIDDEN:
+            raise NotImplementedError(
+                f"beam_search kernel: GRU char LM with embed {e} / hidden "
+                f"{h} (at most {MAX_EMBED} / {MAX_HIDDEN})")
     if not 1 <= beam_width <= MAX_BEAM:
         raise NotImplementedError(
-            f"beam_search kernel: beam width {beam_width} > {MAX_BEAM} is "
-            f"not ported yet ({TODO_ITEM})")
+            f"beam_search kernel: beam width {beam_width} (1..{MAX_BEAM})")
     if not 2 <= vocab <= MAX_VOCAB:
         raise NotImplementedError(
             f"beam_search kernel: vocab {vocab} (2..{MAX_VOCAB})")
@@ -82,35 +97,68 @@ def admission_bar(log_probs: torch.Tensor, char_topk: int,
     return torch.topk(lp_ext, char_topk, dim=-1).values[..., -1].contiguous()
 
 
+def gru_layout(nlm, vocab: int, device) -> Tuple[torch.Tensor, ...]:
+    """The GRU char LM's weights as the kernels read them, f32 and
+    contiguous on ``device``: (xw [A, 3H], wh [H, 3H], b [3H], wo [H, A],
+    bo [A], h_bos [H]).  ``xw = embed @ (Wz|Wr|Wh)[:E]`` is every char's
+    input projection (the TPU kernel's ``wx @ embed^T``, taken out of the
+    frame loop and summed in f64), ``wh = (Wz|Wr|Wh)[E:]`` the recurrent
+    rows, ``b = (bz|br|bh)`` and ``h_bos = neural_lm.init_state``, the
+    BOS-stepped state every beam starts from (``beam_pallas.py:1345-1365``;
+    no padding of E, H or A)."""
+    if nlm.embed.shape[0] != vocab:
+        raise ValueError(f"beam_search kernel: GRU char LM vocab "
+                         f"{nlm.embed.shape[0]}, posteriors {vocab}")
+    e = nlm.embed.shape[1]
+    with torch.no_grad():
+        w = torch.cat([nlm.wz, nlm.wr, nlm.wh], dim=1)          # [E+H, 3H]
+        xw = nlm.embed.double() @ w[:e].double()
+        out = (xw, w[e:], torch.cat([nlm.bz, nlm.br, nlm.bh]), nlm.wo,
+               nlm.bo, neural_lm.init_state(nlm))
+        return tuple(t.to(device=device, dtype=torch.float32).contiguous()
+                     for t in out)
+
+
 def launch(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
            max_len: int, blank: int = 0, lm: Optional[torch.Tensor] = None,
            lm_order: int = 0, lm_alpha: float = 1.0, lm_beta: float = 0.0,
            prune_logp: Optional[float] = None,
-           thr: Optional[torch.Tensor] = None):
-    """One launch of kernel B5 on prepared inputs: lp [B, T, A] f32, lens
-    [B] int32, lm the flat [A]^order f32 table or None, thr [B, T] f32 or
-    None, all contiguous on one CUDA device -> (bp [B, T, K] int32 packed
-    backpointers, fin [B, 3, K] f32 final pb, pnb, plen)."""
+           thr: Optional[torch.Tensor] = None,
+           gru: Optional[Tuple[torch.Tensor, ...]] = None):
+    """One launch of kernel B5 (K <= 128) or B6 (K in (128, 256]) on
+    prepared inputs: lp [B, T, A] f32, lens [B] int32, lm the flat [A]^order
+    f32 table or None, thr [B, T] f32 or None, gru the :func:`gru_layout`
+    tuple or None, all contiguous on one CUDA device -> (bp [B, T, K] int32
+    packed backpointers, fin [B, 3, K] f32 final pb, pnb, plen).  With a
+    GRU, the per-beam states live in a [B, 2, K, H] f32 ping-pong buffer
+    allocated here."""
     n_b, n_t, a = lp.shape
+    kern = kernel_for(beam_width)
     bp = torch.empty((n_b, n_t, beam_width), dtype=torch.int32,
                      device=lp.device)
     fin = torch.empty((n_b, 3, beam_width), dtype=torch.float32,
                       device=lp.device)
-    fn = KERNEL.lib().beam_search_launch
+    null = ctypes.c_void_p(None)
+    gru_args, n_h = [null] * 7, 0
+    if gru is not None:
+        n_h = gru[5].shape[0]
+        state = torch.empty((n_b, 2, beam_width, n_h), dtype=torch.float32,
+                            device=lp.device)
+        gru_args = [ptr(x) for x in (*gru, state)]
+    fn = getattr(kern.lib(), kern.name + "_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
-                                             ctypes.c_void_p])
-    null = ctypes.c_void_p(None)
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
     err = fn(ptr(lp), ptr(lens), ptr(thr) if thr is not None else null,
              ptr(lm) if lm is not None else null, ptr(bp), ptr(fin),
              n_b, n_t, a, beam_width, blank, max_len,
              lm_order if lm is not None else 0, float(lm_alpha),
              float(lm_beta), int(prune_logp is not None),
              float(prune_logp if prune_logp is not None else 0.0),
-             stream_of(lp))
-    check(err, "beam_search")
-    KERNEL.launches += 1
+             *gru_args, n_h, stream_of(lp))
+    check(err, kern.name)
+    kern.launches += 1
     return bp, fin
 
 
@@ -119,7 +167,7 @@ def prepare(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
             lm_table: Optional[torch.Tensor] = None, lm_order: int = 0,
             char_topk: int = 0, nlm_params=None):
     """Check the configuration and lay the inputs out for :func:`launch`:
-    -> (lp, lens, lm or None, thr or None)."""
+    -> (lp, lens, lm or None, thr or None, gru or None)."""
     if not log_probs.is_cuda:
         raise ValueError("beam_search kernel: log_probs must be on a CUDA "
                          "device")
@@ -139,7 +187,8 @@ def prepare(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
             raise ValueError(f"beam_search kernel: LM table of "
                              f"{lm.numel()} entries for order {order} and "
                              f"vocab {a}")
-    return lp, lens, lm, thr
+    gru = gru_layout(nlm_params, a, dev) if nlm_params is not None else None
+    return lp, lens, lm, thr, gru
 
 
 def beam_search_cuda(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
@@ -148,12 +197,13 @@ def beam_search_cuda(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                      lm_order: int = 0, lm_alpha: float = 1.0,
                      lm_beta: float = 0.0, prune_logp: Optional[float] = None,
                      char_topk: int = 0, nlm_params=None):
-    """Kernel B5 and the best slot's hypothesis; same contract as
+    """Kernel B5 or B6 and the best slot's hypothesis; same contract as
     :func:`beam_search`."""
-    lp, lens, lm, thr = prepare(log_probs, frame_lengths, beam_width, blank,
-                                lm_table, lm_order, char_topk, nlm_params)
+    lp, lens, lm, thr, gru = prepare(log_probs, frame_lengths, beam_width,
+                                     blank, lm_table, lm_order, char_topk,
+                                     nlm_params)
     bp, fin = launch(lp, lens, beam_width, max_len, blank, lm, lm_order,
-                     lm_alpha, lm_beta, prune_logp, thr)
+                     lm_alpha, lm_beta, prune_logp, thr, gru)
     score = _lse2(fin[:, 0], fin[:, 1])                        # [B, K]
     best = torch.argmax(score, dim=1)
     rows = torch.arange(lp.shape[0], device=lp.device)
@@ -167,8 +217,8 @@ def beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                 lm_alpha: float = 1.0, lm_beta: float = 0.0,
                 prune_logp: Optional[float] = None, char_topk: int = 0,
                 nlm_params=None):
-    """Batched prefix beam search: kernel B5 for CUDA tensors, the plain
-    search for CPU tensors.
+    """Batched prefix beam search: kernel B5 (K <= 128) or B6 (K in
+    (128, 256]) for CUDA tensors, the plain search for CPU tensors.
 
     log_probs [B, T, A] normalized log posteriors, frame_lengths [B] ->
     (hyps [B, max_len] int32, lengths [B] int32, scores [B] f32).
