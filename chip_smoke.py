@@ -5,9 +5,11 @@ Drives the port's two main paths and holds each CUDA kernel on them
 against its plain PyTorch version on the same inputs:
 
   1. the card: name and power limit, and the build of every kernel from
-     ``tpu_ctc_torch/csrc`` (one ``nvcc`` per source, all started together);
+     ``tpu_ctc_torch/csrc`` (one ``nvcc`` per source, all started together),
+     with each compiled kernel's registers and spill bytes;
   2. kernel B1 (``ops/birnn_cuda.py``, the forward BiRNN recurrence) at
-     H = 1824, B = 64, T = 800, bf16, both directions;
+     H = 1824, B = 64, T = 800, bf16, both directions; its time also in
+     microseconds a step;
   3. kernel B5 (``ops/beam_cuda.py``, the fused prefix beam search) at
      B = 64, T = 800, A = 29, K = 128 with a trigram;
   4. serving, end to end: preset 4 (``swbd_beam_decode``: 2 dense
@@ -16,7 +18,9 @@ against its plain PyTorch version on the same inputs:
      (400-800 frames) through ``BucketedLoader`` and ``make_beam_decoder``
      on random seeded weights;
   5. kernel B2 (``ops/birnn_cuda.py``, the backward delta sweep) at
-     H = 1024, B = 32, T = 800, bf16, both directions;
+     H = 1024, B = 32, T = 800, bf16, both directions, on states that B1
+     computed at that shape (held against B1's plain version and timed
+     too: preset 2's B1);
   6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
      at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
      with ``torch.nn.functional.ctc_loss`` timed beside them;
@@ -57,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +147,34 @@ def all_kernels():
             ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL)
 
 
+def ptxas_summary(build_log: str):
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
+    name (demangled where ``c++filt`` exists), registers and spill bytes."""
+    rows, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = ", ".join(p.strip() for p in line.split(",")[1:])
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            rows.append([name, f"{regs.group(1) if regs else '?'} "
+                               f"registers, {spill}"])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r[0] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) == len(rows):
+        for row, full in zip(rows, names):
+            row[0] = full.replace("(anonymous namespace)::", "").split(
+                "(")[0].removeprefix("void ")
+    return [f"{n}: {rest}" for n, rest in rows]
+
+
 def phase_build():
     from tpu_ctc_torch.ops import _build
     log(f"phase 1: card {card_line()} | torch {torch.__version__} cuda "
@@ -156,10 +189,8 @@ def phase_build():
         if kern.library in shown:
             continue
         shown.add(kern.library)
-        for line in logs[kern.name].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {os.path.basename(kern.source)}: "
-                    f"{line.strip()}")
+        for line in ptxas_summary(logs[kern.name]):
+            log(f"  ptxas {os.path.basename(kern.source)} {line}")
 
 
 def run_main_path(run):
@@ -218,9 +249,10 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
                + n_b * 4)
     n_ops = 2 * n_h * int((prev_nnz * live_tb).sum())
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
-    log(f"phase 2: B1 one direction {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
-        f"computes a clipped-ReLU recurrence)")
+    log(f"phase 2: B1 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
+        f"step), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"library: none (no PyTorch call computes a clipped-ReLU "
+        f"recurrence)")
     return dict(name="birnn_fwd", route="cuda", source=BIRNN_SOURCE,
                 replaces=B1_REPLACES, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -409,6 +441,17 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
     for reverse in (True, False):
         hs = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=not reverse,
                                             clip=20.0)
+        torch.cuda.synchronize()
+        hs_want = birnn_cuda.fwd_recurrence_plain(
+            z, w, lens, reverse=not reverse, clip=20.0).float()
+        bad_h = int(((hs.float() - hs_want).abs()
+                     > 2 ** -6 * hs_want.abs() + 2e-2).sum())
+        log(f"phase 5: B1 at preset 2's shape "
+            f"{'forward' if reverse else 'reversed'}: max abs err "
+            f"{float((hs.float() - hs_want).abs().max()):.3e}, {bad_h} "
+            f"beyond tolerance")
+        if bad_h:
+            raise AssertionError("B1 disagrees with its plain version")
         states[reverse] = hs
         got = birnn_cuda.bwd_recurrence_cuda(g, hs, wt, reverse=reverse,
                                              clip=20.0).float()
@@ -444,9 +487,14 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
                + n_h * n_h * 2)
     n_ops = 2 * int((act.sum(2) * next_nnz).sum())
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
-    log(f"phase 5: B2 one direction {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
-        f"computes a clipped-ReLU delta sweep)")
+    fwd_ms = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+        z, w, lens, reverse=False, clip=20.0), reps)
+    log(f"phase 5: B2 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
+        f"step), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"library: none (no PyTorch call computes a clipped-ReLU delta "
+        f"sweep)")
+    log(f"phase 5: B1 one direction at preset 2's shape (H={n_h}, B={n_b}, "
+        f"T={n_t}) {fwd_ms:.3f} ms ({fwd_ms * 1e3 / n_t:.2f} us a step)")
     return dict(name="birnn_bwd", route="cuda", source=BIRNN_SOURCE,
                 replaces=B2_REPLACES, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,

@@ -22,6 +22,8 @@ rounds where JAX rounds: dx and dw of ``dot_f32`` are rounded to the
 compute dtype (checked against ``jax.vjp`` exactly, up to f32 order).
 """
 import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +35,7 @@ from tpu_ctc.config import ModelConfig as JaxModelConfig
 from tpu_ctc.models import birnn as jax_birnn
 from tpu_ctc.ops import birnn_pallas
 from tpu_ctc.train import checkpoint as jax_ckpt
-from tpu_ctc_torch.config import ModelConfig
+from tpu_ctc_torch.config import ModelConfig, get_config
 from tpu_ctc_torch.models import birnn
 from tpu_ctc_torch.ops import birnn_cuda
 from tpu_ctc_torch.train import checkpoint
@@ -325,6 +327,13 @@ class TestModel:
                 assert 0.1 < float(pa.std()) < 0.5      # init_scale 0.3
 
 
+def _preset_shape(name):
+    """(batch, width, recurrence dtype) of a preset."""
+    cfg = get_config(name)
+    return (cfg.data.batch_size, cfg.model.hidden_dim,
+            getattr(torch, cfg.model.compute_dtype))
+
+
 class TestKernelGuards:
     def test_cpu_tensors_use_the_plain_loop(self):
         z, wf, _, lens, _ = _recurrence_inputs(6, 5, 2, 8, 0.3)
@@ -362,13 +371,59 @@ class TestKernelGuards:
             birnn_cuda.bwd_recurrence_cuda(z, hs, wf.t(), reverse=True,
                                            clip=20.0)
 
-    @pytest.mark.parametrize("b,h,dtype,ok", [
-        (64, 1824, torch.bfloat16, True), (128, 2048, torch.bfloat16, True),
-        (129, 64, torch.bfloat16, False), (8, 64, torch.float16, False),
-        (64, 1824, torch.float32, True), (64, 16384, torch.bfloat16, False)])
-    def test_supported_shapes(self, b, h, dtype, ok):
-        if ok:
+    @pytest.mark.parametrize("b,h,dtype,refusal", [
+        (64, 1824, torch.bfloat16, None), (128, 2048, torch.bfloat16, None),
+        (129, 64, torch.bfloat16, "batch 129"),
+        (8, 64, torch.float16, "io dtype"),
+        (64, 1824, torch.float32, None),
+        (64, 16384, torch.bfloat16, "1024 co-resident blocks"),
+        # the last width whose 16-column blocks fit 132 SMs, and the next
+        (128, 2112, torch.bfloat16, None), (128, 2112, torch.float32, None),
+        (1, 2113, torch.bfloat16, "133 co-resident blocks"),
+        # each preset's width at its batch size and dtype (config.py)
+        *[pytest.param(*_preset_shape(name), refusal, id=name)
+          for name, refusal in (
+              ("timit_subset_1layer", None), ("timit_full_3layer", None),
+              ("swbd_5layer_dp", None), ("swbd_beam_decode", None),
+              ("swbd_wide_tp", r"H=4096 needs 256 co-resident blocks .* "
+                               r"\(tensor parallelism\)"))]])
+    def test_supported_shapes(self, b, h, dtype, refusal):
+        if refusal is None:
             birnn_cuda.check_supported(b, h, dtype)
         else:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(NotImplementedError, match=refusal):
                 birnn_cuda.check_supported(b, h, dtype)
+
+    @pytest.mark.parametrize("b,h,shape,grid", [
+        (64, 1824, (2, 64, 1824), 114), (32, 1024, (2, 32, 1024), 64),
+        (1, 100, (2, 16, 112), 7), (17, 200, (2, 32, 208), 13),
+        (128, 2048, (2, 128, 2048), 128)])
+    def test_exchange_layout(self, b, h, shape, grid):
+        """The zeroed exchange buffer pads B and H to multiples of 16, so
+        its rows are 16-byte aligned for the bf16 kernel's copies; one
+        block per 16 columns; the bf16 block's shared memory is its
+        copy rings (8 warps x 4 stages x 4 KB) and W's 16 padded columns."""
+        assert birnn_cuda.exchange_shape(b, h) == shape
+        assert shape[2] * 2 % 16 == 0
+        assert birnn_cuda.grid_size(h) == grid
+        assert birnn_cuda.smem_bytes(h, torch.bfloat16) == (
+            8 * 4 * 4096 + 16 * (shape[2] + 8) * 2)
+
+    def test_step_breakdown_anchors_match_the_kernel(self):
+        """torch_tools/birnn_step_breakdown.py stamps a copy of birnn.cu at
+        anchors in its text: each must occur exactly once."""
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "torch_tools",
+            "birnn_step_breakdown.py")
+        spec = importlib.util.spec_from_file_location("breakdown", path)
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        with open(birnn_cuda.KERNEL.source) as f:
+            src = f.read()
+        assert [src.count(anchor) for anchor, _ in tool.STAMPS] == [1] * len(
+            tool.STAMPS)
+
+    def test_refusal_counts_the_card_s_sms(self):
+        birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=114)
+        with pytest.raises(NotImplementedError, match="holds 113"):
+            birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=113)

@@ -14,7 +14,7 @@ the scores within 1e-4 (the GRU's f32 sums run in another order than the
 plain version's matmuls).  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
-bf16, 1e-4 at f32.  Kernels B3 and B4 do the plain sweeps' float steps
+bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels B3 and B4 do the plain sweeps' float steps
 with expf/logf: live states within 1e-3 + 1e-6 |alpha| (an ulp or two of
 values up to a few thousand), dead states (<= NEG_INF / 2) dead on both
 sides with the same sentinel values.
@@ -44,31 +44,56 @@ def dev():
 
 
 def _recurrence_inputs(seed, t, b, h):
+    """z, W and lengths; the first utterance is full length and, where
+    there are two or more, the last has length 0."""
     r = np.random.RandomState(seed)
     z = 3.0 * r.randn(t, b, h).astype(np.float32)
     w = (0.5 / np.sqrt(h)) * r.randn(h, h).astype(np.float32)
     lens = r.randint(1, t + 1, b).astype(np.int32)
     lens[0] = t
+    if b > 1:
+        lens[-1] = 0
     return torch.from_numpy(z), torch.from_numpy(w), torch.from_numpy(lens)
 
 
+def _launch_twice(kernel, launch):
+    """Two launches of a bf16 kernel on the same inputs: their outputs are
+    bit-equal (the split-K partials are summed in a fixed order)."""
+    before = kernel.launches
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    return got.float()
+
+
+# bf16 covers B in {1, 17, 64, 128} (the edges of 16-row mma tiles), H in
+# {100, 200} (not a multiple of 16) and the preset widths 1024 and 1824,
+# and T = 1.
 @pytest.mark.parametrize("t,b,h,dtype", [
     (40, 16, 256, torch.bfloat16), (33, 5, 100, torch.bfloat16),
-    (20, 128, 64, torch.bfloat16), (25, 7, 72, torch.float32)])
+    (20, 128, 64, torch.bfloat16), (25, 7, 72, torch.float32),
+    (1, 17, 100, torch.bfloat16), (30, 1, 200, torch.bfloat16),
+    (12, 64, 1824, torch.bfloat16), (10, 128, 1024, torch.bfloat16)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_birnn_kernel_matches_plain(dev, t, b, h, dtype, reverse):
     z, w, lens = _recurrence_inputs(t * b + h, t, b, h)
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
-    before = birnn_cuda.KERNEL.launches
-    got = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                         clip=20.0).float()
-    torch.cuda.synchronize()
-    assert birnn_cuda.KERNEL.launches == before + 1
+
+    def launch():
+        return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
+                                              clip=20.0)
+
     want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
                                            clip=20.0).float()
     if dtype == torch.float32:
+        before = birnn_cuda.KERNEL.launches
+        got = launch().float()
+        torch.cuda.synchronize()
+        assert birnn_cuda.KERNEL.launches == before + 1
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
+        got = _launch_twice(birnn_cuda.KERNEL, launch)
         assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
     for i, n in enumerate(lens.tolist()):
         assert torch.all(got[n:, i] == 0)
@@ -108,7 +133,9 @@ def test_model_kernel_path_matches_plain(dev):
 @pytest.mark.parametrize("t,b,h,dtype", [
     (20, 128, 64, torch.bfloat16), (12, 32, 1024, torch.bfloat16),
     (8, 16, 1824, torch.bfloat16), (15, 7, 72, torch.float32),
-    (9, 5, 1024, torch.float32), (6, 3, 1824, torch.float32)])
+    (9, 5, 1024, torch.float32), (6, 3, 1824, torch.float32),
+    (1, 17, 100, torch.bfloat16), (30, 1, 200, torch.bfloat16),
+    (6, 64, 1824, torch.bfloat16), (6, 128, 1024, torch.bfloat16)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_birnn_bwd_kernel_matches_plain(dev, t, b, h, dtype, reverse):
     z, w, lens = _recurrence_inputs(t * b + h + 1, t, b, h)
@@ -117,16 +144,21 @@ def test_birnn_bwd_kernel_matches_plain(dev, t, b, h, dtype, reverse):
                                          clip=20.0)
     g = torch.from_numpy(np.random.RandomState(h).randn(t, b, h).astype(
         np.float32)).to(dev, dtype)
-    before = birnn_cuda.BWD_KERNEL.launches
-    got = birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=reverse,
-                                         clip=20.0).float()
-    torch.cuda.synchronize()
-    assert birnn_cuda.BWD_KERNEL.launches == before + 1
+
+    def launch():
+        return birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=reverse,
+                                              clip=20.0)
+
     want = birnn_cuda.bwd_recurrence_plain(g, hs, w.t(), reverse=reverse,
                                            clip=20.0).float()
     if dtype == torch.float32:
+        before = birnn_cuda.BWD_KERNEL.launches
+        got = launch().float()
+        torch.cuda.synchronize()
+        assert birnn_cuda.BWD_KERNEL.launches == before + 1
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
+        got = _launch_twice(birnn_cuda.BWD_KERNEL, launch)
         assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
     assert torch.all(got[hs.float() <= 0] == 0)       # inactive frames
 

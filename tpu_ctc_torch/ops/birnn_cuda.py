@@ -37,10 +37,41 @@ from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
 KERNEL = CudaKernel("birnn_fwd", source="birnn")
 BWD_KERNEL = CudaKernel("birnn_bwd", source="birnn")
+# The kernels' limits.  A block is 256 threads; the bf16 kernel keeps 8
+# m-tiles x 2 n-tiles of f32 accumulators a warp (B <= 128) and takes 172
+# registers a thread (ptxas, 0 spill bytes), within an SM's 64 K; its shared
+# memory (rings and W's columns, over half an SM's) allows one block a SM.
 MAX_BATCH = 128                    # kMaxB of the kernels
-_COLS, _KC = 16, 64                # kCols, kKc of the kernels
+_COLS, _PAD, _KC = 16, 16, 64      # kCols, kPad, kKc of the kernels
+_RING_BYTES = 8 * 4 * 4096         # bf16: kWarps rings of kStages x 4 KB
 _SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+H100_SMS = 132                     # SMs of an H100 SXM: one block each
 _COOP_TOO_LARGE = 720              # cudaErrorCooperativeLaunchTooLarge
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def exchange_shape(n_b: int, n_h: int) -> tuple:
+    """Shape of the kernels' zeroed exchange buffer: two halves of
+    [B_pad, H_pad], B and H rounded up to multiples of 16 (one mma tile,
+    and 16-byte aligned rows for the bf16 kernel's copies)."""
+    return (2, _round_up(n_b, _PAD), _round_up(n_h, _PAD))
+
+
+def grid_size(n_h: int) -> int:
+    """Blocks of a launch: one per 16 columns of W, all co-resident."""
+    return -(-n_h // _COLS)
+
+
+def smem_bytes(n_h: int, dtype: torch.dtype) -> int:
+    """Shared memory one block takes: for bf16 the warps' copy rings and W's
+    16 columns (a row padded by 16 bytes); for f32 W's columns and the
+    staged carry of up to 128 rows in k-chunks of 64."""
+    if dtype == torch.bfloat16:
+        return _RING_BYTES + _COLS * (_round_up(n_h, _PAD) + 8) * 2
+    return (n_h * _COLS + MAX_BATCH * (_KC + 1)) * 4
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,17 +147,25 @@ def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
 
 
 def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
-                    what: str = "birnn_fwd") -> None:
+                    what: str = "birnn_fwd", n_sm: int = H100_SMS) -> None:
     """Raise if the kernels (B1 and B2 share their limits) cannot take
-    this shape or dtype."""
+    this shape or dtype on a card of ``n_sm`` SMs: B <= 128, one block per
+    16 columns of W with all blocks resident at once (a block takes more
+    than half an SM's shared memory, so one a SM: H <= 16 n_sm, 2112 on an
+    H100 SXM), and the block's shared memory within the SM's."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{what} kernel: io dtype {dtype} "
                                   "(bfloat16 or float32 only)")
     if not 1 <= n_b <= MAX_BATCH:
         raise NotImplementedError(
             f"{what} kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
-    item = torch.finfo(dtype).bits // 8
-    smem = (n_h * _COLS + MAX_BATCH * (_KC + 4 // item)) * item
+    if grid_size(n_h) > n_sm:
+        raise NotImplementedError(
+            f"{what} kernel: H={n_h} needs {grid_size(n_h)} co-resident "
+            f"blocks of {_COLS} columns of W, and the card holds {n_sm} "
+            f"(one a SM); a wider recurrence needs W split over cards "
+            f"(tensor parallelism)")
+    smem = smem_bytes(n_h, dtype)
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"{what} kernel: H={n_h} needs {smem} B of shared memory "
@@ -149,11 +188,13 @@ def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
             f"{what} kernel: io dtype {x.dtype} with compute dtype "
             f"{w.dtype} (the kernel takes one dtype for both)")
     n_t, n_b, n_h = x.shape
-    check_supported(n_b, n_h, x.dtype, what)
+    check_supported(n_b, n_h, x.dtype, what, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     x = x.contiguous()
     w = w.contiguous()
     out = torch.empty_like(x)
-    xbuf = torch.zeros((2, n_b, n_h), dtype=x.dtype, device=x.device)
+    xbuf = torch.zeros(exchange_shape(n_b, n_h), dtype=x.dtype,
+                       device=x.device)
     count = torch.zeros((1,), dtype=torch.int32, device=x.device)
     fn = getattr(kernel.lib(), fn_name)
     fn.restype = ctypes.c_int
@@ -164,7 +205,7 @@ def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
              int(x.dtype == torch.bfloat16), stream_of(x))
     if err == _COOP_TOO_LARGE:
         raise NotImplementedError(
-            f"{what} kernel: H={n_h} needs {-(-n_h // _COLS)} co-resident "
+            f"{what} kernel: H={n_h} needs {grid_size(n_h)} co-resident "
             "blocks, more than the card holds at once")
     check(err, what)
     kernel.launches += 1
