@@ -6,7 +6,10 @@ against its plain PyTorch version on the same inputs:
 
   1. the card: name and power limit, and the build of every kernel from
      ``tpu_ctc_torch/csrc`` (one ``nvcc`` per source, all started together),
-     with each compiled kernel's registers and spill bytes;
+     with each compiled kernel's registers and spill bytes, and the number
+     of tensor-core (HMMA) instructions in each of the four instances of
+     B5/B6's template: nonzero in the GRU instances, zero in the n-gram
+     ones;
   2. kernel B1 (``ops/birnn_cuda.py``, the forward BiRNN recurrence) at
      H = 1824, B = 64, T = 800, bf16, both directions; its time also in
      microseconds a step;
@@ -42,7 +45,9 @@ against its plain PyTorch version on the same inputs:
 
 Each main path (phases 4, 7 and both widths of 10) is run with every launch
 count set to 0 just before it and read just after; a kernel's ``launches``
-in the record is the sum over the paths that run it.  The GRU's sums run in
+in the record is the sum over the paths that run it.  B5 has two records,
+told apart by ``variant``: ``trigram`` (phase 3, launched on phase 4's
+path) and ``gru+trigram`` (phase 8, launched on phase 10's).  The GRU's sums run in
 another order in a kernel than in the plain version's matmuls, so over 800
 frames its scores drift apart by float rounding: the GRU checks hold
 hypotheses equal on every utterance whose top-2 beam gap exceeds 1e-2 and
@@ -77,6 +82,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_OPS = 989e12
 SCALAR_INSTR_PER_S = 67e12 / 2
+# B5 and B6 take the GRU's products on the tensor cores in the three-pass
+# TF32 split (f32 accuracy, as the reference's Precision.HIGHEST): three
+# TF32 products for each, so the f32-accurate rate is a third of the dense
+# TF32 peak (495 TFLOP/s).
+TF32_SPLIT_FLOP_PER_S = 495e12 / 3
 REPS = 5                        # timed calls per kernel, after a warm-up
 PLAIN_REPS = 3                  # timed calls per plain version
 
@@ -84,6 +94,9 @@ BIRNN_SOURCE = "tpu_ctc_torch/csrc/birnn.cu"          # B1 and B2
 B1_REPLACES = "tpu_ctc/ops/birnn_pallas.py:103"
 B5_SOURCE = "tpu_ctc_torch/csrc/beam_search.cu"
 B5_REPLACES = "tpu_ctc/ops/beam_pallas.py:197"
+# (K, kNlm) of the four instances of beam_kernel<kMaxK, kNlm>: B5 and B6,
+# each with and without the GRU
+BEAM_INSTANCES = [(128, False), (128, True), (256, False), (256, True)]
 B6_REPLACES = "tpu_ctc/ops/beam_pallas.py:696"
 B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
@@ -147,6 +160,48 @@ def all_kernels():
             ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL)
 
 
+def demangle(names):
+    """Kernel names as ``c++filt`` shows them (template arguments kept,
+    namespace and parameters dropped); the names unchanged without it."""
+    try:
+        full = subprocess.run(["c++filt"], input="\n".join(names),
+                              capture_output=True, text=True,
+                              timeout=60).stdout.splitlines()
+    except OSError:
+        full = []
+    if len(full) != len(names):
+        return list(names)
+    return [f.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for f in full]
+
+
+def sass_mma_counts(library: str):
+    """{kernel: number of HMMA (tensor-core) instructions} in a built
+    library's SASS (``cuobjdump --dump-sass``, beside ``nvcc``)."""
+    from tpu_ctc_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
+def beam_instance(name: str):
+    """(K, kNlm) of an instance of B5/B6's ``beam_kernel<kMaxK, kNlm>``
+    from its name, demangled or mangled; None for another kernel."""
+    m = (re.search(r"beam_kernel<(\d+), (true|false)>", name)
+         or re.search(r"beam_kernelILi(\d+)ELb([01])E", name))
+    return None if m is None else (int(m.group(1)),
+                                   m.group(2) in ("true", "1"))
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
     name (demangled where ``c++filt`` exists), registers and spill bytes."""
@@ -162,17 +217,8 @@ def ptxas_summary(build_log: str):
             rows.append([name, f"{regs.group(1) if regs else '?'} "
                                f"registers, {spill}"])
             name = None
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(
-            r[0] for r in rows), capture_output=True, text=True,
-            timeout=60).stdout.splitlines()
-    except OSError:
-        names = []
-    if len(names) == len(rows):
-        for row, full in zip(rows, names):
-            row[0] = full.replace("(anonymous namespace)::", "").split(
-                "(")[0].removeprefix("void ")
-    return [f"{n}: {rest}" for n, rest in rows]
+    names = demangle([r[0] for r in rows])
+    return [f"{n}: {rest}" for n, (_, rest) in zip(names, rows)]
 
 
 def phase_build():
@@ -191,6 +237,21 @@ def phase_build():
         shown.add(kern.library)
         for line in ptxas_summary(logs[kern.name]):
             log(f"  ptxas {os.path.basename(kern.source)} {line}")
+    # B5/B6's GRU instances run their products on the tensor cores; the
+    # n-gram instances have no tensor-core path.
+    from tpu_ctc_torch.ops import beam_cuda
+    found = {}
+    for name, n in sass_mma_counts(beam_cuda.KERNEL.library).items():
+        log(f"  sass {os.path.basename(beam_cuda.KERNEL.source)} {name}: "
+            f"{n} HMMA instructions")
+        inst = beam_instance(name)
+        if inst is not None:
+            found[inst] = n
+            if (n > 0) != inst[1]:
+                raise AssertionError(f"{name}: {n} HMMA instructions")
+    if sorted(found) != BEAM_INSTANCES:
+        raise AssertionError(f"beam_kernel instances in the SASS: "
+                             f"{sorted(found)}, expected {BEAM_INSTANCES}")
 
 
 def run_main_path(run):
@@ -321,10 +382,10 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     log(f"phase 3: B5 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call computes "
         f"a prefix beam search)")
-    return dict(name="beam_search", route="cuda", source=B5_SOURCE,
-                replaces=B5_REPLACES, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(name="beam_search", variant="trigram", paths=("decode",),
+                route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
@@ -707,13 +768,14 @@ def seeded_gru(seed, a, e, h, dev="cuda"):
 
 
 def gru_search_bound(bp, lens, a, k, n_e, n_h):
-    """(bytes, operations) a GRU + trigram search needs on this run's data:
-    the n-gram search's work (``phase_beam``), the GRU's weights read once,
-    the LM rows' A H FMAs for every live beam at every live frame, and
-    3 H H FMAs for every survivor that extends (its input projection is a
-    row of the per-char table xw, made once: A E 3H FMAs, counted too).  A
-    dead slot's backpointer is 0, like one live stay of slot 0, so beams
-    are counted live by nonzero backpointers: one too few at most."""
+    """(bytes, scalar operations, product FMAs, extensions, beams) a GRU +
+    trigram search needs on this run's data: the n-gram search's work
+    (``phase_beam``) and the per-char input table xw (A E 3H FMAs, made
+    once) as scalar operations, the GRU's weights read once, and as
+    products the LM rows' A H FMAs for every live beam at every live frame
+    and 3 H H FMAs for every survivor that extends.  A dead slot's
+    backpointer is 0, like one live stay of slot 0, so beams are counted
+    live by nonzero backpointers: one too few at most."""
     n_b, n_t, _ = bp.shape
     live_t = (torch.arange(n_t, device=bp.device)[None, :]
               < lens[:, None].to(bp.device))                  # [B, T]
@@ -726,9 +788,19 @@ def gru_search_bound(bp, lens, a, k, n_e, n_h):
                + n_b * 3 * k * 4
                + (a * 3 * n_h + 3 * n_h * n_h + 3 * n_h + n_h * a + a + n_h)
                * 4)
-    n_ops = (live * (5 * a * k + 5 * k) + beams * a * n_h
-             + ext * 3 * n_h * n_h + a * n_e * 3 * n_h)
-    return n_bytes, n_ops, ext, beams
+    n_ops = live * (5 * a * k + 5 * k) + a * n_e * 3 * n_h
+    n_fma = beams * a * n_h + ext * 3 * n_h * n_h
+    return n_bytes, n_ops, n_fma, ext, beams
+
+
+def gru_bound_ms(n_bytes, n_ops, n_fma):
+    """(ms, bound_by) of a GRU search: its bytes over HBM bandwidth or, if
+    longer, its scalar operations at the scalar rate plus its products
+    (2 FLOP an FMA) at the f32-accurate tensor rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_ops / SCALAR_INSTR_PER_S
+             + 2 * n_fma / TF32_SPLIT_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def first_divergence(lp, lens, i, kw):
@@ -867,14 +939,19 @@ def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
     ms = time_ms(run_kernel, reps)
     plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
-    n_bytes, n_ops, ext, beams = gru_search_bound(bp, lens, a, k, n_e, n_h)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
+    n_bytes, n_ops, n_fma, ext, beams = gru_search_bound(bp, lens, a, k,
+                                                         n_e, n_h)
+    b_ms, b_by = gru_bound_ms(n_bytes, n_ops, n_fma)
+    scalar_ms, _ = bound_ms(n_bytes, n_ops + n_fma, SCALAR_INSTR_PER_S)
     log(f"{phase}: {kern.name} K={k} GRU + trigram {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: {ext} GRU steps "
         f"of extending survivors, LM rows of {beams} live beams over "
-        f"{int(lens.sum())} live frames); library: none (no PyTorch call "
-        f"computes a prefix beam search)")
-    return dict(name=kern.name, route="cuda", source=B5_SOURCE,
+        f"{int(lens.sum())} live frames; {n_fma:.4g} product FMAs at the "
+        f"f32-accurate tensor rate; {scalar_ms:.4f} ms with every FMA at "
+        f"the scalar rate); library: none (no PyTorch call computes a "
+        f"prefix beam search)")
+    return dict(name=kern.name, variant="gru+trigram", paths=("gru",),
+                route="cuda", source=B5_SOURCE,
                 replaces=B5_REPLACES if k <= 128 else B6_REPLACES,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
@@ -928,17 +1005,15 @@ def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, dev="cuda"):
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
-    """The GRU decode end to end: the GRU char LM trained as the CLI trains
-    it, then preset 4 at K = 128 and K = 200 over 64 utterances."""
+def gru_decode_setup(seed: int, n_utts=64, dev="cuda", **overrides):
+    """Phase 10's inputs: preset 4 with the GRU char LM on, 64 synthetic
+    utterances, their trigram, the model's seeded random weights, the
+    batches and their frame count."""
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.data.bucketing import BucketedLoader
     from tpu_ctc_torch.data.synthetic import SyntheticCorpus
-    from tpu_ctc_torch.decode import beam, neural_lm
-    from tpu_ctc_torch.decode.lm import label_seqs_of, train_char_lm_from_data
+    from tpu_ctc_torch.decode.lm import train_char_lm_from_data
     from tpu_ctc_torch.models import birnn
-    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
-    from tpu_ctc_torch.train.loop import batch_to_device_dict
 
     cfg = get_config("swbd_beam_decode", **{"decode.neural_lm": True,
                                             **overrides})
@@ -946,6 +1021,35 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
                              min_chars=50, max_chars=100, seed=seed)
     data = corpus.all_utterances()
     lm = train_char_lm_from_data(data, cfg)
+    model = birnn.init_params(cfg.model, seed=seed, device=dev)
+    batches = [b for _, b in BucketedLoader(data, cfg.data).epoch(0)]
+    n_frames = sum(int(b.frame_lengths[b.weights > 0].sum()) for b in batches)
+    return cfg, data, lm, model, batches, n_frames
+
+
+def gru_decode_pass(cfg, k, lm, nlm, model, batches, dev="cuda"):
+    """One decode of every batch at beam width ``k``, as ``cli decode``
+    runs it: a function that returns [(hyps, lengths)] a batch."""
+    from tpu_ctc_torch.decode import beam
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    decode = beam.make_beam_decoder(cfg.override(**{"decode.beam_width": k}),
+                                    lm=lm, nlm_params=nlm, device=dev)
+
+    def run():
+        return [decode(model, batch_to_device_dict(b)) for b in batches]
+    return run
+
+
+def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
+    """The GRU decode end to end: the GRU char LM trained as the CLI trains
+    it, then preset 4 at K = 128 and K = 200 over 64 utterances."""
+    from tpu_ctc_torch.decode import beam, neural_lm
+    from tpu_ctc_torch.decode.lm import label_seqs_of
+    from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
+
+    cfg, data, lm, model, batches, n_frames = gru_decode_setup(
+        seed, n_utts, dev, **overrides)
     t0 = time.time()
     nlm = neural_lm.train_nlm_from_data(data, cfg, device=dev)
     train_s = time.time() - t0
@@ -962,18 +1066,9 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
         f"nats a char")
     if not nll < nll0:
         raise AssertionError("the GRU char LM did not train")
-    model = birnn.init_params(cfg.model, seed=seed, device=dev)
-    batches = [b for _, b in BucketedLoader(data, cfg.data).epoch(0)]
-    n_frames = sum(int(b.frame_lengths[b.weights > 0].sum()) for b in batches)
     all_launches, rates = {}, {}
     for k, kern in ((128, beam_cuda.KERNEL), (200, beam_cuda.WIDE_KERNEL)):
-        kcfg = cfg.override(**{"decode.beam_width": k})
-        decode = beam.make_beam_decoder(kcfg, lm=lm, nlm_params=nlm,
-                                        device=dev)
-
-        def run():
-            return [decode(model, batch_to_device_dict(b)) for b in batches]
-
+        run = gru_decode_pass(cfg, k, lm, nlm, model, batches, dev)
         run()                               # warm-up
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1015,11 +1110,12 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
     return all_launches, rates
 
 
-def device_breakdown(run, phase: str) -> None:
+def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
     own overhead lengthens the pass, so the idle share is an upper
-    bound)."""
+    bound).  Returns (wall ms, device busy ms), or None when the profiler
+    saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1038,11 +1134,12 @@ def device_breakdown(run, phase: str) -> None:
     if not rows:
         log(f"{phase}: profiler recorded no device time: breakdown not "
             "measured")
-        return
+        return None
     log(f"{phase}: profiled pass {wall_ms:.1f} ms wall, device busy "
         f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}")
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         log(f"  device {ms:9.2f} ms  x{count:<5d} {name[:90]}")
+    return wall_ms, busy
 
 
 def main() -> int:
@@ -1058,22 +1155,25 @@ def main() -> int:
     decode_launches, _ = phase_end_to_end(seed=0)
     records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
     train_launches, _ = phase_train(seed=0)
-    phase_beam_gru(REPS, "phase 8", k=128)
+    records.append(phase_beam_gru(REPS, "phase 8", k=128))
     phase_wide_ngram(REPS)
     records.append(phase_beam_gru(REPS, "phase 9", k=200))
     gru_launches, _ = phase_gru_decode(seed=0)
-    for rec in records:
-        rec["launches"] = sum(path.get(rec["name"], 0) for path in (
-            decode_launches, train_launches, gru_launches))
+    paths = {"decode": decode_launches, "train": train_launches,
+             "gru": gru_launches}
+    for rec in records:  # a variant counts the paths that run it
+        rec["launches"] = sum(paths[p].get(rec["name"], 0)
+                              for p in rec.pop("paths", paths))
     records.sort(key=lambda rec: ["birnn_fwd", "birnn_bwd", "ctc_alpha",
                                   "ctc_beta", "beam_search",
                                   "beam_search_wide"].index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [
-        {k: rec[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "bound_by", "library_ms")}
+        {k: rec[k] for k in ("name", "variant", "route", "source",
+                             "replaces", "launches", "max_abs_err", "ms",
+                             "plain_ms", "bound_ms", "bound_by",
+                             "library_ms") if k in rec}
         for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

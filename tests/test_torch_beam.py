@@ -11,6 +11,9 @@ a card (``chip_smoke.py`` holds them against this plain search); their
 wrapper's host-side pieces (admission bar, backpointer walk, guards) are
 tested here.
 """
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -210,17 +213,22 @@ class TestWrapperHostSide:
         assert beam_cuda.WIDE_KERNEL.library == beam_cuda.KERNEL.library
 
     def test_gru_layout(self):
+        """H = 7 is padded to 8 with zero weights, biases and start."""
         gru = neural_lm.init_params(neural_lm.CharRNNLMConfig(9, 5, 7), 3,
                                     device="cpu")
         xw, wh, b, wo, bo, h_bos = beam_cuda.gru_layout(gru, 9, "cpu")
         assert (xw.shape, wh.shape, b.shape, wo.shape, bo.shape,
-                h_bos.shape) == ((9, 21), (7, 21), (21,), (7, 9), (9,), (7,))
+                h_bos.shape) == ((9, 24), (8, 24), (24,), (8, 9), (9,), (8,))
         with torch.no_grad():
             x = gru.embed[4]
             for g, w in enumerate((gru.wz, gru.wr, gru.wh)):
-                torch.testing.assert_close(xw[4, 7 * g:7 * g + 7], x @ w[:5])
-                assert torch.equal(wh[:, 7 * g:7 * g + 7], w[5:])
-            assert torch.equal(h_bos, neural_lm.init_state(gru))
+                torch.testing.assert_close(xw[4, 8 * g:8 * g + 7], x @ w[:5])
+                assert torch.equal(wh[:7, 8 * g:8 * g + 7], w[5:])
+                assert not xw[:, 8 * g + 7].any() and not wh[:, 8 * g + 7].any()
+                assert not b[8 * g + 7]
+            assert not wh[7].any() and not wo[7].any() and not h_bos[7]
+            assert torch.equal(wo[:7], gru.wo) and torch.equal(bo, gru.bo)
+            assert torch.equal(h_bos[:7], neural_lm.init_state(gru))
         with pytest.raises(ValueError):
             beam_cuda.gru_layout(gru, 29, "cpu")
 
@@ -243,3 +251,54 @@ class TestWrapperHostSide:
         with pytest.raises(ValueError):
             beam_cuda.beam_search_cuda(torch.from_numpy(lp),
                                        torch.from_numpy(lens), 8, 16)
+
+    def test_frame_breakdown_stamps_the_kernel(self):
+        """torch_tools/beam_frame_breakdown.py stamps a copy of
+        beam_search.cu at anchors in its text: each stamp's anchor must
+        occur exactly once, and every phase boundary gets its stamp."""
+        tool = _load(os.path.join("torch_tools", "beam_frame_breakdown.py"))
+        with open(beam_cuda.KERNEL.source) as f:
+            stamped = tool.stamp(f.read())
+        assert [stamped.count(f"STAMP({i});") for i in range(9)] == [1] * 9
+        assert len(tool.PHASES) == 8
+
+    def test_insert_stamps_takes_one_anchor_of_each_stamp(self):
+        """The breakdown tools' shared stamping: of a stamp's alternatives,
+        the one whose anchor occurs exactly once is replaced; none, or an
+        anchor that occurs twice, raises."""
+        tool = _load(os.path.join("torch_tools", "kernel_stamps.py"))
+        src = "a;\nb;\nb;\nc;\n"
+        got = tool.insert_stamps(src, [("a;", "S0; a;"),
+                                       [("x;", "?"), ("c;", "S1; c;")]],
+                                 "src")
+        assert got == "S0; a;\nb;\nb;\nS1; c;\n"
+        for bad in ([("x;", "?")], [("b;", "?")],
+                    [[("a;", "?"), ("c;", "?")]]):
+            with pytest.raises(RuntimeError):
+                tool.insert_stamps(src, bad, "src")
+
+    @pytest.mark.parametrize("name,want", [
+        ("beam_kernel<128, true>", (128, True)),
+        ("beam_kernel<256, false>", (256, False)),
+        ("_ZN47_GLOBAL__N__af532e0b_14_beam_search_cu_f5e8fde611beam_kernelI"
+         "Li256ELb1EEEvPKfPKiS2_S2_PiPfiiiiiiffifNS_3GruENS_4SmemE",
+         (256, True)),
+        ("_ZN47_GLOBAL__N__af532e0b_14_beam_search_cu_f5e8fde611beam_kernelI"
+         "Li128ELb0EEEvPKfPKiS2_S2_PiPfiiiiiiffifNS_3GruENS_4SmemE",
+         (128, False)),
+        ("mma_sweep_kernel<false>", None)])
+    def test_chip_smoke_names_the_beam_instances(self, name, want):
+        """chip_smoke.py phase 1 finds B5/B6's four instances in the SASS by
+        name, demangled or not (without c++filt the names stay mangled)."""
+        assert _load("chip_smoke.py").beam_instance(name) == want
+
+
+def _load(rel_path):
+    """A module of the repository that is not in a package, by path."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), rel_path)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0] + "_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -10,8 +10,9 @@ that has only the port's dependencies:
 and B6 with an n-gram LM must equal the plain search exactly (hypotheses,
 lengths, every slot's final state: they do the plain version's float steps
 in the same order); with the GRU char LM the hypotheses must be equal and
-the scores within 1e-4 (the GRU's f32 sums run in another order than the
-plain version's matmuls).  Kernels
+the scores within 1e-4 (the GRU's products run on the tensor cores in the
+three-pass TF32 split, f32-accurate, but sum in another order than the
+plain version's matmuls), and two launches are bit-equal.  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
 bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels B3 and B4 do the plain sweeps' float steps
@@ -373,25 +374,66 @@ def _assert_search_equal(got, want, atol):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("k,order,e,h,kw", [
-    (8, 0, 10, 13, dict(lm_alpha=0.6, lm_beta=0.3)),
-    (64, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
-    (128, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
-    (64, 2, 20, 50, dict(lm_alpha=0.7, lm_beta=0.3, char_topk=6)),
-    (128, 0, 33, 256, dict(lm_alpha=0.5, lm_beta=0.2, prune_logp=-5.0)),
-])
-def test_beam_kernel_with_gru_matches_plain(dev, k, order, e, h, kw):
-    lp, lens = _posteriors(k + h, 4, 60, 29)
+def _launch_gru_twice(lp, lens, args):
+    """Two launches of B5 or B6 with the GRU on the same inputs, laid out
+    as ``beam_search_cuda`` lays them out for ``args``: their backpointers
+    and final states are bit-equal (every sum runs in a fixed order);
+    returns the first launch's backpointers."""
+    kw = dict(args)
+    k, max_len = kw.pop("beam_width"), kw.pop("max_len")
+    lp_k, lens_k, lm, thr, gru = beam_cuda.prepare(
+        lp, lens, k, lm_table=kw.pop("lm_table", None),
+        lm_order=kw.get("lm_order", 0), char_topk=kw.pop("char_topk", 0),
+        nlm_params=kw.pop("nlm_params"))
+    bp, fin = beam_cuda.launch(lp_k, lens_k, k, max_len, lm=lm, thr=thr,
+                               gru=gru, **kw)
+    bp2, fin2 = beam_cuda.launch(lp_k, lens_k, k, max_len, lm=lm, thr=thr,
+                                 gru=gru, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bp, bp2) and torch.equal(fin, fin2)
+    return bp
+
+
+def _check_gru_search(dev, k, a, order, e, h, kw, n_b, n_t):
+    """B5 or B6 with the GRU: launched once by ``beam_search_cuda``, its
+    hypotheses equal to the plain search's and its scores within 1e-4, and
+    two launches bit-equal."""
+    lp, lens = _posteriors(k + a + h + order, n_b, n_t, a)
     lp, lens = lp.to(dev), lens.to(dev)
-    lm = _lm(order, 29, order).tables(dev) if order else None
+    lm = _lm(order, a, order).tables(dev) if order else None
     args = dict(beam_width=k, max_len=40, lm_table=lm, lm_order=order,
-                nlm_params=_gru(k, 29, e, h, dev), **kw)
-    before = beam_cuda.KERNEL.launches
+                nlm_params=_gru(e + h, a, e, h, dev), **kw)
+    kern = beam_cuda.kernel_for(k)
+    other = (beam_cuda.KERNEL if kern is beam_cuda.WIDE_KERNEL
+             else beam_cuda.WIDE_KERNEL)
+    before = (kern.launches, other.launches)
     got = beam_cuda.beam_search_cuda(lp, lens, **args)
     torch.cuda.synchronize()
-    assert beam_cuda.KERNEL.launches == before + 1
+    assert (kern.launches, other.launches) == (before[0] + 1, before[1])
     _assert_search_equal(got, beam.prefix_beam_search(lp, lens, **args),
                          atol=1e-4)
+    _launch_gru_twice(lp, lens, args)
+
+
+# The GRU rows of B5 (K <= 128) and B6 (K in (128, 256]) include the
+# kernels' limits: K in {1, 17, 129, 256} (one 16-row tile, a ragged one,
+# B6's first width, its last), H in {24, 100, 256} (100 pads to 104), E in
+# {8, 128}, A in {5, 64} (one 8-column tile, eight); (256, 64, 0, 8, 256)
+# is the largest shared-memory plan.
+LIMITS_KW = dict(lm_alpha=0.8, lm_beta=0.4)
+
+
+@pytest.mark.parametrize("k,a,order,e,h,kw", [
+    (8, 29, 0, 10, 13, dict(lm_alpha=0.6, lm_beta=0.3)),
+    (64, 29, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (128, 29, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (64, 29, 2, 20, 50, dict(lm_alpha=0.7, lm_beta=0.3, char_topk=6)),
+    (128, 29, 0, 33, 256, dict(lm_alpha=0.5, lm_beta=0.2, prune_logp=-5.0)),
+    (1, 5, 0, 8, 24, LIMITS_KW), (17, 64, 0, 128, 100, LIMITS_KW),
+    (17, 5, 0, 8, 256, LIMITS_KW), (1, 64, 0, 128, 256, LIMITS_KW),
+])
+def test_beam_kernel_with_gru_matches_plain(dev, k, a, order, e, h, kw):
+    _check_gru_search(dev, k, a, order, e, h, kw, n_b=4, n_t=60)
 
 
 @pytest.mark.parametrize("k,a,order,kw", [
@@ -426,21 +468,15 @@ def test_wide_beam_kernel_matches_plain(dev, k, a, order, kw):
     assert torch.equal(fin[:, 2].to(torch.int32)[live], want[4][live])
 
 
-@pytest.mark.parametrize("k,order,e,h", [
-    (160, 0, 8, 16), (200, 3, 64, 128), (256, 2, 10, 13)])
-def test_wide_beam_kernel_with_gru_matches_plain(dev, k, order, e, h):
-    lp, lens = _posteriors(k + h, 3, 50, 29)
-    lp, lens = lp.to(dev), lens.to(dev)
-    lm = _lm(order, 29, order).tables(dev) if order else None
-    args = dict(beam_width=k, max_len=40, lm_table=lm, lm_order=order,
-                lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0,
-                nlm_params=_gru(h, 29, e, h, dev))
-    before = beam_cuda.WIDE_KERNEL.launches
-    got = beam_cuda.beam_search_cuda(lp, lens, **args)
-    torch.cuda.synchronize()
-    assert beam_cuda.WIDE_KERNEL.launches == before + 1
-    _assert_search_equal(got, beam.prefix_beam_search(lp, lens, **args),
-                         atol=1e-4)
+@pytest.mark.parametrize("k,a,order,e,h,kw", [
+    (160, 29, 0, 8, 16, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (200, 29, 3, 64, 128, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (256, 29, 2, 10, 13, dict(lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0)),
+    (129, 5, 0, 128, 256, LIMITS_KW), (256, 64, 0, 8, 256, LIMITS_KW),
+    (256, 29, 0, 128, 24, LIMITS_KW), (129, 64, 0, 8, 100, LIMITS_KW),
+])
+def test_wide_beam_kernel_with_gru_matches_plain(dev, k, a, order, e, h, kw):
+    _check_gru_search(dev, k, a, order, e, h, kw, n_b=3, n_t=50)
 
 
 def test_decoder_runs_the_wide_kernel_with_gru(dev):
@@ -462,3 +498,28 @@ def test_decoder_runs_the_wide_kernel_with_gru(dev):
     torch.cuda.synchronize()
     assert beam_cuda.WIDE_KERNEL.launches == before + 1
     assert hyps.shape == (3, 36) and hyps.is_cuda and lens.is_cuda
+
+
+@pytest.mark.parametrize("k", [128, 200])
+@pytest.mark.parametrize("extend", [False, True])
+def test_beam_kernel_with_gru_extension_extremes(dev, k, extend):
+    """A batch where no survivor ever extends (blank near-certain, every
+    char pruned) and one where most do (blank near-impossible)."""
+    r = np.random.RandomState(11)
+    x = 2.0 * r.randn(4, 50, 29).astype(np.float32)
+    x[..., 0] += -30.0 if extend else 30.0
+    lp = torch.log_softmax(torch.from_numpy(x), -1).to(dev)
+    lens = torch.tensor([50, 44, 31, 50], dtype=torch.int32, device=dev)
+    kw = dict(lm_alpha=0.8, lm_beta=0.4, prune_logp=-12.0)
+    nlm = _gru(4, 29, 16, 24, dev)
+    args = dict(beam_width=k, max_len=60, nlm_params=nlm, **kw)
+    got = beam_cuda.beam_search_cuda(lp, lens, **args)
+    _assert_search_equal(got, beam.prefix_beam_search(lp, lens, **args),
+                         atol=1e-4)
+    bp = _launch_gru_twice(lp, lens, args)
+    live = (torch.arange(50, device=dev)[None, :] < lens[:, None])
+    share = float(((bp >> 8) > 0)[live].float().mean())
+    if extend:
+        assert share > 0.4
+    else:
+        assert share == 0.0 and not got[1].any()

@@ -7,7 +7,10 @@ other orders).  The searches with a GRU must give equal hypotheses and
 lengths, with scores within 1e-4: the neural path is not bit-exact in the
 reference either (torch and XLA take the matmuls' sums, exp and log in
 other orders and ways).  The CUDA kernels B5 and B6 run only on a card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); their GRU products'
+arithmetic, the three-pass TF32 split, is held here to JAX's
+``Precision.HIGHEST`` through its plain version
+``ops.beam_cuda.split_tf32_matmul``.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ from tpu_ctc.decode.lm import train_ngram_lm as jax_train_ngram_lm
 from tpu_ctc.ops import beam_pallas
 from tpu_ctc_torch.decode import beam, neural_lm
 from tpu_ctc_torch.decode.lm import train_ngram_lm
+from tpu_ctc_torch.ops import beam_cuda
 
 torch.set_num_threads(2)
 
@@ -223,3 +227,56 @@ class TestSearchAgainstJax:
         assert model.wz.shape == (20, 12) and model.embed.shape == (29, 8)
         assert neural_lm.train_nlm_from_data(
             data, cfg.override(**{"decode.neural_lm": False})) is None
+
+
+# |split - HIGHEST| on the GRU's products at E = 64, H = 128, A = 29: the
+# operands' representation error is ~2^-22 relative (lo's rounding and the
+# dropped lo * lo term) and the f32 sums add a few ulps of values up to 3,
+# so 4e-6 holds with room (1.5e-6 seen); one TF32 pass (10 mantissa bits
+# an operand) errs by ~7e-4.
+SPLIT_TOL = 4e-6
+
+
+class TestSplitTf32:
+    @pytest.mark.parametrize("product", ["lm_rows", "z_r", "candidate"])
+    def test_split_matches_highest(self, product):
+        e, h, a = 64, 128, 29
+        jp = {k: np.asarray(v) for k, v in _jax_lm(11, a, e, h).items()}
+        r = np.random.RandomState(12)
+        states = np.tanh(1.5 * r.randn(48, h)).astype(np.float32)
+        w = {"lm_rows": jp["wo"],
+             "z_r": np.concatenate([jp["wz"][e:], jp["wr"][e:]], axis=1),
+             "candidate": jp["wh"][e:]}[product]
+        want = np.asarray(jnp.dot(jnp.asarray(states), jnp.asarray(w),
+                                  precision=jax.lax.Precision.HIGHEST))
+        x, y = torch.from_numpy(states), torch.from_numpy(w.copy())
+        err = np.abs(beam_cuda.split_tf32_matmul(x, y).numpy() - want).max()
+        one_pass = (beam_cuda.tf32_round(x) @ beam_cuda.tf32_round(y)).numpy()
+        err_one = np.abs(one_pass - want).max()
+        assert err <= SPLIT_TOL, err
+        assert err_one > 10 * SPLIT_TOL, err_one
+
+    def test_tf32_round_keeps_ten_mantissa_bits(self):
+        x = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                          -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.0])
+        got = beam_cuda.tf32_round(x).tolist()
+        # ties go away from zero (cvt.rna)
+        assert got == [1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                       -(1.0 + 2 ** -10), 1.0, 3.0]
+
+    def test_plain_search_with_split_products(self, monkeypatch):
+        """The plain GRU search with every GRU product taken in the split
+        gives the f32 search's hypotheses, scores within 1e-4."""
+        a = 29
+        tp = _bridged(_jax_lm(13, a, 64, 128))
+        lp, lens = _posteriors(14, 3, 200, a)
+        kw = dict(beam_width=16, max_len=128, lm_alpha=0.8, lm_beta=0.4,
+                  nlm_params=tp)
+        args = (torch.from_numpy(lp), torch.from_numpy(lens))
+        with torch.no_grad():
+            want = beam.prefix_beam_search(*args, **kw)
+            monkeypatch.setattr(neural_lm, "matmul_f32",
+                                beam_cuda.split_tf32_matmul)
+            got = beam.prefix_beam_search(*args, **kw)
+        _assert_same(got, want, atol=1e-4)
+        assert int(got[1].min()) > 0

@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -38,7 +37,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "torch_tools"))
 
+import chip_smoke  # noqa: E402
+import kernel_stamps  # noqa: E402
 from tpu_ctc_torch.ops import _build, birnn_cuda  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "birnn_breakdown")
@@ -78,19 +80,8 @@ STAMPS = [
 def build(sources):
     """{name: .cu path} -> {name: (fwd CudaKernel, bwd CudaKernel)}, built
     in parallel."""
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name, src in sources.items():
-        lib = os.path.join(OUT, f"lib{name}.so")
-        cmd = [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-o", lib, src]
-        procs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     kernels = {}
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+    for name, lib in kernel_stamps.build(OUT, sources).items():
         handle = ctypes.CDLL(lib)
         pair = []
         for kname in ("birnn_fwd", "birnn_bwd"):
@@ -102,11 +93,8 @@ def build(sources):
 
 
 def stamped_source() -> str:
-    src = open(os.path.join(_build.CSRC, "birnn.cu")).read()
-    for anchor, text in STAMPS:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"anchor not found once in birnn.cu: {anchor!r}")
-        src = src.replace(anchor, text)
+    with open(os.path.join(_build.CSRC, "birnn.cu")) as f:
+        src = kernel_stamps.insert_stamps(f.read(), STAMPS, "birnn.cu")
     path = os.path.join(OUT, "birnn_stamped.cu")
     os.makedirs(OUT, exist_ok=True)
     with open(path, "w") as f:
@@ -130,21 +118,6 @@ def sweep(kern, x, w, third, bwd):
         reverse=bwd, clip=20.0)
 
 
-def time_ms(fn, reps=7) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a birnn.cu of another commit to time")
@@ -152,10 +125,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
+    print(f"card: {chip_smoke.card_line()}", flush=True)
     sources = {"this": os.path.join(_build.CSRC, "birnn.cu"),
                "stamped": stamped_source()}
     if args.parent:
@@ -169,8 +139,9 @@ def main() -> int:
         for name in order:
             fwd, bwd = kernels[name]
             hs = sweep(fwd, z, w, lens, False)
-            ms_f = time_ms(lambda: sweep(fwd, z, w, lens, False))
-            ms_b = time_ms(lambda: sweep(bwd, g, wt, hs, True))
+            ms_f = chip_smoke.time_ms(lambda: sweep(fwd, z, w, lens, False),
+                                     7)
+            ms_b = chip_smoke.time_ms(lambda: sweep(bwd, g, wt, hs, True), 7)
             print(f"H={h} B={b} T={t} {name:6s}: B1 {ms_f:.3f} ms "
                   f"({ms_f * 1e3 / t:.2f} us a step), B2 {ms_b:.3f} ms "
                   f"({ms_b * 1e3 / t:.2f} us a step)", flush=True)

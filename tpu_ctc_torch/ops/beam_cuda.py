@@ -99,24 +99,60 @@ def admission_bar(log_probs: torch.Tensor, char_topk: int,
 
 def gru_layout(nlm, vocab: int, device) -> Tuple[torch.Tensor, ...]:
     """The GRU char LM's weights as the kernels read them, f32 and
-    contiguous on ``device``: (xw [A, 3H], wh [H, 3H], b [3H], wo [H, A],
-    bo [A], h_bos [H]).  ``xw = embed @ (Wz|Wr|Wh)[:E]`` is every char's
-    input projection (the TPU kernel's ``wx @ embed^T``, taken out of the
-    frame loop and summed in f64), ``wh = (Wz|Wr|Wh)[E:]`` the recurrent
-    rows, ``b = (bz|br|bh)`` and ``h_bos = neural_lm.init_state``, the
-    BOS-stepped state every beam starts from (``beam_pallas.py:1345-1365``;
-    no padding of E, H or A)."""
+    contiguous on ``device``, with the hidden size H padded to Hp, a
+    multiple of 8 (the tensor-core tiles' depth): (xw [A, 3Hp], wh
+    [Hp, 3Hp], b [3Hp], wo [Hp, A], bo [A], h_bos [Hp]).  ``xw = embed @
+    (Wz|Wr|Wh)[:E]`` is every char's input projection (the TPU kernel's
+    ``wx @ embed^T``, taken out of the frame loop and summed in f64),
+    ``wh = (Wz|Wr|Wh)[E:]`` the recurrent rows, ``b = (bz|br|bh)`` and
+    ``h_bos = neural_lm.init_state``, the BOS-stepped state every beam
+    starts from (``beam_pallas.py:1345-1365``).  The padded units have zero
+    weights, biases and start: their state stays 0 and adds nothing to any
+    other unit or to the LM rows, so no value changes."""
     if nlm.embed.shape[0] != vocab:
         raise ValueError(f"beam_search kernel: GRU char LM vocab "
                          f"{nlm.embed.shape[0]}, posteriors {vocab}")
-    e = nlm.embed.shape[1]
-    with torch.no_grad():
+    e, n_h = nlm.embed.shape[1], nlm.bz.shape[0]
+    hp = _round8(n_h)
+
+    def gates(w):                       # [..., 3H] -> [..., 3Hp], zero pad
+        out = w.new_zeros((*w.shape[:-1], 3, hp))
+        out[..., :n_h] = w.reshape(*w.shape[:-1], 3, n_h)
+        return out.reshape(*w.shape[:-1], 3 * hp)
+
+    def rows(w):                        # [H, ...] -> [Hp, ...], zero pad
+        out = w.new_zeros((hp, *w.shape[1:]))
+        out[:n_h] = w
+        return out
+
+    with torch.no_grad():               # on the weights' device: no syncs
         w = torch.cat([nlm.wz, nlm.wr, nlm.wh], dim=1)          # [E+H, 3H]
         xw = nlm.embed.double() @ w[:e].double()
-        out = (xw, w[e:], torch.cat([nlm.bz, nlm.br, nlm.bh]), nlm.wo,
-               nlm.bo, neural_lm.init_state(nlm))
+        out = (gates(xw), rows(gates(w[e:])),
+               gates(torch.cat([nlm.bz, nlm.br, nlm.bh])), rows(nlm.wo),
+               nlm.bo, rows(neural_lm.init_state(nlm)))
         return tuple(t.to(device=device, dtype=torch.float32).contiguous()
                      for t in out)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it; finite inputs."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32 as kernels B5 and B6 take the GRU's products on the
+    tensor cores: each operand split as x = hi + lo with hi = tf32(x) and
+    lo = tf32(x - hi), then a_lo b_hi + a_hi b_lo + a_hi b_hi, each a
+    product of TF32 values (exact in f32) summed in f32.  The dropped
+    a_lo b_lo and lo's rounding are <= 2^-24 of a product.  This documents and tests the
+    kernels' arithmetic; nothing on the decode path calls it."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 def launch(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
@@ -130,8 +166,8 @@ def launch(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
     f32 table or None, thr [B, T] f32 or None, gru the :func:`gru_layout`
     tuple or None, all contiguous on one CUDA device -> (bp [B, T, K] int32
     packed backpointers, fin [B, 3, K] f32 final pb, pnb, plen).  With a
-    GRU, the per-beam states live in a [B, 2, K, H] f32 ping-pong buffer
-    allocated here."""
+    GRU, the per-beam states live in a [B, 2, K, Hp] f32 ping-pong buffer
+    allocated here (Hp: the padded hidden size of :func:`gru_layout`)."""
     n_b, n_t, a = lp.shape
     kern = kernel_for(beam_width)
     bp = torch.empty((n_b, n_t, beam_width), dtype=torch.int32,
