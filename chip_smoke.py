@@ -14,24 +14,32 @@ against its plain PyTorch version on the same inputs:
      H = 1824, B = 64, T = 800, bf16, both directions; its time also in
      microseconds a step;
   3. kernel B5 (``ops/beam_cuda.py``, the fused prefix beam search) at
-     B = 64, T = 800, A = 29, K = 128 with a trigram;
+     B = 64, T = 800, A = 29, K = 128 with a trigram, and the walk of the
+     best slot's backpointers (``reconstruct_cuda``, a kernel of the same
+     source) bit-equal to the plain walk; the wrapper's time with the walk
+     kernel and with the plain walk;
   4. serving, end to end: preset 4 (``swbd_beam_decode``: 2 dense
      pre-layers and 5 bidirectional layers at H = 1824, vocab 29, bf16
      compute; K = 128 with a trigram char LM), 64 synthetic utterances
      (400-800 frames) through ``BucketedLoader`` and ``make_beam_decoder``
-     on random seeded weights;
+     on random seeded weights; the walk and the wrapper on its posteriors;
+     the dense layers' bf16 GEMMs against the f32 GEMMs they replaced
+     (log posteriors, device ms);
   5. kernel B2 (``ops/birnn_cuda.py``, the backward delta sweep) at
      H = 1024, B = 32, T = 800, bf16, both directions, on states that B1
      computed at that shape (held against B1's plain version and timed
      too: preset 2's B1);
   6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
      at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
-     with ``torch.nn.functional.ctc_loss`` timed beside them;
+     bit-equal to the plain sweeps, with ``torch.nn.functional.ctc_loss``
+     timed beside them (``torch_tools/ctc_dp_turns.py`` times them against
+     another commit's source);
   7. training, end to end: preset 2 (``timit_full_3layer``: 1 dense
      pre-layer and 3 bidirectional layers at H = 1024, bf16 compute,
      Nesterov SGD with clipping at 5) on 64 synthetic utterances (two
      800-frame batches of 32), ``train_step`` as ``train`` calls it from
-     seeded random weights; its loss and gradients against the plain path;
+     seeded random weights; its loss and gradients against the plain path
+     and against the f32 GEMMs that the bf16 GEMMs replaced;
   8. kernel B5's GRU char-LM branch at B = 64, T = 800, A = 29, K = 128,
      a seeded GRU at E = 64, H = 128, and the trigram;
   9. kernel B6 (K in (128, 256], the same source) at K = 256 with the
@@ -41,11 +49,13 @@ against its plain PyTorch version on the same inputs:
      decode.neural_lm=True`` runs it: ``train_nlm_from_data`` trains the GRU
      char LM (300 Adam steps) on the transcripts of 64 synthetic
      utterances, then preset 4 decodes them at K = 128 (B5) and at K = 200
-     (B6) with the GRU fused beside the trigram.
+     (B6) with the GRU fused beside the trigram; the walk and the wrapper
+     on each K's posteriors.
 
 Each main path (phases 4, 7 and both widths of 10) is run with every launch
 count set to 0 just before it and read just after; a kernel's ``launches``
-in the record is the sum over the paths that run it.  B5 has two records,
+in the record is the sum over the paths that run it.  The profile of each
+path prints its dense GEMMs' device ms.  B5 has two records,
 told apart by ``variant``: ``trigram`` (phase 3, launched on phase 4's
 path) and ``gru+trigram`` (phase 8, launched on phase 10's).  The GRU's sums run in
 another order in a kernel than in the plain version's matmuls, so over 800
@@ -63,6 +73,7 @@ JSON record and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -100,6 +111,12 @@ BEAM_INSTANCES = [(128, False), (128, True), (256, False), (256, True)]
 B6_REPLACES = "tpu_ctc/ops/beam_pallas.py:696"
 B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
+# The walk replaces the reference's jax.lax.scan, not a Pallas kernel.
+WALK_REPLACES = "tpu_ctc/ops/beam_pallas.py:1191"
+KERNEL_ORDER = ["birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta",
+                "beam_search", "beam_search_wide", "beam_reconstruct"]
+# Device kernels of the dense products (cuBLAS names them so on an H100).
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 B3_REPLACES = "tpu_ctc/ops/ctc_pallas.py:134"
 B4_REPLACES = "tpu_ctc/ops/ctc_pallas.py:190"
 # Phase 7's bound on |g_kernel - g_plain| / |g_plain| per parameter.  The
@@ -112,6 +129,11 @@ B4_REPLACES = "tpu_ctc/ops/ctc_pallas.py:190"
 # test_bf16_gradient_tolerance_of_the_chip_check).
 GRAD_REL_TOL = 1e-2
 LOSS_REL_TOL = 1e-3
+# Phase 4's bound on |lp_bf16_gemms - lp_f32_gemms|: the dense layers' bf16
+# GEMMs (f32 output) change only the order of the f32 sums (2.9e-5 on an
+# H100); an output rounded to bf16 would move log posteriors of |lp| ~3 by
+# ~2^-9 |logit|, several 1e-3.
+GEMM_LP_TOL = 1e-3
 # The GRU-LM searches (phases 8-10): hypotheses are compared where the
 # plain search's top-2 beam gap exceeds GRU_GAP, scores within GRU_TOL (the
 # reference's own kernel drifts ~2e-3 from its XLA search over 400 frames).
@@ -157,7 +179,35 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 def all_kernels():
     from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
     return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, ctc_cuda.ALPHA,
-            ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL)
+            ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL,
+            beam_cuda.RECONSTRUCT)
+
+
+@contextlib.contextmanager
+def f32_dense_products():
+    """The dense products as the parent commit ran them: each bf16 GEMM
+    replaced by the f32 GEMM (TF32 off) of the same values."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    saved = birnn_cuda.matmul_bf16
+    birnn_cuda.matmul_bf16 = lambda a, b: birnn_cuda.matmul_f32(
+        a.to(torch.float32), b.to(torch.float32))
+    try:
+        yield
+    finally:
+        birnn_cuda.matmul_bf16 = saved
+
+
+@contextlib.contextmanager
+def plain_walk():
+    """``beam_search_cuda`` as the parent commit ran it: the backpointer
+    walk as a loop of gathers from the host."""
+    from tpu_ctc_torch.ops import beam_cuda
+    saved = beam_cuda.reconstruct_cuda
+    beam_cuda.reconstruct_cuda = beam_cuda.reconstruct_plain
+    try:
+        yield
+    finally:
+        beam_cuda.reconstruct_cuda = saved
 
 
 def demangle(names):
@@ -336,6 +386,53 @@ def seeded_trigram(seed, a=29):
     return train_ngram_lm(seqs, vocab_size=a, order=3)
 
 
+def check_walk(phase: str, lp, lens, kw, reps: int = REPS):
+    """The search of ``kw`` (``beam_search_cuda``'s arguments) on lp, lens:
+    the walk kernel's hypotheses bit-equal to the plain walk's on the
+    kernel's backpointers, then the times of the search kernel, the walk
+    kernel, the plain walk, and the wrapper (input prep, search, argmax,
+    walk) with the walk kernel and, as before, with the plain walk.
+    Returns (walk ms, plain walk ms)."""
+    from tpu_ctc_torch.decode import beam
+    from tpu_ctc_torch.ops import beam_cuda
+    k, max_len = kw["beam_width"], kw["max_len"]
+    prep = beam_cuda.prepare(lp, lens, k, lm_table=kw.get("lm_table"),
+                             lm_order=kw.get("lm_order", 0),
+                             char_topk=kw.get("char_topk", 0),
+                             nlm_params=kw.get("nlm_params"))
+
+    def search():
+        return beam_cuda.launch(
+            prep[0], prep[1], k, max_len, lm=prep[2],
+            lm_order=kw.get("lm_order", 0), lm_alpha=kw.get("lm_alpha", 1.0),
+            lm_beta=kw.get("lm_beta", 0.0), prune_logp=kw.get("prune_logp"),
+            thr=prep[3], gru=prep[4])
+
+    bp, fin = search()
+    best = torch.argmax(beam._lse2(fin[:, 0], fin[:, 1]), dim=1)
+    got = beam_cuda.reconstruct_cuda(bp, best, max_len)
+    want = beam_cuda.reconstruct_plain(bp, best, max_len)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{phase}: the walk kernel's hypotheses differ "
+                             f"from the plain walk's")
+    ms_search = time_ms(search, reps)
+    ms_walk = time_ms(lambda: beam_cuda.reconstruct_cuda(bp, best, max_len),
+                      reps)
+    ms_plain = time_ms(lambda: beam_cuda.reconstruct_plain(bp, best,
+                                                           max_len), reps)
+    ms_wrap = time_ms(lambda: beam_cuda.beam_search_cuda(lp, lens, **kw),
+                      reps)
+    with plain_walk():
+        ms_wrap_plain = time_ms(lambda: beam_cuda.beam_search_cuda(
+            lp, lens, **kw), reps)
+    log(f"{phase}: walk kernel hyps bit-equal to the plain walk's "
+        f"(B={lp.shape[0]}, T={lp.shape[1]}, K={k}); search kernel "
+        f"{ms_search:.3f} ms, walk kernel {ms_walk:.4f} ms, plain walk "
+        f"{ms_plain:.3f} ms; wrapper (prep, search, argmax, walk) "
+        f"{ms_wrap:.3f} ms, with the plain walk {ms_wrap_plain:.3f} ms")
+    return ms_walk, ms_plain
+
+
 def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     """B5 against the plain search: B = 64, T = 800, A = 29, K = 128."""
     from tpu_ctc_torch.decode import beam
@@ -361,10 +458,7 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     ms = time_ms(lambda: beam_cuda.launch(
         lp_k, lens_k, k, max_len, lm=lm_k, lm_order=3, lm_alpha=1.25,
         lm_beta=1.5, prune_logp=-12.0), reps)
-    wrap_ms = time_ms(lambda: beam_cuda.beam_search_cuda(lp, lens, **kw),
-                      reps)
-    log(f"phase 3: B5 wrapper (input prep, kernel, argmax, backpointer "
-        f"walk) {wrap_ms:.3f} ms")
+    walk_ms, walk_plain_ms = check_walk("phase 3", lp, lens, kw, reps)
     plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
     live = int(lens.sum())
@@ -382,10 +476,22 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     log(f"phase 3: B5 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call computes "
         f"a prefix beam search)")
-    return dict(name="beam_search", variant="trigram", paths=("decode",),
-                route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    # The walk needs the T backpointers on the best slot's path (one word
+    # each), best and the hypotheses written; a few scalar operations per
+    # frame.
+    w_bytes = n_b * n_t * 4 + n_b * 8 + n_b * max_len * 4
+    w_ms, w_by = bound_ms(w_bytes, 4 * n_b * n_t, SCALAR_INSTR_PER_S)
+    log(f"phase 3: walk kernel {walk_ms:.4f} ms, plain walk "
+        f"{walk_plain_ms:.3f} ms, bound {w_ms:.6f} ms ({w_by}); library: "
+        f"none (no PyTorch call follows backpointers)")
+    return [dict(name="beam_search", variant="trigram", paths=("decode",),
+                 route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None),
+            dict(name="beam_reconstruct", paths=("decode", "gru"),
+                 route="cuda", source=B5_SOURCE, replaces=WALK_REPLACES,
+                 max_abs_err=0.0, ms=walk_ms, plain_ms=walk_plain_ms,
+                 bound_ms=w_ms, bound_by=w_by, library_ms=None)]
 
 
 def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
@@ -425,7 +531,7 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
     launches = {k: n for k, n in launches.items() if n}
     log(f"phase 4: decoded in {wall:.3f} s = {n_frames / 100 / wall:.1f} "
         f"audio-s/s; launches on the path {launches}")
-    for kern in (birnn_cuda.KERNEL, beam_cuda.KERNEL):
+    for kern in (birnn_cuda.KERNEL, beam_cuda.KERNEL, beam_cuda.RECONSTRUCT):
         if not launches.get(kern.name):
             raise AssertionError(f"kernel {kern.name} was not launched on "
                                  f"the main path")
@@ -441,16 +547,24 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
             lp_plain = birnn.log_posteriors(
                 model, dataclasses.replace(cfg.model, birnn_impl="scan"),
                 feats, mask)
+            with f32_dense_products():
+                lp_f32 = birnn.log_posteriors(model, cfg.model, feats, mask)
         if lp.shape != (len(hyp), batch.feats.shape[1], 29) or not bool(
                 torch.isfinite(lp).all()):
             raise AssertionError(f"log posteriors {tuple(lp.shape)} not "
                                  f"finite or of the wrong shape")
         lp_err = float((lp - lp_plain).abs().max())
+        gemm_err = float((lp - lp_f32).abs().max())
         log(f"phase 4: log posteriors kernel vs plain max abs err "
-            f"{lp_err:.3e}")
+            f"{lp_err:.3e} (limit 5e-2); bf16 GEMMs vs the f32 GEMMs they "
+            f"replaced max abs err {gemm_err:.3e} (limit {GEMM_LP_TOL}) "
+            f"(max |log posterior| {float(lp.abs().max()):.1f})")
         if lp_err > 5e-2:
             raise AssertionError("the model's kernel path disagrees with "
                                  "its plain path")
+        if gemm_err > GEMM_LP_TOL:
+            raise AssertionError("the dense layers' bf16 GEMMs disagree "
+                                 "with the f32 GEMMs of the same values")
         max_len = int(hyp.shape[1])
         ph, pl, _, score, _, _ = beam.prefix_beam_search(
             lp, lens, beam_width=cfg.decode.beam_width, max_len=max_len,
@@ -480,7 +594,14 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
     cer = score_corpus(refs, hyps, "char")[0]
     log(f"phase 4: {format_score_line(cer, 'char')} (random weights: not "
         f"a model quality number)")
+    check_walk("phase 4", lp, lens, dict(
+        beam_width=cfg.decode.beam_width, max_len=max_len,
+        lm_table=lm.tables(dev), lm_order=lm.order,
+        lm_alpha=cfg.decode.lm_alpha, lm_beta=cfg.decode.lm_beta,
+        prune_logp=cfg.decode.prune_logp))
     device_breakdown(run, "phase 4")
+    with f32_dense_products():
+        device_breakdown(run, "phase 4 with the f32 GEMMs")
     return launches, n_frames / 100 / wall
 
 
@@ -563,24 +684,35 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
 
 
 def dp_close(got, want, what):
-    """Max abs error over live states; raises unless live states agree
-    within 1e-3 + 1e-6 |want| and dead states (<= NEG_INF / 2) are dead on
-    both sides with equal sentinel values."""
+    """Max abs error over live states; raises unless the kernel's output
+    is bit-equal to the plain sweep's, dead states (<= NEG_INF / 2) and
+    their sentinel values included."""
     from tpu_ctc_torch.losses.ctc_ref import NEG_INF
     dead = want <= NEG_INF / 2
-    if not (torch.equal(dead, got <= NEG_INF / 2)
-            and torch.equal(got[dead], want[dead])):
-        raise AssertionError(f"{what}: dead states differ from the plain "
-                             f"sweep's")
     diff = (got - want).abs()[~dead]
-    bad = int((diff > 1e-3 + 1e-6 * want.abs()[~dead]).sum())
     err = float(diff.max()) if diff.numel() else 0.0
+    same = torch.equal(got, want)
     log(f"phase 6: {what} max abs err {err:.3e} on {diff.numel()} live "
-        f"states (max |value| {float(want.abs()[~dead].max()):.1f}), {bad} "
-        f"beyond 1e-3 + 1e-6 |value|; {int(dead.sum())} dead states agree")
-    if bad:
-        raise AssertionError(f"{what} disagrees with its plain sweep")
+        f"states (max |value| {float(want.abs()[~dead].max()):.1f}), "
+        f"{int(dead.sum())} dead states; bit-equal to the plain sweep: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{what} is not bit-equal to its plain sweep")
     return err
+
+
+def ctc_inputs(n_b=32, n_t=800, a=29, chars=(50, 100), dev="cuda"):
+    """Phase 6's seeded inputs: log probs [B, T, A], labels [B, L], label
+    lengths and frame lengths (T / 2 .. T)."""
+    r = np.random.RandomState(6)
+    lp, _ = peaked_posteriors(7, n_b, n_t, a)
+    labels = torch.from_numpy(r.randint(1, a, (n_b, chars[1])).astype(
+        np.int32))
+    lab_len = torch.from_numpy(r.randint(chars[0], chars[1] + 1, n_b).astype(
+        np.int32))
+    frames = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(
+        np.int32))
+    return tuple(x.to(dev) for x in (lp, labels, lab_len, frames))
 
 
 def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
@@ -589,16 +721,7 @@ def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
     labels of 50-100 characters (S <= 201)."""
     import torch.nn.functional as F
     from tpu_ctc_torch.ops import ctc_cuda
-    r = np.random.RandomState(6)
-    lp, _ = peaked_posteriors(7, n_b, n_t, a)
-    lp = lp.to(dev)
-    labels = torch.from_numpy(r.randint(1, a, (n_b, chars[1])).astype(
-        np.int32))
-    lab_len = torch.from_numpy(r.randint(chars[0], chars[1] + 1, n_b).astype(
-        np.int32))
-    frames = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(
-        np.int32))
-    labels, lab_len, frames = labels.to(dev), lab_len.to(dev), frames.to(dev)
+    lp, labels, lab_len, frames = ctc_inputs(n_b, n_t, a, chars, dev)
     emit, skip, skip2, init, final, lengths = ctc_cuda.lattice(
         lp, labels, frames, lab_len)
     n_s = emit.shape[2]
@@ -646,8 +769,10 @@ def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
                + 2 * n_b * n_s * 4 + n_b * 4)
     n_ops = 13 * live_states      # 2 max, 3 sub, 3 exp, 3 add, log, add
     b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
-    log(f"phase 6: B3 {ms_a:.3f} ms, plain {plain_a:.1f} ms; B4 {ms_b:.3f} "
-        f"ms, plain {plain_b:.1f} ms; bound each {b_ms:.4f} ms ({b_by})")
+    log(f"phase 6: B3 {ms_a:.4f} ms ({ms_a * 1e6 / n_t:.0f} ns a frame), "
+        f"plain {plain_a:.1f} ms; B4 {ms_b:.4f} ms ({ms_b * 1e6 / n_t:.0f} ns "
+        f"a frame), plain {plain_b:.1f} ms; bound each {b_ms:.4f} ms "
+        f"({b_by})")
     log(f"phase 6: library F.ctc_loss forward {lib_ms:.3f} ms, forward + "
         f"backward {lib_total:.3f} ms (NLL vs the port's max abs err "
         f"{lib_err:.3e}); the port's loss with gradient {port_total:.3f} ms")
@@ -717,9 +842,9 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
     n_bi = cfg.model.num_bi_layers
     want = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
             "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
-            "beam_search_wide": 0}
+            "beam_search_wide": 0, "beam_reconstruct": 0}
     for name, n in launches.items():
-        if not name.startswith("beam_search") and n == 0:
+        if not name.startswith("beam_") and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"training path")
     if launches != want:
@@ -737,27 +862,42 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
         raise AssertionError("training did not lower the loss")
 
     plain = cfg.override(**{"model.birnn_impl": "scan", "ctc_impl": "jnp"})
-    res = []
-    for c in (cfg, plain):
+
+    def loss_and_grads(c):
         params = dict(state.model.named_parameters())
         with torch.enable_grad():
             loss, _ = step.loss_fn(state.model, c, bt0)
             grads = torch.autograd.grad(loss, list(params.values()))
-        res.append((float(loss.detach()), dict(zip(params, grads))))
-    loss_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
-    g_rel = {k: rel_err(res[0][1][k], res[1][1][k]) for k in res[0][1]}
-    worst = max(g_rel, key=g_rel.get)
+        return float(loss.detach()), dict(zip(params, grads))
+
+    def compare(a, b):
+        loss_rel = abs(a[0] - b[0]) / abs(b[0])
+        g_rel = {k: rel_err(a[1][k], b[1][k]) for k in a[1]}
+        worst = max(g_rel, key=g_rel.get)
+        return loss_rel, g_rel[worst], worst
+
+    res = [loss_and_grads(cfg), loss_and_grads(plain)]
+    loss_rel, g_worst, worst = compare(*res)
     log(f"phase 7: kernel vs plain path: loss {res[0][0]:.4f} vs "
         f"{res[1][0]:.4f} (rel {loss_rel:.2e}, limit {LOSS_REL_TOL}); "
-        f"gradient rel err max {g_rel[worst]:.2e} ({worst}), limit "
+        f"gradient rel err max {g_worst:.2e} ({worst}), limit "
         f"{GRAD_REL_TOL}")
-    if loss_rel > LOSS_REL_TOL or g_rel[worst] > GRAD_REL_TOL:
+    with f32_dense_products():
+        res_f32 = loss_and_grads(cfg)
+    f32_loss_rel, f32_worst, f32_name = compare(res[0], res_f32)
+    log(f"phase 7: bf16 GEMMs vs the f32 GEMMs they replaced (kernel path): "
+        f"loss rel {f32_loss_rel:.2e}, gradient rel err max "
+        f"{f32_worst:.2e} ({f32_name})")
+    if (max(loss_rel, f32_loss_rel) > LOSS_REL_TOL
+            or max(g_worst, f32_worst) > GRAD_REL_TOL):
         raise AssertionError("the training step's kernel path disagrees "
-                             "with its plain path")
+                             "with its plain path or with its f32 GEMMs")
     torch.cuda.reset_peak_memory_stats()
     device_breakdown(lambda: train_once(1), "phase 7")
     log(f"phase 7: peak device memory of one step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with f32_dense_products():
+        device_breakdown(lambda: train_once(1), "phase 7 with the f32 GEMMs")
     return launches, frames / 100 / wall
 
 
@@ -828,7 +968,7 @@ def first_divergence(lp, lens, i, kw):
             lp_k, lens_k, k, max_len, lm=lm_k, lm_order=kw["lm_order"],
             lm_alpha=kw["lm_alpha"], lm_beta=kw["lm_beta"],
             prune_logp=kw["prune_logp"], thr=thr, gru=gru)
-        pre_k = beam_cuda.reconstruct(bp[i:i + 1].expand(k, -1, -1),
+        pre_k = beam_cuda.reconstruct_plain(bp[i:i + 1].expand(k, -1, -1),
                                       torch.arange(k, device=lp.device),
                                       max_len)
         want = beam.prefix_beam_search(x, n, return_beams=True, **kw)
@@ -1080,7 +1220,8 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
         log(f"phase 10: K={k} decoded {n_frames} frames in {wall:.3f} s = "
             f"{rates[k]:.1f} audio-s/s; launches on the path {launches}")
         want = {birnn_cuda.KERNEL.name: 2 * cfg.model.num_bi_layers
-                * len(batches), kern.name: len(batches)}
+                * len(batches), kern.name: len(batches),
+                beam_cuda.RECONSTRUCT.name: len(batches)}
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         for name, n in launches.items():
@@ -1106,6 +1247,7 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
             check_gru_search("phase 10", f"preset 4 at K={k}", lp, lens, kw,
                              got, beam.prefix_beam_search(
                                  lp, lens, return_beams=True, **kw))
+            check_walk(f"phase 10 K={k}", lp, lens, kw)
         device_breakdown(run, f"phase 10 K={k}")
     return all_launches, rates
 
@@ -1114,8 +1256,9 @@ def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
     own overhead lengthens the pass, so the idle share is an upper
-    bound).  Returns (wall ms, device busy ms), or None when the profiler
-    saw no device time."""
+    bound) and the device time of the dense GEMMs (kernels named as
+    ``GEMM_NAME`` matches).  Returns (wall ms, device busy ms), or None
+    when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1135,8 +1278,11 @@ def device_breakdown(run, phase: str):
         log(f"{phase}: profiler recorded no device time: breakdown not "
             "measured")
         return None
+    gemm = [r for r in rows if GEMM_NAME.search(r[2])]
+    gemm_ms = sum(r[0] for r in gemm)
     log(f"{phase}: profiled pass {wall_ms:.1f} ms wall, device busy "
-        f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}")
+        f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}; dense "
+        f"GEMMs {gemm_ms:.2f} ms in {sum(r[1] for r in gemm)} launches")
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         log(f"  device {ms:9.2f} ms  x{count:<5d} {name[:90]}")
     return wall_ms, busy
@@ -1151,7 +1297,7 @@ def main() -> int:
 
     t_start = time.time()
     phase_build()
-    records = [phase_birnn(REPS), phase_beam(REPS)]
+    records = [phase_birnn(REPS), *phase_beam(REPS)]
     decode_launches, _ = phase_end_to_end(seed=0)
     records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
     train_launches, _ = phase_train(seed=0)
@@ -1164,9 +1310,7 @@ def main() -> int:
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
-    records.sort(key=lambda rec: ["birnn_fwd", "birnn_bwd", "ctc_alpha",
-                                  "ctc_beta", "beam_search",
-                                  "beam_search_wide"].index(rec["name"]))
+    records.sort(key=lambda rec: KERNEL_ORDER.index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [

@@ -177,8 +177,8 @@ class TestWrapperHostSide:
         best = r.randint(0, k, size=b).astype(np.int32)
         want, _ = beam_pallas._reconstruct(jnp.asarray(bp), jnp.asarray(best),
                                            jnp.zeros(b, jnp.int32), max_len)
-        got = beam_cuda.reconstruct(torch.from_numpy(bp),
-                                    torch.from_numpy(best), max_len)
+        got = beam_cuda.reconstruct_plain(torch.from_numpy(bp),
+                                          torch.from_numpy(best), max_len)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     def test_admission_bar_matches_jax(self):
@@ -211,6 +211,20 @@ class TestWrapperHostSide:
         assert beam_cuda.kernel_for(128) is beam_cuda.KERNEL
         assert beam_cuda.kernel_for(129) is beam_cuda.WIDE_KERNEL
         assert beam_cuda.WIDE_KERNEL.library == beam_cuda.KERNEL.library
+
+    @pytest.mark.parametrize("k,a,order,nlm", [
+        (128, 29, 3, None), (200, 29, 3, (64, 128)), (256, 64, 0, (125, 250)),
+        (257, 29, 3, None), (128, 65, 3, None), (64, 29, 4, None),
+        (64, 29, 3, (64, 300)), (64, 29, 0, (129, 16))])
+    def test_supported_matches_jax(self, k, a, order, nlm):
+        """``supported`` says what ``beam_pallas.supported`` says: the
+        decoder's choice between the kernels and the plain search."""
+        gru = jp = None
+        if nlm:
+            gru = self._gru(*nlm, v=a)
+            jp = {"embed": np.zeros((a, nlm[0])), "bz": np.zeros(nlm[1])}
+        assert beam_cuda.supported(k, a, order, gru) == beam_pallas.supported(
+            k, a, order, nlm_params=jp)
 
     def test_gru_layout(self):
         """H = 7 is padded to 8 with zero weights, biases and start."""

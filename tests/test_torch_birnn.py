@@ -235,6 +235,24 @@ class TestRecurrenceGrad:
         np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw),
                                    rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_dot_f32_on_the_cpu_is_the_f32_product(self, dtype):
+        """On the CPU ``dot_f32`` and its gradient are the f32 products of
+        the rounded values, bit for bit: the bf16 GEMM runs on a card
+        only."""
+        r = np.random.RandomState(9)
+        x = torch.from_numpy(r.randn(3, 4, 33).astype(np.float32))
+        w = torch.from_numpy(r.randn(33, 7).astype(np.float32))
+        g = torch.from_numpy(r.randn(3, 4, 7).astype(np.float32))
+        tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = birnn_cuda.dot_f32(tx, tw, dtype)
+        out.backward(g)
+        xc, wc = x.to(dtype).float(), w.to(dtype).float()
+        assert torch.equal(out, xc @ wc)
+        assert torch.equal(tx.grad, (g @ wc.t()).to(dtype).float())
+        assert torch.equal(tw.grad, (xc.reshape(-1, 33).t()
+                                     @ g.reshape(-1, 7)).to(dtype).float())
+
     def test_model_grad_matches_jax(self, tmp_path):
         jcfg, tcfg = _cfgs(hidden=16)
         params, model = _both_models(jcfg, tcfg, tmp_path)

@@ -10,6 +10,7 @@ them).  Inputs come from numpy seeds.  Tolerance is f32 summation order:
 rtol 1e-5 and atol 1e-4 on NLLs of order 10-100 and on their gradients,
 as the JAX package's own Pallas-vs-scan tests allow.
 """
+import importlib.util
 import os
 
 import jax
@@ -168,6 +169,77 @@ class TestSweeps:
         got = ctc_cuda.beta_plain(emit, skip2, final, lengths)
         np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :, :s],
                                    rtol=1e-6, atol=1e-4)
+
+    @pytest.mark.parametrize("tl,ll", [         # 8 rows: one row group
+        ([0, 1, 16, 21, 12, 16, 5, 30], [3, 3, 0, 5, 2, 5, 1, 4]),  # 0, 1, T, > T
+        ([16, 9, 16, 2, 0, 1, 20, 7], [0] * 8),                     # S = 1
+        ([16, 3, 20, 0, 1, 16, 9, 11], [1, 0, 1, 1, 0, 1, 1, 0])])  # S = 3
+    def test_plain_sweeps_are_the_kernels_at_the_edges(self, tl, ll):
+        """The edge cases of the card tests of B3/B4, plain sweeps against
+        the Pallas kernels: empty rows, one frame, lengths past T, S = 1
+        and S = 3."""
+        b, t = 8, 16
+        logits, labels, _, _ = _case(11, b, t, 29, max(ll) or 1)
+        lp = torch.log_softmax(torch.from_numpy(logits), -1)
+        emit, skip, skip2, init, final, lengths = ctc_cuda.lattice(
+            lp, torch.from_numpy(labels), torch.tensor(tl, dtype=torch.int32),
+            torch.tensor(ll, dtype=torch.int32))
+        s = emit.shape[2]
+        assert s == 2 * max(ll) + 1
+        pad = jnp.pad(jnp.asarray(emit.numpy()), ((0, 0), (0, 0), (0, 128 - s)),
+                      constant_values=ctc_ref.NEG_INF)
+        lens = jnp.broadcast_to(jnp.asarray(tl, jnp.float32)[:, None],
+                                (b, 128))
+        for want, got in (
+                (ctc_pallas._run_alpha(pad, self._lanes(skip, 0.0),
+                                       self._lanes(init, ctc_ref.NEG_INF),
+                                       lens, 8, 8, 128),
+                 ctc_cuda.alpha_plain(emit, skip, init, lengths)),
+                (ctc_pallas._run_beta(pad, self._lanes(skip2, 0.0),
+                                      self._lanes(final, ctc_ref.NEG_INF),
+                                      lens, 8, 8, 128),
+                 ctc_cuda.beta_plain(emit, skip2, final, lengths))):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :, :s],
+                                       rtol=1e-6, atol=1e-4)
+
+    def test_lse3_with_two_exps_is_bit_equal(self):
+        """Kernels B3/B4 take the maximum's term as 1.0 (exp(0)) and exp
+        only the other two, summing in the plain order: bit-equal to
+        ``_logaddexp3`` whatever exp's rounding, ties and sentinels
+        included (a float model of the kernel's lse3)."""
+        r = np.random.RandomState(12)
+        n = 20000
+        x = r.randn(3, n).astype(np.float32) * 30
+        pick = r.randint(0, 5, (3, n))
+        x = np.where(pick == 0, ctc_ref.NEG_INF, x)           # dead
+        x = np.where(pick == 1, x[0:1], x)                    # ties with a
+        a, b, c = (torch.from_numpy(v.copy()) for v in x)
+        m = torch.maximum(torch.maximum(a, b), c)
+        c_max = c == m
+        xx = torch.where(c_max, a, torch.where(a == m, b, a))
+        yy = torch.where(c_max, b, c)
+        ex, ey = torch.exp(xx - m), torch.exp(yy - m)
+        one = torch.ones_like(m)
+        total = torch.where(c_max, (ex + ey) + one, (one + ex) + ey)
+        got = torch.where(m > ctc_ref.NEG_INF / 2,
+                          m + torch.log(total + 1e-37),
+                          torch.full_like(m, ctc_ref.NEG_INF))
+        assert torch.equal(got, ctc_ref._logaddexp3(a, b, c))
+
+    def test_turns_tool_anchor_is_in_the_kernel(self):
+        """torch_tools/ctc_dp_turns.py rewrites copies of ctc_dp.cu at
+        anchors in its text (lse3 with three exps, the intrinsics, the
+        frame's clock stamps): each must occur exactly once."""
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "torch_tools", "ctc_dp_turns.py")
+        spec = importlib.util.spec_from_file_location("turns", path)
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        with open(ctc_cuda.ALPHA.source) as f:
+            src = f.read()
+        for edits in (tool.EXP3, tool.FASTMATH, tool.STAMPS):
+            assert [src.count(anchor) for anchor, _ in edits] == [1] * len(
+                edits)
 
     def test_lattice_is_cut_to_the_longest_label(self):
         emit, skip, skip2, init, final, lengths = self._lattice(3)

@@ -12,14 +12,17 @@ lengths, every slot's final state: they do the plain version's float steps
 in the same order); with the GRU char LM the hypotheses must be equal and
 the scores within 1e-4 (the GRU's products run on the tensor cores in the
 three-pass TF32 split, f32-accurate, but sum in another order than the
-plain version's matmuls), and two launches are bit-equal.  Kernels
+plain version's matmuls), and two launches are bit-equal; the walk of
+the best slot's backpointers equals the plain walk to the bit.  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
-bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels B3 and B4 do the plain sweeps' float steps
-with expf/logf: live states within 1e-3 + 1e-6 |alpha| (an ulp or two of
-values up to a few thousand), dead states (<= NEG_INF / 2) dead on both
-sides with the same sentinel values.
+bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels
+B3 and B4 do the plain sweeps' float steps in the same order with
+expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
+(f32 output) equals the f32 product of the same values up to the order of
+its f32 sums.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -199,11 +202,10 @@ def _lattice(dev, seed, b, t, a, lmax, tl=None, ll=None):
 
 
 def _assert_dp_close(got, want):
+    """Bit-equal, sentinels included."""
     dead = want <= ctc_ref.NEG_INF / 2
     assert torch.equal(dead, got <= ctc_ref.NEG_INF / 2)
-    assert torch.equal(got[dead], want[dead])
-    diff = (got - want).abs()[~dead]
-    assert bool(torch.all(diff <= 1e-3 + 1e-6 * want.abs()[~dead]))
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 @pytest.mark.parametrize("b,t,a,lmax,tl,ll", [
@@ -222,6 +224,46 @@ def test_ctc_kernels_match_plain(dev, b, t, a, lmax, tl, ll):
         before[0] + 1, before[1] + 1)
     _assert_dp_close(alpha, ctc_cuda.alpha_plain(emit, skip, init, lengths))
     _assert_dp_close(beta, ctc_cuda.beta_plain(emit, skip2, final, lengths))
+
+
+def _chunk_frames(n_s):
+    fn = ctc_cuda.ALPHA.lib().ctc_chunk_frames
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return fn(n_s)
+
+
+# The edges of the redesigned sweeps: lengths 0, 1, T and past T; S = 1
+# (no labels), S = 3 and S near MAX_STATES (chunks of 9 frames); T not a
+# multiple of the chunk, so the last chunk (the first for beta) is short.
+@pytest.mark.parametrize("b,t,a,lmax,tl,ll", [
+    (4, 37, 29, 6, [0, 1, 37, 45], [6, 3, 6, 2]),
+    (3, 33, 29, 0, [33, 10, 0], [0, 0, 0]),
+    (3, 70, 29, 1, [70, 5, 71], [1, 0, 1]),
+    (2, 40, 29, 511, [40, 41], [511, 300]),
+    (3, 103, 12, 490, [103, 1, 99], [490, 2, 17])])
+def test_ctc_kernels_bit_equal_at_the_edges(dev, b, t, a, lmax, tl, ll):
+    emit, skip, skip2, init, final, lengths = _lattice(
+        dev, b + t + lmax, b, t, a, lmax, tl, ll)
+    n_s = emit.shape[2]
+    assert n_s == 2 * lmax + 1 and t % _chunk_frames(n_s) != 0
+    _assert_dp_close(ctc_cuda.alpha_cuda(emit, skip, init, lengths),
+                     ctc_cuda.alpha_plain(emit, skip, init, lengths))
+    _assert_dp_close(ctc_cuda.beta_cuda(emit, skip2, final, lengths),
+                     ctc_cuda.beta_plain(emit, skip2, final, lengths))
+
+
+def test_ctc_kernels_take_an_unaligned_lattice(dev):
+    """emit starting 4 bytes past a 16-byte boundary (a view): the
+    chunks' 16-byte copies and stores shift by its phase."""
+    emit, skip, skip2, init, final, lengths = _lattice(dev, 5, 3, 50, 29, 9)
+    flat = torch.empty(emit.numel() + 1, device=dev)
+    view = flat[1:].view(emit.shape)
+    view.copy_(emit)
+    assert view.data_ptr() % 16 == 4
+    _assert_dp_close(ctc_cuda.alpha_cuda(view, skip, init, lengths),
+                     ctc_cuda.alpha_plain(emit, skip, init, lengths))
+    _assert_dp_close(ctc_cuda.beta_cuda(view, skip2, final, lengths),
+                     ctc_cuda.beta_plain(emit, skip2, final, lengths))
 
 
 def test_ctc_loss_kernel_path_matches_the_oracle(dev):
@@ -352,13 +394,97 @@ def test_beam_kernel_zero_length_utterance(dev):
     assert int(got[1][1]) == 0 and float(got[2][1]) == 0.0
 
 
-def test_decoder_raises_for_what_the_kernel_lacks(dev):
-    cfg = get_config("4", **{"decode.beam_width": 257})
-    with pytest.raises(NotImplementedError, match="257"):
-        beam.make_beam_decoder(cfg, device=dev)
+@pytest.mark.parametrize("k,gru_h,limit", [(257, None, "257"),
+                                           (16, 300, "hidden 300")])
+def test_decoder_raises_for_what_the_kernel_lacks(dev, k, gru_h, limit):
+    """What the kernels do not take (K = 257, a GRU with H = 300) raises on
+    the card, naming the limit, and launches nothing: no plain search runs
+    there in the kernels' place.  The kernel's own wrapper raises too."""
+    cfg = get_config("4", **{"model.hidden_dim": 32,
+                             "model.num_bi_layers": 1,
+                             "decode.beam_width": k})
+    gru = _gru(4, 29, 8, gru_h, dev) if gru_h else None
+    before = [kern.launches for kern in (beam_cuda.KERNEL,
+                                         beam_cuda.WIDE_KERNEL,
+                                         beam_cuda.RECONSTRUCT)]
+    with pytest.raises(NotImplementedError, match=limit):
+        beam.make_beam_decoder(cfg, lm=_lm(3, 29, 3), nlm_params=gru,
+                               device=dev)
+    assert [kern.launches for kern in (beam_cuda.KERNEL,
+                                       beam_cuda.WIDE_KERNEL,
+                                       beam_cuda.RECONSTRUCT)] == before
     lp, lens = _posteriors(1, 2, 10, 29)
     with pytest.raises(NotImplementedError):
         beam_cuda.beam_search_cuda(lp.to(dev), lens.to(dev), 257, 12)
+
+
+def test_cli_decode_refuses_what_the_kernel_lacks_before_the_lms_train(
+        dev, monkeypatch):
+    """On the card ``cli decode`` refuses a GRU over the kernels' dims
+    before either LM trains."""
+    from tpu_ctc_torch import cli
+    from tpu_ctc_torch.decode import lm as tlm
+
+    def trained(*args, **kwargs):
+        raise AssertionError("an LM trained before the kernels' check")
+    monkeypatch.setattr(tlm, "train_char_lm_from_data", trained)
+    monkeypatch.setattr(neural_lm, "train_nlm_from_data", trained)
+    with pytest.raises(NotImplementedError, match="hidden 300"):
+        cli.main(["decode", "--config", "1", "--set", "model.hidden_dim=8",
+                  "--set", "decode.neural_lm=True", "--set",
+                  "decode.neural_lm_hidden=300", "--synthetic", "2",
+                  "--beam"])
+
+
+@pytest.mark.parametrize("b,t,k,max_len", [
+    (3, 25, 16, 30), (70, 300, 256, 300), (1, 1, 1, 4), (33, 800, 128, 216)])
+def test_reconstruct_kernel_equals_the_plain_walk(dev, b, t, k, max_len):
+    r = np.random.RandomState(b + t)
+    parent = r.randint(0, k, size=(b, t, k))
+    char = np.where(r.rand(b, t, k) < 0.2, r.randint(0, 28, (b, t, k)), -1)
+    bp = torch.from_numpy((parent + (char + 1) * 256).astype(np.int32))
+    best = torch.from_numpy(r.randint(0, k, size=b))
+    want = beam_cuda.reconstruct_plain(bp, best, max_len)
+    before = beam_cuda.RECONSTRUCT.launches
+    got = beam_cuda.reconstruct_cuda(bp.to(dev), best.to(dev), max_len)
+    torch.cuda.synchronize()
+    assert beam_cuda.RECONSTRUCT.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def test_bf16_gemm_route_matches_the_f32_product(dev):
+    """The dense products of bf16 operands run as one bf16 GEMM with an
+    f32 output: within f32 sum order (1e-5 of the sum of |terms|) of the
+    f32 product of the same values, which a bf16-rounded output (~4e-3)
+    would miss; DotF32's backward still takes the f32 cotangent in f32."""
+    r = np.random.RandomState(12)
+    x = torch.from_numpy(r.randn(2, 400, 1824).astype(np.float32)).to(dev)
+    w = torch.from_numpy(0.05 * r.randn(1824, 1024).astype(np.float32)).to(
+        dev)
+    g = torch.from_numpy(r.randn(2, 400, 1024).astype(np.float32)).to(dev)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    scale = xb.float().abs().reshape(-1, 1824) @ wb.float().abs()
+    got = birnn_cuda.matmul_bf16(xb.reshape(-1, 1824), wb)
+    want = birnn_cuda.matmul_f32(xb.reshape(-1, 1824).float(), wb.float())
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert not torch.equal(got, (xb.reshape(-1, 1824) @ wb).float())
+    tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = birnn_cuda.dot_f32(tx, tw, torch.bfloat16)
+    out.backward(g)
+    assert bool(((out.reshape(-1, 1024) - want).abs() <= 1e-5 * scale).all())
+    assert torch.equal(tx.grad, birnn_cuda.matmul_f32(
+        g, wb.float().t()).bfloat16().float())
+    assert torch.equal(tw.grad, birnn_cuda.matmul_f32(
+        xb.float().reshape(-1, 1824).t(),
+        g.reshape(-1, 1024)).bfloat16().float())
+    h, d = xb[:, :, :1024].transpose(0, 1), g.bfloat16().transpose(0, 1)
+    dw = birnn_cuda._weight_grad(h, d)
+    dw_f32 = birnn_cuda.matmul_f32(h.reshape(-1, 1024).float().t(),
+                                   d.reshape(-1, 1024).float())
+    dw_scale = h.reshape(-1, 1024).float().abs().t() @ d.reshape(
+        -1, 1024).float().abs()
+    assert bool(((dw - dw_f32).abs() <= 1e-5 * dw_scale).all())
 
 
 def _gru(seed, a, e, h, dev):

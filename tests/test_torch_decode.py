@@ -111,21 +111,84 @@ class TestWholeSlice:
             np.testing.assert_array_equal(got_h[i, :got_l[i]],
                                           want_h[i, :want_l[i]])
 
-    def test_decoder_raises_for_a_neural_lm(self):
-        """A GRU char LM over the kernels' dims (H = 300 > 256) raises on
-        every device while the config asks for the fused kernel."""
-        cfg = config.get_config("4")
-        gru = neural_lm.CharRNNLM(neural_lm.CharRNNLMConfig(29, 64, 300),
-                                  device="cpu")
-        with pytest.raises(NotImplementedError, match="hidden 300"):
-            beam.make_beam_decoder(cfg, nlm_params=gru, device="cpu")
-        plain = cfg.override(**{"decode.use_fused_kernel": False})
-        beam.make_beam_decoder(plain, nlm_params=gru, device="cpu")
+    @staticmethod
+    def _fallback(tmp_path, caplog, over, gru_dims=None, order=3, seed=6,
+                  limit=None):
+        """The JAX decoder and the port's on one batch of a configuration
+        that the fused kernels do not take: -> (port, JAX) outputs, after
+        checking that the port's decoder for a CUDA device raises
+        ``NotImplementedError`` matching ``limit`` before it touches the
+        device, and that on the CPU each decoder logged its warning for the
+        same configuration."""
+        jcfg = jax_config.get_config("swbd_beam_decode", **NARROW, **over)
+        tcfg = config.get_config("swbd_beam_decode", **NARROW, **over)
+        params, path = _jax_weights(jcfg, tmp_path, seed=seed)
+        model = checkpoint.load_npz(birnn.BiRNN(tcfg.model, device="cpu"), path)
+        data = SyntheticCorpus(num_utterances=4, feature_dim=120,
+                               min_chars=3, max_chars=6).all_utterances()
+        label_seqs = [labels for _, labels in data]
+        jp = tp = None
+        if gru_dims:
+            jp = jax_nlm.init_params(jax.random.PRNGKey(seed + 1),
+                                     jax_nlm.CharRNNLMConfig(29, *gru_dims))
+            tp = neural_lm.params_from_jax(
+                {k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+        bd = batch_to_device_dict(next(BucketedLoader(data, tcfg.data)
+                                       .epoch(0))[1])
+        tlm = lm.train_ngram_lm(label_seqs, 29, order=order)
+        with pytest.raises(NotImplementedError, match=limit):
+            beam.make_beam_decoder(tcfg, lm=tlm, nlm_params=tp, device="cuda")
+        caplog.set_level("WARNING")
+        got = beam.make_beam_decoder(tcfg, lm=tlm, nlm_params=tp,
+                                     device="cpu")
+        want = jax_beam.make_beam_decoder(
+            jcfg, lm=jax_lm.train_ngram_lm(label_seqs, 29, order=order),
+            nlm_params=jp)
+        said = {r.name: r.getMessage() for r in caplog.records}
+        assert "does not support this configuration" in said["tpu_ctc.decode"]
+        assert (said["tpu_ctc_torch.decode"].split(" — ")[0]
+                == said["tpu_ctc.decode"].split(" — ")[0])
+        assert "plain search" in said["tpu_ctc_torch.decode"]
+        return (lambda: got(model, bd)), (lambda: want(params, bd))
 
-    def test_decoder_raises_for_a_wide_beam(self):
-        cfg = config.get_config("4", **{"decode.beam_width": 257})
-        with pytest.raises(NotImplementedError, match="257"):
-            beam.make_beam_decoder(cfg, device="cpu")
+    @staticmethod
+    def _assert_same_hyps(got, want):
+        got_h, got_l = (x.numpy() for x in got)
+        want_h, want_l = (np.asarray(x) for x in want)
+        np.testing.assert_array_equal(got_l, want_l)
+        for i in range(len(got_l)):
+            np.testing.assert_array_equal(got_h[i, :got_l[i]],
+                                          want_h[i, :want_l[i]])
+
+    def test_decoder_raises_for_a_neural_lm(self, tmp_path, caplog):
+        """A GRU char LM over the kernels' dims (H = 300 > 256) raises for a
+        CUDA device; on the CPU the port warns and decodes on the plain
+        search, as the JAX decoder does on its XLA search, with equal
+        hypotheses."""
+        got, want = self._fallback(tmp_path, caplog,
+                                   {"decode.beam_width": 8}, gru_dims=(8, 300),
+                                   limit="hidden 300")
+        self._assert_same_hyps(got(), want())
+
+    def test_decoder_raises_for_a_wide_beam(self, tmp_path, caplog):
+        """K = 257, past B6's 256, raises for a CUDA device; on the CPU the
+        warning, then the plain search, with the JAX decoder's
+        hypotheses."""
+        got, want = self._fallback(tmp_path, caplog,
+                                   {"decode.beam_width": 257}, limit="257")
+        self._assert_same_hyps(got(), want())
+
+    def test_decoder_raises_for_lm_order_4(self, tmp_path, caplog):
+        """LM order 4 raises for a CUDA device; on the CPU both decoders
+        warn, then both raise ValueError at the first decode (the searches'
+        LM rows take orders <= 3)."""
+        got, want = self._fallback(tmp_path, caplog,
+                                   {"decode.beam_width": 8}, order=4,
+                                   limit="LM order 4")
+        with pytest.raises(ValueError, match="order<=3"):
+            want()
+        with pytest.raises(ValueError, match="order<=3"):
+            got()
 
 
 def _cli(*args, timeout=240):
@@ -169,6 +232,42 @@ class TestCli:
         # the one utterance longer than the 80-frame bucket is dropped
         assert "decoded 7 utterances on cpu" in out.stdout
         assert "CER " in out.stdout and "WER " in out.stdout
+
+    def test_decode_beam_with_an_unsupported_gru_on_cpu(self):
+        """On the CPU a GRU over the kernels' dims (H = 300) is decoded by
+        the plain search with a warning; before, ``cli decode`` trained the
+        GRU and then refused it."""
+        over = {"model.hidden_dim": 16, "model.input_dim": 8,
+                "model.compute_dtype": "float32", "data.batch_size": 4,
+                "data.bucket_boundaries": "(80,)", "decode.beam_width": 8,
+                "decode.neural_lm": True, "decode.neural_lm_hidden": 300,
+                "decode.neural_lm_embed": 8, "decode.neural_lm_steps": 3,
+                "decode.lm_order": 0}
+        sets = []
+        for k, v in over.items():
+            sets += ["--set", f"{k}={v}"]
+        out = _cli("decode", "--config", "1", *sets, "--synthetic", "8",
+                   "--beam", "--device", "cpu")
+        assert out.returncode == 0, out.stderr
+        assert "decoded 7 utterances on cpu" in out.stdout
+        assert "does not support this configuration" in out.stderr
+
+    def test_decode_refuses_lm_order_4_before_the_lms_train(self,
+                                                            monkeypatch):
+        """LM order 4, which every search refuses, raises before either LM
+        trains (in process: training one would raise here)."""
+        from tpu_ctc_torch import cli
+        from tpu_ctc_torch.decode import lm as tlm
+
+        def trained(*args, **kwargs):
+            raise AssertionError("an LM trained before the order check")
+        monkeypatch.setattr(tlm, "train_char_lm_from_data", trained)
+        monkeypatch.setattr(neural_lm, "train_nlm_from_data", trained)
+        with pytest.raises(ValueError, match="order<=3, got 4"):
+            cli.main(["decode", "--config", "1", "--set",
+                      "model.hidden_dim=8", "--set", "decode.lm_order=4",
+                      "--set", "decode.neural_lm=True", "--synthetic", "2",
+                      "--beam", "--device", "cpu"])
 
     def test_decode_greedy_with_jax_weights(self, tmp_path):
         jcfg = jax_config.get_config("1", **{"model.hidden_dim": 16})

@@ -152,6 +152,42 @@ class TestTrainStep:
         assert tstate.step == 3 and int(jstate.step) == 3
         assert float(tm["grad_norm"]) > 5.0          # clipping was live
 
+    def test_debug_nans_raises_before_the_update(self):
+        """``train.debug_nans``: a NaN in the features makes the gradient
+        norm NaN; with the flag the step raises FloatingPointError
+        (what ``jax_debug_nans`` raises) and leaves the parameters and the
+        optimizer state as they were.  Without it the step runs as before
+        (no check), and on finite data the flag changes nothing."""
+        on = config.get_config("2", **SMALL, **{"train.debug_nans": True})
+        off = config.get_config("2", **SMALL)
+        bd = step.batch_to_tensors(_batches(off)[0], "cpu")
+        bad = dict(bd, feats=bd["feats"].clone())
+        bad["feats"][0, 0, 0] = float("nan")
+        res = {}
+        for name, cfg in (("on", on), ("off", off)):
+            st = step.create_train_state(cfg, device="cpu")
+            before = {k: p.detach().clone()
+                      for k, p in st.model.named_parameters()}
+            if name == "on":
+                with pytest.raises(FloatingPointError, match="debug_nans"):
+                    step.train_step(st, bad, cfg)
+                for k, p in st.model.named_parameters():
+                    assert torch.equal(p, before[k]), k
+                assert st.step == 0 and st.opt_state.count == 0 and not any(
+                    bool(t.any()) for t in st.opt_state.trace.values())
+            else:
+                # the NaN frame's utterance clamps to the infeasible NLL,
+                # so the loss stays finite; its gradient is NaN
+                _, m = step.train_step(st, bad, cfg)
+                assert not bool(torch.isfinite(m["grad_norm"]))
+            st = step.create_train_state(cfg, device="cpu")
+            st, m = step.train_step(st, bd, cfg)
+            res[name] = (float(m["loss"]), {
+                k: p.detach().clone() for k, p in st.model.named_parameters()})
+        assert res["on"][0] == res["off"][0]
+        for k, p in res["on"][1].items():
+            assert torch.equal(p, res["off"][1][k]), k
+
     def test_bf16_gradient_tolerance_of_the_chip_check(self):
         """Derives phase 7's gradient bound in chip_smoke.py (1e-2 relative
         per parameter, kernel path against plain path, bf16 compute).

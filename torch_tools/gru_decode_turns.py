@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The GRU char-LM decode of ``chip_smoke.py`` phase 10, for two checkouts
-of the port, timed in turns on one NVIDIA GPU.
+"""The decodes of ``chip_smoke.py`` phases 4 and 10, for two checkouts of
+the port, timed in turns on one NVIDIA GPU.
 
     python3 torch_tools/gru_decode_turns.py --parent DIR [--passes 5]
 
@@ -8,8 +8,9 @@ DIR holds another commit's tree (``git archive REV | tar -x -C DIR``).
 Four runs, in the order parent, this, this, parent, are each a process of
 its own that imports ``tpu_ctc_torch`` from its checkout (its kernels
 built under that checkout's ``build/``) and decodes phase 10's 64
-utterances with preset 4 at K = 128 and at K = 200, the GRU char LM fused
-beside the trigram.  Each prints, for each K, the audio seconds decoded a
+utterances with preset 4: at K = 128 with the trigram alone (phase 4's
+search), then at K = 128 and at K = 200 with the GRU char LM fused beside
+the trigram.  Each prints, for each decode, the audio seconds decoded a
 second (the median wall of ``--passes`` passes after a warm-up) and, from
 one more pass under torch.profiler, the device's busy time and its idle
 share of that pass (an upper bound: the profiler lengthens the pass).  The
@@ -29,6 +30,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM_PATH = os.path.join(ROOT, "build", "gru_decode_turns", "nlm.pt")
+# (label, beam width, with the GRU char LM)
+DECODES = [("trigram K=128", 128, False), ("GRU K=128", 128, True),
+           ("GRU K=200", 200, True)]
 
 
 def chip_smoke_module():
@@ -51,8 +55,12 @@ def worker(tree: str, passes: int) -> None:
     from tpu_ctc_torch.ops import _build
     if not tpu_ctc_torch.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {tpu_ctc_torch.__file__}, not {tree}")
+    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
     smoke = chip_smoke_module()
-    _build.build_all(smoke.all_kernels())
+    # the checkout's own kernels (another commit may have other ones)
+    _build.build_all([k for m in (beam_cuda, birnn_cuda, ctc_cuda)
+                      for k in vars(m).values()
+                      if isinstance(k, _build.CudaKernel)])
     cfg, data, lm, model, batches, n_frames = smoke.gru_decode_setup(0)
     if os.path.exists(LM_PATH):
         saved = torch.load(LM_PATH)
@@ -64,8 +72,9 @@ def worker(tree: str, passes: int) -> None:
         os.makedirs(os.path.dirname(LM_PATH), exist_ok=True)
         torch.save({"cfg": dataclasses.asdict(nlm.cfg),
                     "state": nlm.state_dict()}, LM_PATH)
-    for k in (128, 200):
-        run = smoke.gru_decode_pass(cfg, k, lm, nlm, model, batches)
+    for name, k, gru in DECODES:
+        run = smoke.gru_decode_pass(cfg, k, lm, nlm if gru else None, model,
+                                    batches)
         run()                                   # warm-up
         walls = []
         for _ in range(passes):
@@ -75,8 +84,8 @@ def worker(tree: str, passes: int) -> None:
             torch.cuda.synchronize()
             walls.append(time.time() - t0)
         wall = float(np.median(walls))
-        prof = smoke.device_breakdown(run, f"K={k}")
-        rec = {"k": k, "audio_s_per_s": n_frames / 100 / wall,
+        prof = smoke.device_breakdown(run, name)
+        rec = {"decode": name, "audio_s_per_s": n_frames / 100 / wall,
                "wall_ms": wall * 1e3, "walls_ms": [w * 1e3 for w in walls]}
         if prof is not None:
             rec.update(profiled_wall_ms=prof[0], busy_ms=prof[1],
@@ -113,8 +122,8 @@ def main() -> int:
         for line in out.stdout.splitlines():
             if line.startswith("RESULT "):
                 rec = json.loads(line[len("RESULT "):])
-                results.setdefault((name, rec["k"]), []).append(rec)
-                print(f"{name:6s} K={rec['k']}: "
+                results.setdefault((name, rec["decode"]), []).append(rec)
+                print(f"{name:6s} {rec['decode']}: "
                       f"{rec['audio_s_per_s']:.1f} audio-s/s (wall "
                       f"{rec['wall_ms']:.1f} ms, passes "
                       f"{[round(w, 1) for w in rec['walls_ms']]}), device "
@@ -125,12 +134,12 @@ def main() -> int:
                       flush=True)
             elif line.startswith("  device"):
                 print(f"  {name:6s} {line.strip()}", flush=True)
-    for k in (128, 200):
+    for k, _, _ in DECODES:
         for name in ("parent", "this"):
             rates = [r["audio_s_per_s"] for r in results[(name, k)]]
             idle = [r.get("idle_share", float("nan"))
                     for r in results[(name, k)]]
-            print(f"K={k} {name:6s}: audio-s/s {rates}, idle share <= "
+            print(f"{k} {name:6s}: audio-s/s {rates}, idle share <= "
                   f"{[round(x, 3) for x in idle]}", flush=True)
     return 0
 

@@ -108,10 +108,18 @@ def cmd_decode(args):
         from tpu_ctc_torch.decode.beam import make_beam_decoder
         from tpu_ctc_torch.decode.lm import train_char_lm_from_data
         from tpu_ctc_torch.decode.neural_lm import train_nlm_from_data
-        from tpu_ctc_torch.ops.beam_cuda import check_supported
-        if cfg.decode.use_fused_kernel:     # refuse before training the LMs
-            check_supported(cfg.decode.beam_width, cfg.model.vocab_size,
-                            cfg.decode.lm_order)
+        from tpu_ctc_torch.ops.beam_cuda import MAX_ORDER, check_supported
+        # Refuse before the LMs train: on the card, what the fused kernels
+        # do not take (make_beam_decoder raises for it there); everywhere,
+        # n-gram orders over 3, which the plain search refuses too.
+        d = cfg.decode
+        if d.use_fused_kernel and dev.type == "cuda":
+            check_supported(d.beam_width, cfg.model.vocab_size, d.lm_order,
+                            nlm_dims=((d.neural_lm_embed, d.neural_lm_hidden)
+                                      if d.neural_lm else None))
+        if d.lm_order > MAX_ORDER:
+            raise ValueError(f"device decoder supports LM order<={MAX_ORDER}, "
+                             f"got {d.lm_order}")
         # both LMs train on the transcripts of the data being decoded (the
         # synthetic corpus is the train split)
         lm = (train_char_lm_from_data(data, cfg) if cfg.decode.lm_order

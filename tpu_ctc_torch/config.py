@@ -152,22 +152,26 @@ class DecodeConfig:
     # Neural character LM (SURVEY C10, Maas NAACL'15): train an in-repo
     # GRU char LM on the train split's transcripts and fuse it into the
     # beam search (additively with the n-gram when lm_order > 0).  The
-    # fused kernel hosts the per-beam GRU state on-device when the dims
-    # are tile-aligned (E % 8 == 0 <= 128, H % 8 == 0 <= 256).
+    # fused kernels take E <= 128 and H <= 256 after rounding each up to a
+    # multiple of 8 (ops/beam_cuda.py pads them with zero weights).
     neural_lm: bool = False
     neural_lm_hidden: int = 128
     neural_lm_embed: int = 64
     neural_lm_steps: int = 300     # LM training steps (adam, in-repo)
-    # Route CUDA tensors through the fused beam-search kernel
-    # (ops/beam_cuda.py: K<=128, vocab<=64, n-gram order<=3, no neural
-    # LM; anything else raises on CUDA); False forces the plain search.
+    # Route CUDA tensors through the fused beam-search kernels
+    # (ops/beam_cuda.py: K <= 256, vocab <= 64, n-gram order <= 3, the GRU
+    # char LM within the dims above); anything else raises on CUDA, and on
+    # the CPU (where the plain search runs) logs a warning.  False forces
+    # the plain search.
     use_fused_kernel: bool = True
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     num_epochs: int = 10
-    # Debug: fail fast on NaN/Inf (training; not used by the decode port).
+    # Debug: fail fast on NaN/Inf.  train_step raises FloatingPointError
+    # when the loss or the gradient norm is not finite, before the update
+    # (the reference's jax_debug_nans); off, it adds no host sync.
     debug_nans: bool = False
     log_every: int = 10
     checkpoint_every: int = 200

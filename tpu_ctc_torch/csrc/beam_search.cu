@@ -13,7 +13,8 @@
 //     parent | (char + 1) << 8     (char + 1 = 0 for a stay; parent <= 255)
 // Frames past the utterance's length get the identity backpointer.  The
 // final (pb, pnb, plen) of every slot go to `fin`; the wrapper
-// (ops/beam_cuda.py) takes the argmax and follows the backpointers.
+// (ops/beam_cuda.py) takes the argmax, and reconstruct_kernel (at the end of
+// this file) follows the best slot's backpointers on the device.
 //
 // The TPU kernels' lane packing, sublane groups, lane banks (B6) and
 // one-hot matmuls exist because Mosaic has no gather and no sort.  Here the
@@ -1075,6 +1076,39 @@ int launch(const float* lp, const int* lens, const float* thr,
                                         prune_logp, gru);
 }
 
+// The best slot's hypothesis from the packed backpointers, as
+// beam_pallas._reconstruct builds it (tpu_ctc/ops/beam_pallas.py:1191, a
+// jax.lax.scan inside the jitted search): one thread per utterance walks bp
+// [B, T, K] from slot best[b] at the last frame back to the first, keeping
+// each frame's char (-1 for a stay) in chars [B, T], then writes the emitted
+// chars in frame order to hyps [B, max_len], zeros after the last.  The walk
+// is T dependent loads of one word each from bp, which the search has just
+// written (it is in L2): latency bounds it, and one launch replaces the T
+// small gathers that a walk from the host takes.
+__global__ void reconstruct_kernel(const int* __restrict__ bp,
+                                   const long long* __restrict__ best,
+                                   int* __restrict__ chars,
+                                   int* __restrict__ hyps, int n_b, int n_t,
+                                   int k, int max_len) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_b) return;
+  const int* p = bp + (size_t)b * n_t * k;
+  int* ch = chars + (size_t)b * n_t;
+  int slot = (int)best[b];
+  for (int t = n_t - 1; t >= 0; --t) {
+    const int entry = p[(size_t)t * k + slot];
+    ch[t] = (entry >> 8) - 1;
+    slot = entry & 255;
+  }
+  int* h = hyps + (size_t)b * max_len;
+  int n = 0;
+  for (int t = 0; t < n_t; ++t) {
+    const int c = ch[t];
+    if (c >= 0 && n < max_len) h[n++] = c;
+  }
+  for (; n < max_len; ++n) h[n] = 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1114,6 +1148,19 @@ int beam_search_wide_launch(const float* lp, const int* lens,
   return launch<256>(lp, lens, thr, lm, bp, fin, n_b, n_t, a, k, blank,
                      max_len, lm_order, lm_alpha, lm_beta, use_prune,
                      prune_logp, gru, stream);
+}
+
+// bp [B, T, K] int32 packed backpointers, best [B] int64 slots; chars
+// [B, T] int32 scratch; hyps out [B, max_len] int32.
+int beam_reconstruct_launch(const int* bp, const long long* best, int* chars,
+                            int* hyps, int n_b, int n_t, int k, int max_len,
+                            void* stream) {
+  if (n_b < 1 || n_t < 1 || k < 1 || k > 256 || max_len < 0)
+    return (int)cudaErrorInvalidValue;
+  reconstruct_kernel<<<(n_b + 31) / 32, 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      bp, best, chars, hyps, n_b, n_t, k, max_len);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

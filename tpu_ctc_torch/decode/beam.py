@@ -15,10 +15,13 @@ states equal the kernels'.
 utterance, the recompute-from-prefix oracle of the batched search.
 
 :func:`make_beam_decoder` routes CUDA batches through kernel B5 (K <= 128)
-or B6 (K in (128, 256]) in ``ops.beam_cuda`` and raises for what they lack.
+or B6 (K in (128, 256]) in ``ops.beam_cuda`` and raises on CUDA for what
+they do not take; on the CPU this plain search runs, with a warning for a
+configuration that the kernels would refuse.
 """
 from __future__ import annotations
 
+import logging
 import math
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -327,24 +330,38 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     ``batch`` holds ``feats`` [B, T, D], ``frame_mask`` [B, T],
     ``frame_lengths`` [B] and ``labels`` [B, L] (numpy arrays or tensors);
     ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``), moved to the
-    device here.  With ``cfg.decode.use_fused_kernel`` set, a configuration
-    that the kernels lack (K > 256, vocab > 64, LM order > 3, GRU dims over
-    E = 128 or H = 256) raises ``NotImplementedError`` on every device, and
-    on CUDA the search runs kernel B5 (K <= 128) or B6 (K in (128, 256]):
-    there is no silent fallback.  On the CPU the plain search runs.  The
-    model runs on ``device`` (default ``cuda``).
+    device here.  With ``cfg.decode.use_fused_kernel`` set, the search runs
+    kernel B5 (K <= 128) or B6 (K in (128, 256]) on CUDA and the plain
+    search on the CPU.  A configuration that the kernels do not take (K >
+    256, vocab > 64, LM order > 3, GRU dims over E = 128 or H = 256) is
+    decided from the configuration alone, before anything touches the
+    device: on CUDA it raises ``NotImplementedError`` naming the limit (no
+    plain search runs on the card in the kernels' place); on the CPU a
+    warning names the configuration and the plain search runs, where LM
+    order > 3 raises in its first frame, as in the reference.  The model
+    runs on ``device`` (default ``cuda``).
     """
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.models import birnn
     from tpu_ctc_torch.ops import beam_cuda
 
+    vocab = cfg.model.vocab_size
+    lm_order = lm.order if lm is not None else 0
+    use_kernel = cfg.decode.use_fused_kernel and beam_cuda.supported(
+        cfg.decode.beam_width, vocab, lm_order, nlm_params)
+    if cfg.decode.use_fused_kernel and not use_kernel:
+        if torch.device(device if device is not None else "cuda").type \
+                == "cuda":                      # raises, naming the limit
+            beam_cuda.check_supported(cfg.decode.beam_width, vocab, lm_order,
+                                      nlm_params)
+        logging.getLogger("tpu_ctc_torch.decode").warning(
+            "fused beam-search kernel does not support this configuration "
+            "(K=%d vocab=%d lm_order=%d neural_lm=%s) — decoding on the "
+            "plain search (prefix_beam_search) on the CPU; on a CUDA device "
+            "this configuration raises NotImplementedError",
+            cfg.decode.beam_width, vocab, lm_order, nlm_params is not None)
     dev = resolve_device(device)
     lm_table = lm.tables(dev) if lm is not None else None
-    lm_order = lm.order if lm is not None else 0
-    use_kernel = cfg.decode.use_fused_kernel
-    if use_kernel:
-        beam_cuda.check_supported(cfg.decode.beam_width, cfg.model.vocab_size,
-                                  lm_order, nlm_params)
     if nlm_params is not None:
         nlm_params = nlm_params.to(dev)
     search = beam_cuda.beam_search if use_kernel else prefix_beam_search

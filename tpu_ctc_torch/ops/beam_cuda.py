@@ -7,8 +7,10 @@ kernel B6 for K in (128, 256].  Both are one template in
 launch count here.  A kernel runs the whole search, one block per
 utterance, and emits packed backpointers ``parent | (char + 1) << 8`` (the
 parent slot <= 255 fits the 8 bits) plus each slot's final (pb, pnb,
-plen); the wrapper here prepares the inputs, takes the best slot and
-follows its backpointers (:func:`reconstruct`).
+plen); the wrapper here prepares the inputs and takes the best slot, and
+a third kernel of the same source follows that slot's backpointers on the
+device (:func:`reconstruct_cuda`, launch count ``RECONSTRUCT``; its plain
+version is :func:`reconstruct_plain`).
 
 The plain version of this kernel is
 :func:`tpu_ctc_torch.decode.beam.prefix_beam_search`: :func:`beam_search`
@@ -32,6 +34,7 @@ from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
 KERNEL = CudaKernel("beam_search")                          # B5
 WIDE_KERNEL = CudaKernel("beam_search_wide", source="beam_search")  # B6
+RECONSTRUCT = CudaKernel("beam_reconstruct", source="beam_search")  # the walk
 NARROW_BEAM = 128               # B5 takes K <= 128, B6 K in (128, 256]
 MAX_BEAM = 256
 MAX_VOCAB = 64
@@ -48,11 +51,15 @@ def kernel_for(beam_width: int) -> CudaKernel:
 
 
 def check_supported(beam_width: int, vocab: int, lm_order: int,
-                    nlm_params=None) -> None:
+                    nlm_params=None, nlm_dims=None) -> None:
     """Raise ``NotImplementedError`` for what kernels B5 and B6 do not take:
-    what ``beam_pallas.supported`` refuses."""
+    what ``beam_pallas.supported`` refuses.  The kernels' own gate:
+    :func:`prepare` calls it before every launch.  The GRU char LM's dims
+    come from ``nlm_params`` or, before it is trained, ``nlm_dims`` (E, H)."""
     if nlm_params is not None:
-        e, h = nlm_params.embed.shape[1], nlm_params.bz.shape[0]
+        nlm_dims = (nlm_params.embed.shape[1], nlm_params.bz.shape[0])
+    if nlm_dims is not None:
+        e, h = nlm_dims
         if _round8(e) > MAX_EMBED or _round8(h) > MAX_HIDDEN:
             raise NotImplementedError(
                 f"beam_search kernel: GRU char LM with embed {e} / hidden "
@@ -68,10 +75,23 @@ def check_supported(beam_width: int, vocab: int, lm_order: int,
             f"beam_search kernel: LM order {lm_order} (0..{MAX_ORDER})")
 
 
-def reconstruct(bp: torch.Tensor, best: torch.Tensor, max_len: int):
+def supported(beam_width: int, vocab: int, lm_order: int,
+              nlm_params=None) -> bool:
+    """Whether kernels B5 and B6 take a configuration
+    (``beam_pallas.supported``): what :func:`check_supported` lets
+    through."""
+    try:
+        check_supported(beam_width, vocab, lm_order, nlm_params)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def reconstruct_plain(bp: torch.Tensor, best: torch.Tensor, max_len: int):
     """Follow the packed backpointers of slot ``best`` from the last frame
     to the first: bp [B, T, K] int32, best [B] -> hyps [B, max_len] int32
-    (``beam_pallas._reconstruct``)."""
+    (``beam_pallas._reconstruct``).  The plain version of
+    :func:`reconstruct_cuda`: a loop over T with a gather a frame."""
     n_b, n_t, _ = bp.shape
     slot = best.to(torch.int64)[:, None]
     chars = torch.empty((n_t, n_b), dtype=torch.int64, device=bp.device)
@@ -85,6 +105,35 @@ def reconstruct(bp: torch.Tensor, best: torch.Tensor, max_len: int):
     hyps = torch.zeros((n_b, max_len + 1), dtype=torch.int32, device=bp.device)
     hyps.scatter_(1, pos.T, torch.clamp(chars, min=0).T.to(torch.int32))
     return hyps[:, :max_len]
+
+
+def reconstruct_cuda(bp: torch.Tensor, best: torch.Tensor,
+                     max_len: int) -> torch.Tensor:
+    """Launch the backpointer walk: one thread per utterance, the same
+    contract as :func:`reconstruct_plain` and its bits."""
+    if not (bp.is_cuda and best.is_cuda):
+        raise ValueError("beam_reconstruct kernel: tensors must be on a CUDA "
+                         "device")
+    if bp.dim() != 3 or bp.dtype != torch.int32:
+        raise ValueError(f"beam_reconstruct kernel: bp must be [B, T, K] "
+                         f"int32, got {tuple(bp.shape)} {bp.dtype}")
+    n_b, n_t, k = bp.shape
+    if tuple(best.shape) != (n_b,) or not 1 <= k <= MAX_BEAM:
+        raise ValueError(f"beam_reconstruct kernel: best "
+                         f"{tuple(best.shape)} for bp {tuple(bp.shape)}")
+    bp = bp.contiguous()
+    best = best.to(torch.int64).contiguous()
+    chars = torch.empty((n_b, n_t), dtype=torch.int32, device=bp.device)
+    hyps = torch.empty((n_b, max_len), dtype=torch.int32, device=bp.device)
+    fn = RECONSTRUCT.lib().beam_reconstruct_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    err = fn(ptr(bp), ptr(best), ptr(chars), ptr(hyps), n_b, n_t, k, max_len,
+             stream_of(bp))
+    check(err, RECONSTRUCT.name)
+    RECONSTRUCT.launches += 1
+    return hyps
 
 
 def admission_bar(log_probs: torch.Tensor, char_topk: int,
@@ -233,8 +282,8 @@ def beam_search_cuda(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                      lm_order: int = 0, lm_alpha: float = 1.0,
                      lm_beta: float = 0.0, prune_logp: Optional[float] = None,
                      char_topk: int = 0, nlm_params=None):
-    """Kernel B5 or B6 and the best slot's hypothesis; same contract as
-    :func:`beam_search`."""
+    """Kernel B5 or B6, then the walk kernel for the best slot's
+    hypothesis; same contract as :func:`beam_search`."""
     lp, lens, lm, thr, gru = prepare(log_probs, frame_lengths, beam_width,
                                      blank, lm_table, lm_order, char_topk,
                                      nlm_params)
@@ -243,7 +292,7 @@ def beam_search_cuda(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
     score = _lse2(fin[:, 0], fin[:, 1])                        # [B, K]
     best = torch.argmax(score, dim=1)
     rows = torch.arange(lp.shape[0], device=lp.device)
-    hyps = reconstruct(bp, best, max_len)
+    hyps = reconstruct_cuda(bp, best, max_len)
     return hyps, fin[rows, 2, best].to(torch.int32), score[rows, best]
 
 

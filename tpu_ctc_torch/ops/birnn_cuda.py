@@ -16,7 +16,7 @@ through :class:`BiRecurrence`, which mirrors ``_make_bi_recurrence``
 z and g are rounded to the io dtype before a sweep, the dot input is the
 state (or delta) in the compute dtype with f32 accumulation, and each
 ``h_t`` and ``d_t`` is stored in the io dtype.  The weight gradients
-dW = sum_t h_neighbour^T d_t are one large f32 product each, outside the
+dW = sum_t h_neighbour^T d_t are one large product each, outside the
 kernels, as the JAX package leaves them to XLA.
 
 Layout is time-major [T, B, H].  :func:`fwd_recurrence` and
@@ -24,8 +24,14 @@ Layout is time-major [T, B, H].  :func:`fwd_recurrence` and
 for CUDA tensors and run the plain loops for CPU tensors; for a CUDA tensor
 they never fall back: what a kernel cannot take raises.
 
-Every matrix product here goes through :func:`matmul_f32`, which switches
-TF32 off around the call, in the forward and in the backward alike.
+The dense products outside the kernels have an f32 result.  On a card, a
+product of two bf16 operands (the dense forward at a bf16 compute dtype, dW
+at a bf16 io dtype) is one bf16 GEMM with f32 accumulation and output on
+the tensor cores (:func:`matmul_bf16`), as the reference multiplies bf16
+operands on its matrix unit with ``preferred_element_type=f32``; every
+other product (an f32 operand: the cotangent's, or an f32 compute dtype)
+goes through :func:`matmul_f32`, which switches TF32 off around the call.
+On the CPU every product is the f32 product of the same values.
 """
 from __future__ import annotations
 
@@ -88,6 +94,14 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices on a card: one bf16 GEMM that
+    accumulates and returns f32 (``torch.mm`` with ``out_dtype``).  The
+    products of bf16 values are exact, so it equals the f32 product of the
+    same values up to the order of the f32 sums."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 class DotF32(torch.autograd.Function):
     """``x @ w`` with inputs rounded to the compute dtype and an f32 result,
     as JAX's ``jnp.dot(x.astype(cdt), w.astype(cdt),
@@ -95,20 +109,27 @@ class DotF32(torch.autograd.Function):
     cotangent g enters both products unrounded, and dx = g w_c^T and
     dw = x_c^T g are each rounded to the compute dtype (the transpose of
     ``astype(cdt)``) before they return to the inputs' f32.  x is [..., K],
-    w [K, N]."""
+    w [K, N].  On a card at a bf16 compute dtype the forward product is
+    :func:`matmul_bf16`; the backward's products take the f32 cotangent and
+    stay f32 (:func:`matmul_f32`)."""
 
     @staticmethod
     def forward(ctx, x, w, compute_dtype):
+        ctx.cdt = compute_dtype
+        ctx.dtypes = (x.dtype, w.dtype)
+        if x.is_cuda and compute_dtype == torch.bfloat16:
+            xb, wb = x.to(compute_dtype), w.to(compute_dtype)
+            ctx.save_for_backward(xb, wb)
+            out = matmul_bf16(xb.reshape(-1, xb.shape[-1]), wb)
+            return out.reshape(*x.shape[:-1], w.shape[-1])
         xc = x.to(compute_dtype).to(torch.float32)
         wc = w.to(compute_dtype).to(torch.float32)
         ctx.save_for_backward(xc, wc)
-        ctx.cdt = compute_dtype
-        ctx.dtypes = (x.dtype, w.dtype)
         return matmul_f32(xc, wc)
 
     @staticmethod
     def backward(ctx, g):
-        xc, wc = ctx.saved_tensors
+        xc, wc = (t.to(torch.float32) for t in ctx.saved_tensors)
         g = g.to(torch.float32)
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -269,8 +290,11 @@ def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
 
 def _weight_grad(h_nb: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """dW = sum_t h_nb[t]^T d[t] over [T, B, H] io-dtype streams: one
-    [H, T B] x [T B, H] f32 product of the stored values."""
+    [H, T B] x [T B, H] product of the stored values with an f32 result
+    (:func:`matmul_bf16` for bf16 streams on a card)."""
     n_h = d.shape[2]
+    if d.is_cuda and d.dtype == torch.bfloat16 == h_nb.dtype:
+        return matmul_bf16(h_nb.reshape(-1, n_h).t(), d.reshape(-1, n_h))
     return matmul_f32(h_nb.reshape(-1, n_h).to(torch.float32).t(),
                       d.reshape(-1, n_h).to(torch.float32))
 

@@ -71,16 +71,33 @@ def loss_fn(model: birnn.BiRNN, cfg: Config,
     return loss, metrics
 
 
+def _check_finite(step: int, loss: torch.Tensor,
+                  g_norm: torch.Tensor) -> None:
+    """``train.debug_nans``: raise ``FloatingPointError`` (what
+    ``jax_debug_nans`` raises) when the loss or the gradient norm is not
+    finite.  One host sync a step."""
+    loss_v, norm_v = float(loss), float(g_norm)
+    if not (np.isfinite(loss_v) and np.isfinite(norm_v)):
+        raise FloatingPointError(
+            f"train.debug_nans: step {step} has loss {loss_v} and grad_norm "
+            f"{norm_v}; no update was applied")
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                cfg: Config) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One update: value and gradient of :func:`loss_fn`, then the
-    optimizer chain in place on the parameters."""
+    optimizer chain in place on the parameters.  With
+    ``cfg.train.debug_nans`` a non-finite loss or gradient norm raises
+    ``FloatingPointError`` before the update, leaving the parameters and
+    the optimizer state as they were."""
     params = dict(state.model.named_parameters())
     with torch.enable_grad():
         loss, metrics = loss_fn(state.model, cfg, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
     grads = dict(zip(params, grads))
     g_norm = optim.global_norm(list(grads.values()))
+    if cfg.train.debug_nans:
+        _check_finite(state.step, loss, g_norm)
     opt_state = optim.apply_updates(params, grads, state.opt_state,
                                     cfg.optim, g_norm=g_norm)
     metrics = {k: v.detach() for k, v in metrics.items()}
