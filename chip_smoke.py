@@ -50,14 +50,32 @@ against its plain PyTorch version on the same inputs:
      char LM (300 Adam steps) on the transcripts of 64 synthetic
      utterances, then preset 4 decodes them at K = 128 (B5) and at K = 200
      (B6) with the GRU fused beside the trigram; the walk and the wrapper
-     on each K's posteriors.
+     on each K's posteriors;
+ 11. audio in, text out: 96 + 32 synthetic tone waveforms of 4-8 s written
+     as a manifest corpus (WAV files) under ``build/chip_smoke_audio``; the
+     frontend (``frontend/features.py``, preset 2's 40 mels and context 1)
+     on 64 of them on the card and on the CPU against a float64 numpy
+     oracle, with its times and the CPU rate of ``ManifestDataset``; ``cli
+     train --config 2 --data`` (two epochs, ``train.eval_beam``: B1-B5 and
+     the walk), the loss on one batch from the seeded weights and from the
+     checkpoint; the audio path's step (manifest, loader, prefetch,
+     ``train_step``) timed and profiled beside phase 7's; ``model.remat``
+     bit-equal with B1 launched twice as often and both peaks printed;
+     ``cli decode --checkpoint --split valid --beam``, ``score``,
+     ``export-weights`` and ``decode --weights`` (the same hypotheses, the
+     manifest's ids); ``batched_edit_distance`` on the card equal to the
+     host's; ``cli decode --config 4 --data --beam`` and its loop timed and
+     profiled with the frontend in the wall, beside phase 4's; prefetched
+     batches bit-equal to the loader's own.
 
-Each main path (phases 4, 7 and both widths of 10) is run with every launch
-count set to 0 just before it and read just after; a kernel's ``launches``
-in the record is the sum over the paths that run it.  The profile of each
+Each main path (phases 4, 7, both widths of 10, and phase 11's training and
+its decodes) is run with every launch count set to 0 just before it and
+read just after; a kernel's ``launches`` in the record is the sum over the
+paths that run it.  The profile of each
 path prints its dense GEMMs' device ms.  B5 has two records,
 told apart by ``variant``: ``trigram`` (phase 3, launched on phase 4's
-path) and ``gru+trigram`` (phase 8, launched on phase 10's).  The GRU's sums run in
+and phase 11's paths) and ``gru+trigram`` (phase 8, launched on phase
+10's).  The GRU's sums run in
 another order in a kernel than in the plain version's matmuls, so over 800
 frames its scores drift apart by float rounding: the GRU checks hold
 hypotheses equal on every utterance whose top-2 beam gap exceeds 1e-2 and
@@ -69,7 +87,7 @@ kernel and of its plain version alike, is the median of CUDA-event times of
 single calls after a warm-up call.  The last two lines are the per-kernel
 JSON record and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all ten phases, one card
+    python3 chip_smoke.py                 # all eleven phases, one card
 """
 from __future__ import annotations
 
@@ -139,6 +157,13 @@ GEMM_LP_TOL = 1e-3
 # reference's own kernel drifts ~2e-3 from its XLA search over 400 frames).
 GRU_GAP = 1e-2
 GRU_TOL = 1e-2
+# Phase 11's frontend limits (PERF.md section 2): the power spectrum within
+# POWER_TOL of each frame's peak power; features within FEAT_TOL in the
+# bands whose mel energy is at least LOUD of the frame's largest band in
+# every frame of the utterance.
+POWER_TOL = 1e-5
+FEAT_TOL = 1e-3
+LOUD = 1e-6
 
 
 def log(msg: str) -> None:
@@ -484,11 +509,13 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     log(f"phase 3: walk kernel {walk_ms:.4f} ms, plain walk "
         f"{walk_plain_ms:.3f} ms, bound {w_ms:.6f} ms ({w_by}); library: "
         f"none (no PyTorch call follows backpointers)")
-    return [dict(name="beam_search", variant="trigram", paths=("decode",),
+    return [dict(name="beam_search", variant="trigram",
+                 paths=("decode", "audio_train", "audio_decode"),
                  route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None),
-            dict(name="beam_reconstruct", paths=("decode", "gru"),
+            dict(name="beam_reconstruct",
+                 paths=("decode", "gru", "audio_train", "audio_decode"),
                  route="cuda", source=B5_SOURCE, replaces=WALK_REPLACES,
                  max_abs_err=0.0, ms=walk_ms, plain_ms=walk_plain_ms,
                  bound_ms=w_ms, bound_by=w_by, library_ms=None)]
@@ -599,10 +626,12 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
         lm_table=lm.tables(dev), lm_order=lm.order,
         lm_alpha=cfg.decode.lm_alpha, lm_beta=cfg.decode.lm_beta,
         prune_logp=cfg.decode.prune_logp))
-    device_breakdown(run, "phase 4")
+    bd = device_breakdown(run, "phase 4")
     with f32_dense_products():
         device_breakdown(run, "phase 4 with the f32 GEMMs")
-    return launches, n_frames / 100 / wall
+    return launches, {"rate": n_frames / 100 / wall,
+                      "idle": None if bd is None else round(
+                          1 - bd[1] / bd[0], 3)}
 
 
 def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
@@ -893,12 +922,14 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
         raise AssertionError("the training step's kernel path disagrees "
                              "with its plain path or with its f32 GEMMs")
     torch.cuda.reset_peak_memory_stats()
-    device_breakdown(lambda: train_once(1), "phase 7")
+    bd = device_breakdown(lambda: train_once(1), "phase 7")
     log(f"phase 7: peak device memory of one step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     with f32_dense_products():
         device_breakdown(lambda: train_once(1), "phase 7 with the f32 GEMMs")
-    return launches, frames / 100 / wall
+    return launches, {"ms": wall / steps * 1e3, "rate": frames / 100 / wall,
+                      "idle": None if bd is None else round(
+                          1 - bd[1] / bd[0], 3)}
 
 
 def seeded_gru(seed, a, e, h, dev="cuda"):
@@ -1252,6 +1283,409 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
     return all_launches, rates
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic mode for the block (warnings only where an
+    op has no deterministic version), then the previous mode."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def oracle_frontend(x, lens, fe):
+    """The frontend in float64 numpy, written out from its definition:
+    power [B, T, bins], mel energies [B, T, M], features [B, T, F] and the
+    frame mask [B, T] of waveforms x [B, N] with lens [B] valid samples."""
+    from tpu_ctc_torch.frontend.features import mel_filterbank
+    x = x.astype(np.float64)
+    frames = np.lib.stride_tricks.sliding_window_view(
+        x, fe.frame_length, axis=1)[:, ::fe.hop_length]
+    win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(fe.frame_length)
+                             / fe.frame_length)
+    spec = np.fft.rfft(frames * win, n=fe.n_fft, axis=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    fb = mel_filterbank(fe.sample_rate, fe.n_fft, fe.n_mels, fe.fmin,
+                        fe.fmax).astype(np.float64)
+    mel = power @ fb
+    feats = np.log(np.maximum(mel, fe.log_floor))
+    n_t = feats.shape[1]
+    n_valid = np.where(lens >= fe.frame_length,
+                       1 + (lens - fe.frame_length) // fe.hop_length, 0)
+    mask = (np.arange(n_t)[None, :] < n_valid[:, None]).astype(np.float64)
+    m = mask[..., None]
+    feats = feats * m
+    denom = np.maximum(m.sum(axis=1, keepdims=True), 1.0)
+    mean = (feats * m).sum(axis=1, keepdims=True) / denom
+    var = ((feats - mean) ** 2 * m).sum(axis=1, keepdims=True) / denom
+    feats = (feats - mean) / np.sqrt(var + 1e-8) * m
+    k = fe.context
+    idx = np.clip(np.arange(n_t)[:, None] + np.arange(-k, k + 1)[None, :],
+                  0, n_t - 1)                                   # [T, 2k+1]
+    feats = feats[:, idx, :].reshape(len(x), n_t, -1) * m
+    return power, mel, feats, mask
+
+
+def loud_bands(mel):
+    """Bands whose mel energy is at least LOUD of the frame's largest band:
+    [..., T, M] bool.  Elsewhere a band holds little more than the rounding
+    noise of the DFT's cancelling sums, whose log differs between two
+    correct products by O(1)."""
+    return mel >= LOUD * mel.max(axis=-1, keepdims=True)
+
+
+def check_frontend_limits(what, power, feats, mask, want_power, want_mel,
+                          want_feats, want_mask, fe):
+    """Hold a frontend result against another under PERF.md section 2's
+    limits: the power within POWER_TOL of each frame's peak; the features
+    (after CMVN and context) within FEAT_TOL in the bands that are loud in
+    every valid frame of their utterance (CMVN mixes a band's frames).
+    Returns (power err / peak, feature err, share of features compared)."""
+    if not np.array_equal(mask, want_mask):
+        raise AssertionError(f"{what}: frame masks differ")
+    live = want_mask > 0
+    peak = want_power.max(axis=-1, keepdims=True)
+    p_err = float((np.abs(power - want_power) / peak)[live].max())
+    loud = np.where(live[..., None], loud_bands(want_mel), True).all(axis=1)
+    loud = np.tile(loud, 2 * fe.context + 1)[:, None, :] & live[..., None]
+    f_err = float(np.abs(feats - want_feats)[loud].max())
+    share = float(loud.sum() / (live.sum() * feats.shape[-1]))
+    log(f"phase 11: frontend {what}: power err {p_err:.2e} of the frame's "
+        f"peak (limit {POWER_TOL}); features err {f_err:.2e} (limit "
+        f"{FEAT_TOL}) on the {share:.3f} of live features in bands loud "
+        f"in every frame")
+    if p_err > POWER_TOL or f_err > FEAT_TOL or share < 0.25:
+        raise AssertionError(f"frontend {what} out of its limits")
+    return p_err, f_err
+
+
+def audio_corpus(root, fe, seed):
+    """A manifest corpus of synthetic tone waveforms (50-100 characters of
+    1280 samples, 4-8 s: 400-800 frames) in ``root``: train (96) and valid
+    (32) splits of WAV files.  Returns {split: (waveforms, sample lengths)}."""
+    from tpu_ctc_torch.data import audio_io
+    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
+    from tpu_ctc_torch.data.manifest import write_manifest
+    from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for split, n, s in (("train", 96, seed), ("valid", 32, seed + 1)):
+        audio, sl, labels, ll = synthetic_audio_batch(
+            n, 8 * fe.sample_rate, sample_rate=fe.sample_rate, min_chars=50,
+            max_chars=100, seed=s, samples_per_char=1280)
+        recs = []
+        for i in range(n):
+            name = f"{split}_{i:03d}.wav"
+            audio_io.write_wav(os.path.join(root, name), audio[i, :sl[i]],
+                               fe.sample_rate)
+            recs.append({"id": f"{split}-{i:03d}", "audio": name,
+                         "text": DEFAULT_ALPHABET.decode(labels[i, :ll[i]]),
+                         "samples": int(sl[i]), "rate": fe.sample_rate})
+        write_manifest(root, split, recs)
+        out[split] = (audio, sl)
+    return out
+
+
+def check_batched_cer(what, hyp_dir, dev="cuda"):
+    """``batched_edit_distance`` and ``batched_cer`` on the card against the
+    host's ``edit_distance`` and ``cer`` on a decode's trn files: equal
+    integers, equal CER."""
+    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
+    from tpu_ctc_torch.decode import wer
+    refs = wer.parse_trn(f"{hyp_dir}/ref.trn")
+    hyps = wer.parse_trn(f"{hyp_dir}/hyp.trn")
+    r_ids = [DEFAULT_ALPHABET.encode(refs[u]) for u in sorted(refs)]
+    h_ids = [DEFAULT_ALPHABET.encode(hyps[u]) for u in sorted(refs)]
+
+    def pad(seqs):
+        out = np.zeros((len(seqs), max(1, max(map(len, seqs)))), np.int32)
+        for i, seq in enumerate(seqs):
+            out[i, :len(seq)] = seq
+        return torch.from_numpy(out).to(dev), torch.tensor(
+            [len(seq) for seq in seqs], dtype=torch.int32, device=dev)
+    (rt, rl), (ht, hl) = pad(r_ids), pad(h_ids)
+    d_dev = wer.batched_edit_distance(rt, rl, ht, hl).cpu().tolist()
+    d_host = [wer.edit_distance(r, h) for r, h in zip(r_ids, h_ids)]
+    cer_dev = float(wer.batched_cer(rt, rl, ht, hl))
+    cer_host = wer.cer(r_ids, h_ids)
+    log(f"phase 11: batched_cer on the card ({what}) {cer_dev:.6f}, host "
+        f"cer {cer_host:.6f}; distances equal on "
+        f"{sum(a == b for a, b in zip(d_dev, d_host))} of {len(d_host)} "
+        f"utterances (hypotheses of {min(map(len, h_ids))}-"
+        f"{max(map(len, h_ids))} characters)")
+    if d_dev != d_host or abs(cer_dev - cer_host) > 1e-6:
+        raise AssertionError("batched_edit_distance disagrees with the host")
+
+
+def phase_audio(seed: int, phase7, phase4, dev="cuda"):
+    """Audio in, text out on the card: the frontend, a manifest corpus,
+    ``cli train --data`` (preset 2, with ``train.eval_beam``), remat, the
+    checkpoint's decode and score, ``export-weights``, preset 4 from audio,
+    ``batched_cer`` and the prefetch.  Returns {path: launches}."""
+    import shutil
+
+    from tpu_ctc_torch import cli
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.manifest import ManifestDataset
+    from tpu_ctc_torch.data.prefetch import prefetch_to_device
+    from tpu_ctc_torch.decode import wer
+    from tpu_ctc_torch.frontend import features as F
+    from tpu_ctc_torch.ops import birnn_cuda
+    from tpu_ctc_torch.train import checkpoint, step
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+    cfg2 = get_config("timit_full_3layer")
+    fe = cfg2.frontend
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_audio")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir, work = os.path.join(root, "corpus"), os.path.join(root, "run")
+    waves = audio_corpus(data_dir, fe, seed)
+
+    # the frontend: card, CPU and the float64 oracle on 64 waveforms
+    x_np, sl_np = waves["train"][0][:64], waves["train"][1][:64]
+    x, sl = torch.from_numpy(x_np), torch.from_numpy(sl_np.astype(np.int64))
+    want = oracle_frontend(x_np, sl_np, fe)
+    got = {}
+    for where, xx, ll in (("cuda", x.to(dev), sl.to(dev)), ("cpu", x, sl)):
+        p = F.stft_power(xx, fe).cpu().numpy()
+        f, m = F.extract_features(xx, fe, ll)
+        got[where] = (p, f.cpu().numpy(), m.cpu().numpy())
+    pc, fc, mc = got["cpu"]
+    check_frontend_limits("cuda vs float64 oracle", *got["cuda"], *want, fe)
+    check_frontend_limits("cpu vs float64 oracle", *got["cpu"], *want, fe)
+    check_frontend_limits("cuda vs cpu", *got["cuda"], pc,
+                          F.mel_energies(x, fe).numpy(), fc, mc, fe)
+    audio_s = float(sl_np.sum()) / fe.sample_rate
+    gpu_ms = time_ms(lambda: F.extract_features(x.to(dev), fe, sl.to(dev)),
+                     REPS)
+    t0 = time.time()
+    for _ in range(3):
+        F.extract_features(x, fe, sl)
+    cpu_ms = (time.time() - t0) / 3 * 1e3
+    ds = ManifestDataset(data_dir, cfg2)
+    t0 = time.time()
+    for i in range(len(ds)):
+        ds[i]
+    per_utt_s = time.time() - t0
+    ds_audio_s = float(waves["train"][1].sum()) / fe.sample_rate
+    log(f"phase 11: frontend on {len(x_np)} waveforms ({audio_s:.1f} audio "
+        f"s, {fe.n_mels} mels, context {fe.context}): card {gpu_ms:.3f} ms "
+        f"({audio_s / gpu_ms * 1e3:.0f} audio-s/s, host-to-device copy "
+        f"included); CPU {cpu_ms:.1f} ms ({audio_s / cpu_ms * 1e3:.0f} "
+        f"audio-s/s, {torch.get_num_threads()} threads); ManifestDataset one "
+        f"utterance at a time (WAV read included) {ds_audio_s:.1f} audio s "
+        f"in {per_utt_s:.3f} s = {ds_audio_s / per_utt_s:.0f} audio-s/s")
+
+    # cli train --data: preset 2 from the audio files
+    train_ds = ManifestDataset(data_dir, cfg2)
+    n_eval = max(len(train_ds) // 10, 1)
+    epochs = 2
+    n_steps = epochs * BucketedLoader(train_ds[n_eval:],
+                                      cfg2.data).num_batches(0)
+    sets = ["--set", f"train.num_epochs={epochs}",
+            "--set", "train.log_every=1",
+            "--set", f"train.checkpoint_every={n_steps}",
+            "--set", f"train.eval_every={n_steps}",
+            "--set", "train.eval_beam=True"]
+    t0 = time.time()
+    rc, train_launches = run_main_path(lambda: cli.main(
+        ["train", "--config", "2", "--data", data_dir, "--work-dir", work,
+         *sets]))
+    train_wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"cli train exited {rc}")
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    steps = [e for e in events if e["kind"] == "train"]
+    evals = [e for e in events if e["kind"] == "eval"]
+    if len(steps) != n_steps or len(evals) != 1 or "beam_cer" not in \
+            evals[0]:
+        raise AssertionError(f"cli train logged {len(steps)} steps and "
+                             f"{evals}, expected {n_steps} and one beam eval")
+    st = [e["step_time_s"] for e in steps[1:]]
+    rate = float(np.median([e["audio_s_per_s"] for e in steps[1:]]))
+    n_bi = cfg2.model.num_bi_layers
+    log(f"phase 11: cli train --config 2 --data: {n_steps} steps in "
+        f"{train_wall:.1f} s (with the LM, eval and checkpoint); steps 2-"
+        f"{n_steps}: median {np.median(st) * 1e3:.1f} ms a step, "
+        f"{rate:.1f} audio-s/s (each step synchronised by log_every=1); "
+        f"eval {json.dumps({k: evals[0][k] for k in ('cer', 'beam_wer', 'beam_cer', 'num_utts')})}; "
+        f"launches on the path {train_launches}")
+    for name in ("birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta",
+                 "beam_search", "beam_reconstruct"):
+        if not train_launches.get(name):
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"audio training path")
+    if (train_launches["birnn_bwd"] != 2 * n_bi * n_steps
+            or train_launches["ctc_beta"] != n_steps):
+        raise AssertionError(f"launches {train_launches} for {n_steps} steps")
+    state0 = step.create_train_state(cfg2, device=dev)
+    state1 = checkpoint.restore(os.path.join(work, "checkpoints"),
+                                step.create_train_state(cfg2, device=dev))[0]
+    loader = BucketedLoader(train_ds[n_eval:], cfg2.data)
+    batches = [b for _, b in loader.epoch(0)]
+    big = max(batches, key=lambda b: b.feats.shape[1])
+    bt = step.batch_to_tensors(batch_to_device_dict(big), dev)
+    with torch.no_grad():
+        before = float(step.loss_fn(state0.model, cfg2, bt)[0])
+        after = float(step.loss_fn(state1.model, cfg2, bt)[0])
+    log(f"phase 11: loss on a {tuple(big.feats.shape)} batch {before:.3f} "
+        f"from the seeded weights, {after:.3f} from the checkpoint (step "
+        f"{state1.step}); per step {[round(e['loss'], 2) for e in steps]}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError("training from audio did not lower the loss")
+
+    # the audio path's step, profiled: loader + frontend + prefetch + step
+    state = step.create_train_state(cfg2, device=dev)
+    frames = sum(int(b.frame_lengths[b.weights > 0].sum()) for b in batches)
+
+    def audio_epoch():
+        nonlocal state
+        for _, _, tb in prefetch_to_device(loader.epoch(0), dev):
+            state, m = step.train_step(state, tb, cfg2)
+        torch.cuda.synchronize()
+
+    audio_epoch()                                   # warm-up
+    t0 = time.time()
+    audio_epoch()
+    wall = time.time() - t0
+    bd = device_breakdown(audio_epoch, "phase 11 audio epoch")
+    idle = None if bd is None else 1 - bd[1] / bd[0]
+    log(f"phase 11: audio path (ManifestDataset -> loader -> prefetch -> "
+        f"train_step), {len(batches)} steps: {wall / len(batches) * 1e3:.1f} "
+        f"ms a step, {frames / 100 / wall:.1f} audio-s/s, idle share <= "
+        f"{idle if idle is None else round(idle, 3)}; phase 7 (features in "
+        f"memory): {phase7['ms']:.1f} ms a step, {phase7['rate']:.1f} "
+        f"audio-s/s, idle share <= {phase7['idle']}")
+
+    # remat: one preset-2 step's loss and gradients, same batch, weights,
+    # in PyTorch's deterministic mode: without it the CTC glue's gather
+    # accumulates its gradient with atomics, so two runs of one step differ
+    # in the last bits with remat or without
+    def loss_grads(remat):
+        c = cfg2.override(**{"model.remat": remat})
+        params = dict(state.model.named_parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = birnn_cuda.KERNEL.launches
+        loss, _ = step.loss_fn(state.model, c, bt)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return (loss, grads, birnn_cuda.KERNEL.launches - n0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+    def bit_equal(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    loss_grads(False)
+    atomics = bit_equal(loss_grads(False), loss_grads(False))
+    with deterministic_algorithms():
+        l0, g0, n0, peak0 = loss_grads(False)
+        l1, g1, n1, peak1 = loss_grads(True)
+    same = bit_equal((l0, g0), (l1, g1))
+    log(f"phase 11: remat (deterministic mode): loss and gradients "
+        f"bit-equal {same}; B1 launches {n0} without, {n1} with; peak device "
+        f"memory of the step {peak0:.3f} GiB without, {peak1:.3f} GiB with; "
+        f"two runs without remat outside deterministic mode bit-equal: "
+        f"{atomics}")
+    if not same or (n0, n1) != (2 * n_bi, 4 * n_bi):
+        raise AssertionError("remat changed the loss, the gradients or the "
+                             "launch count")
+
+    # round trip: decode the checkpoint, score, export, decode the npz
+    hyp_dir, npz = os.path.join(root, "hyp"), os.path.join(root, "w.npz")
+    ckpt_dir = os.path.join(work, "checkpoints")
+    t0 = time.time()
+    rc, dec_launches = run_main_path(lambda: cli.main(
+        ["decode", "--config", "2", "--checkpoint", ckpt_dir, "--data",
+         data_dir, "--split", "valid", "--beam", "--hyp-out", hyp_dir]))
+    if rc != 0 or cli.main(["score", "--ref", f"{hyp_dir}/ref.trn",
+                            "--hyp", f"{hyp_dir}/hyp.trn"]) != 0:
+        raise AssertionError("cli decode or score failed")
+    hyps = wer.parse_trn(f"{hyp_dir}/hyp.trn")
+    refs = wer.parse_trn(f"{hyp_dir}/ref.trn")
+    ids = [r["id"] for r in ManifestDataset(data_dir, cfg2,
+                                            split="valid").records]
+    if sorted(hyps) != sorted(ids) or sorted(refs) != sorted(ids):
+        raise AssertionError("the trn files do not carry the manifest's ids")
+    log(f"phase 11: cli decode --config 2 --checkpoint --split valid --beam: "
+        f"{len(hyps)} utterances in {time.time() - t0:.1f} s; launches "
+        f"{dec_launches}")
+    if cli.main(["export-weights", "--config", "2", "--checkpoint", ckpt_dir,
+                 "--out", npz]) != 0 or cli.main(
+            ["decode", "--config", "2", "--weights", npz, "--data", data_dir,
+             "--split", "valid", "--beam", "--hyp-out", hyp_dir + "_w"]) != 0:
+        raise AssertionError("export-weights or decode --weights failed")
+    same = wer.parse_trn(f"{hyp_dir}_w/hyp.trn") == hyps
+    log(f"phase 11: export-weights then decode --weights: hypotheses "
+        f"identical to the --checkpoint decode: {same}")
+    if not same:
+        raise AssertionError("decode --weights differs from --checkpoint")
+
+    # preset 4 from audio: the CLI, then its loop timed and profiled
+    cfg4 = get_config("swbd_beam_decode")
+    t0 = time.time()
+    rc, p4_launches = run_main_path(lambda: cli.main(
+        ["decode", "--config", "4", "--data", data_dir, "--beam",
+         "--hyp-out", hyp_dir + "_4"]))
+    if rc != 0:
+        raise AssertionError("cli decode --config 4 failed")
+    log(f"phase 11: cli decode --config 4 --data --beam (random weights, "
+        f"init and LM included) {time.time() - t0:.1f} s; launches "
+        f"{p4_launches}")
+    # batched_edit_distance on the card against the host's, on the
+    # hypotheses of both decodes (the trained checkpoint's and preset 4's)
+    check_batched_cer("valid split, the checkpoint", hyp_dir, dev)
+    check_batched_cer("train split, preset 4", hyp_dir + "_4", dev)
+    from tpu_ctc_torch.decode.beam import make_beam_decoder
+    from tpu_ctc_torch.decode.lm import train_char_lm_from_data
+    from tpu_ctc_torch.models import birnn
+    ds4 = ManifestDataset(data_dir, cfg4)
+    model4 = birnn.init_params(cfg4.model, seed=0, device=dev)
+    decode4 = make_beam_decoder(cfg4, lm=train_char_lm_from_data(ds4, cfg4),
+                                device=dev)
+    loader4 = BucketedLoader(ds4, cfg4.data)
+
+    def decode_pass():
+        out = [decode4(model4, batch_to_device_dict(b))
+               for _, b in loader4.epoch(0)]
+        torch.cuda.synchronize()
+        return out
+    decode_pass()
+    t0 = time.time()
+    decode_pass()
+    wall4 = time.time() - t0
+    frames4 = int(ds4.frame_lengths.sum())
+    bd4 = device_breakdown(decode_pass, "phase 11 preset 4 from audio")
+    idle4 = None if bd4 is None else round(1 - bd4[1] / bd4[0], 3)
+    log(f"phase 11: preset 4 from audio, {len(ds4)} utterances in "
+        f"{loader4.num_batches(0)} batches of {cfg4.data.batch_size} (K="
+        f"{cfg4.decode.beam_width}, trigram): {wall4:.3f} s with the "
+        f"frontend = {frames4 / 100 / wall4:.1f} audio-s/s, idle share <= "
+        f"{idle4}; phase 4 (features in memory): {phase4['rate']:.1f} "
+        f"audio-s/s, idle share <= {phase4['idle']}")
+
+    # prefetch: the batches bit-equal to the loader's own, moved
+    n_eq = 0
+    for (c1, b1, t1), (c2, b2) in zip(
+            prefetch_to_device(loader.epoch(1), dev), loader.epoch(1)):
+        want_t = step.batch_to_tensors(batch_to_device_dict(b2), dev)
+        if c1 != c2 or set(t1) != set(want_t) or not all(
+                torch.equal(t1[k], want_t[k]) for k in want_t):
+            raise AssertionError(f"prefetched batch {c1} differs")
+        n_eq += 1
+    log(f"phase 11: prefetch: {n_eq} batches bit-equal to the loader's own "
+        f"moved without it")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"audio_train": train_launches,
+            "audio_decode": {k: dec_launches.get(k, 0) + p4_launches.get(k, 0)
+                             for k in dec_launches}}
+
+
 def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
@@ -1298,15 +1732,16 @@ def main() -> int:
     t_start = time.time()
     phase_build()
     records = [phase_birnn(REPS), *phase_beam(REPS)]
-    decode_launches, _ = phase_end_to_end(seed=0)
+    decode_launches, phase4 = phase_end_to_end(seed=0)
     records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
-    train_launches, _ = phase_train(seed=0)
+    train_launches, phase7 = phase_train(seed=0)
     records.append(phase_beam_gru(REPS, "phase 8", k=128))
     phase_wide_ngram(REPS)
     records.append(phase_beam_gru(REPS, "phase 9", k=200))
     gru_launches, _ = phase_gru_decode(seed=0)
     paths = {"decode": decode_launches, "train": train_launches,
-             "gru": gru_launches}
+             "gru": gru_launches,
+             **phase_audio(seed=0, phase7=phase7, phase4=phase4)}
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))

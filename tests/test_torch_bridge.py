@@ -160,18 +160,23 @@ class TestImportHygiene:
                              text=True, cwd=REPO, env=env, timeout=120)
         assert out.returncode == 0, out.stderr
         modules = out.stdout.split()
-        assert len(modules) >= 16
-        assert "tpu_ctc_torch.decode.neural_lm" in modules
+        assert len(modules) >= 20
+        for name in ("decode.neural_lm", "frontend.features", "data.audio_io",
+                     "data.manifest", "data.prefetch"):
+            assert "tpu_ctc_torch." + name in modules
 
     def test_sources_never_name_jax(self):
-        root = os.path.join(REPO, "tpu_ctc_torch")
-        for dirpath, _, files in os.walk(root):
-            for f in files:
-                if f.endswith(".py"):
-                    text = open(os.path.join(dirpath, f)).read()
-                    assert "import jax" not in text, f
-                    assert "from tpu_ctc." not in text, f
-                    assert "from tpu_ctc import" not in text, f
+        paths = [os.path.join(REPO, "chip_smoke.py")]
+        for sub in ("tpu_ctc_torch", "torch_tools"):
+            for dirpath, _, files in os.walk(os.path.join(REPO, sub)):
+                paths += [os.path.join(dirpath, f) for f in files
+                          if f.endswith(".py")]
+        for path in paths:
+            text = open(path).read()
+            assert "import jax" not in text, path
+            assert "from tpu_ctc." not in text, path
+            assert "from tpu_ctc import" not in text, path
+            assert "import tpu_ctc." not in text, path
 
     def test_default_device_is_cuda(self):
         if torch.cuda.is_available():

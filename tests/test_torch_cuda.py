@@ -20,7 +20,9 @@ bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels
 B3 and B4 do the plain sweeps' float steps in the same order with
 expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
 (f32 output) equals the f32 product of the same values up to the order of
-its f32 sums.
+its f32 sums.  The audio path: the frontend on the card within PERF.md
+section 2's limits of the CPU's, prefetched batches bit-equal, and
+``model.remat`` bit-equal (in deterministic mode) with B1 launched twice.
 """
 import ctypes
 import dataclasses
@@ -649,3 +651,105 @@ def test_beam_kernel_with_gru_extension_extremes(dev, k, extend):
         assert share > 0.4
     else:
         assert share == 0.0 and not got[1].any()
+
+
+def _waveforms(seed, b=4, n=48000):
+    """White noise and noisy tones, lengths n down to n/4."""
+    r = np.random.RandomState(seed)
+    t = np.arange(n) / 16000.0
+    x = 0.1 * r.randn(b, n) + 0.5 * np.sin(
+        2 * np.pi * (300 + 500 * np.arange(b))[:, None] * t)
+    lens = np.linspace(n, n // 4, b).astype(np.int64)
+    return torch.from_numpy(x.astype(np.float32)), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("context,stride", [(1, 1), (2, 2)])
+def test_frontend_on_the_card_matches_the_cpu(dev, context, stride):
+    """The frontend's products run in f32 with TF32 off on the card: the
+    power within 1e-5 of each frame's peak, the features within 1e-3
+    (PERF.md section 2; no band of these waveforms is quiet)."""
+    from tpu_ctc_torch.frontend import features as F
+    cfg = dataclasses.replace(get_config("2").frontend, context=context,
+                              frame_stride=stride)
+    x, lens = _waveforms(0)
+    p_cpu = F.stft_power(x, cfg)
+    p_gpu = F.stft_power(x.to(dev), cfg).cpu()
+    peak = p_cpu.amax(dim=-1, keepdim=True)
+    assert bool(((p_gpu - p_cpu).abs() <= 1e-5 * peak).all())
+    f_cpu, m_cpu = F.extract_features(x, cfg, lens)
+    f_gpu, m_gpu = F.extract_features(x.to(dev), cfg, lens.to(dev))
+    assert f_gpu.is_cuda and torch.equal(m_gpu.cpu(), m_cpu)
+    assert float((f_gpu.cpu() - f_cpu).abs().max()) <= 1e-3
+
+
+def test_prefetch_on_a_side_stream(dev):
+    """Batches prefetched on a side stream equal the loader's own batches
+    moved on the current stream, bit for bit, after a step reads them."""
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.prefetch import prefetch_to_device
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    cfg = get_config("2", **{"data.batch_size": 8,
+                             "data.bucket_boundaries": (100, 200)})
+    data = SyntheticCorpus(40, feature_dim=120, min_chars=2, max_chars=20,
+                           seed=3).all_utterances()
+    loader = BucketedLoader(data, cfg.data)
+    got = []
+    for cursor, batch, tensors in prefetch_to_device(loader.epoch(0), dev):
+        assert all(t.is_cuda for t in tensors.values())
+        got.append((cursor, {k: (t * 1).cpu() for k, t in tensors.items()}))
+    want = list(loader.epoch(0))
+    assert [c for c, _ in got] == [c for c, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        ref = step.batch_to_tensors(batch_to_device_dict(w), dev)
+        for k in ref:
+            assert torch.equal(g[k], ref[k].cpu()), k
+
+
+@pytest.mark.parametrize("io", ["float32", "bfloat16"])
+def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
+    """``model.remat``: loss and gradients bit-equal to the run without it
+    (in deterministic mode), B1 launched twice as often.  Remat keeps each layer's f32 projection in
+    place of its two sweeps' states (the kernels take one dtype for the
+    states and the products): with f32 states (8 bytes an element against
+    4) the peak is lower; with bf16 states (4 against 4) it is not
+    asserted."""
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    cfg = get_config("2", **{"model.hidden_dim": 512,
+                             "model.compute_dtype": io,
+                             "data.bucket_boundaries": (400,)})
+    data = SyntheticCorpus(32, feature_dim=120, min_chars=20, max_chars=45,
+                           seed=5).all_utterances()
+    batch = next(BucketedLoader(data, cfg.data).epoch(0))[1]
+    bt = step.batch_to_tensors(batch_to_device_dict(batch), dev)
+    state = step.create_train_state(cfg, device=dev)
+
+    def run(remat):
+        c = cfg.override(**{"model.remat": remat})
+        params = dict(state.model.named_parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = birnn_cuda.KERNEL.launches
+        loss, _ = step.loss_fn(state.model, c, bt)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return (loss, grads, birnn_cuda.KERNEL.launches - before,
+                torch.cuda.max_memory_allocated())
+    run(False)                                     # warm-up
+    # deterministic mode: the CTC glue's gather otherwise accumulates its
+    # gradient with atomics, and two runs of one step differ in the last bits
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss0, g0, n0, peak0 = run(False)
+        loss1, g1, n1, peak1 = run(True)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert (n0, n1) == (6, 12)
+    if io == "float32":
+        assert peak1 < peak0

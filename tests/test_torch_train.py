@@ -367,6 +367,30 @@ class TestCli:
         assert out.returncode != 0 and "CUDA" in out.stderr
 
     def test_train_data_flags_raise(self, tmp_path):
-        out = _cli("train", "--config", "2", "--data", "x", "--device", "cpu",
-                   "--work-dir", str(tmp_path))
-        assert out.returncode != 0 and "frontend" in out.stderr
+        """``--data`` trains on a manifest of audio files and writes a
+        checkpoint."""
+        from tpu_ctc_torch.data import audio_io
+        from tpu_ctc_torch.data.manifest import write_manifest
+        from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
+        corpus = str(tmp_path / "corpus")
+        os.makedirs(corpus)
+        audio, sl, labels, ll = synthetic_audio_batch(
+            8, 16000, min_chars=2, max_chars=4, samples_per_char=2400)
+        recs = []
+        for i in range(8):
+            audio_io.write_wav(os.path.join(corpus, f"{i}.wav"),
+                               audio[i, :sl[i]], 16000)
+            recs.append({"id": f"u{i}", "audio": f"{i}.wav",
+                         "text": "abcd"[:int(ll[i])]})
+        write_manifest(corpus, "train", recs)
+        work = str(tmp_path / "run")
+        out = _cli("train", "--config", "2", "--set", "model.hidden_dim=16",
+                   "--set", "model.num_bi_layers=1",
+                   "--set", "data.batch_size=4",
+                   "--set", "data.bucket_boundaries=(100,)",
+                   "--set", "train.num_epochs=1", "--set", "train.log_every=1",
+                   "--data", corpus, "--device", "cpu", "--work-dir", work)
+        assert out.returncode == 0, out.stderr
+        assert "'step': 2" in out.stdout
+        assert os.listdir(os.path.join(work, "checkpoints")) == [
+            "step_00000002.pt"]

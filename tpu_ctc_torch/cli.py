@@ -1,24 +1,33 @@
-"""Command line of the PyTorch/CUDA port: train, decode, score and
-print-config.
+"""Command line of the PyTorch/CUDA port: train, decode, score,
+export-weights and print-config.
 
-Counterpart of ``tpu_ctc.cli`` with the same flags, except:
+Counterpart of ``tpu_ctc.cli`` with the same flags, plus:
 
-  * ``--weights PATH.npz`` loads the file that ``python -m tpu_ctc.cli
-    export-weights`` writes (the JAX package's orbax ``--checkpoint`` is not
-    read here); without it the model is random-initialised from ``--seed``;
+  * ``decode --weights PATH.npz`` loads the file that ``export-weights``
+    (this CLI's or the JAX package's) writes; ``decode --checkpoint DIR``
+    reads this CLI's own ``train`` checkpoints (``.pt``; the JAX package's
+    orbax checkpoints are not read here); with neither the model is
+    random-initialised from ``--seed``;
   * ``--device`` picks the torch device (default ``cuda``: without a card
     the command fails rather than run on the CPU);
-  * ``train --seed`` overrides the config's seed of the initial weights;
-  * ``--synthetic-audio`` and ``--data`` need the feature frontend, which
-    is not ported yet (ROADMAP.md queue A, frontend and data items).
+  * ``train --seed`` overrides the config's seed of the initial weights.
+
+``--data DIR`` reads a manifest directory (``data/manifest.py``, lazily:
+each batch's audio goes through the frontend on the CPU when the loader
+reaches it); ``--synthetic-audio N`` synthesizes N tone waveforms and runs
+them through the frontend on the CPU in batches of 32.
 
 Usage:
-  python -m tpu_ctc_torch.cli train --config 2 --synthetic 64 --work-dir runs/x
-  python -m tpu_ctc_torch.cli decode --config 4 --synthetic 64 --beam
+  python -m tpu_ctc_torch.cli train --config 2 --data corpus --work-dir runs/x
+  python -m tpu_ctc_torch.cli decode --config 2 --checkpoint runs/x/checkpoints \
+      --data corpus --split valid --beam --hyp-out runs/x/hyp
+  python -m tpu_ctc_torch.cli score --ref runs/x/hyp/ref.trn \
+      --hyp runs/x/hyp/hyp.trn
+  python -m tpu_ctc_torch.cli export-weights --config 2 \
+      --checkpoint runs/x/checkpoints --out w.npz
   python -m tpu_ctc_torch.cli decode --config 4 --synthetic 64 --beam \
       --set decode.neural_lm=True            # + the GRU char LM
   python -m tpu_ctc_torch.cli decode --config 4 --weights w.npz --synthetic 64
-  python -m tpu_ctc_torch.cli score --ref ref.trn --hyp hyp.trn
   python -m tpu_ctc_torch.cli print-config --config 4
 """
 from __future__ import annotations
@@ -27,8 +36,7 @@ import argparse
 import ast
 import sys
 
-_FRONTEND_ITEM = ("needs the feature frontend, not ported yet (ROADMAP.md "
-                  "queue A: the frontend and data items)")
+import numpy as np
 
 
 def _parse_overrides(pairs):
@@ -47,22 +55,74 @@ def _load_config(args):
     return get_config(args.config, **_parse_overrides(args.set))
 
 
-def _dataset(cfg, args):
-    """(utterances, alphabet) of the command's data flags."""
+def _synthetic_audio_data(cfg, n, seconds=4.0):
+    """Tone-per-character waveforms through the frontend on the CPU, in
+    batches of 32 (the reference's ``_synthetic_audio_data``)."""
+    import torch
+
+    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
+    from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
+    from tpu_ctc_torch.frontend.features import extract_features
+
+    fe = cfg.frontend
+    data = []
+    bs = 32
+    for start in range(0, n, bs):
+        b = min(bs, n - start)
+        audio, sl, labels, ll = synthetic_audio_batch(
+            b, int(seconds * fe.sample_rate), sample_rate=fe.sample_rate,
+            seed=start)
+        feats, mask = extract_features(torch.from_numpy(audio), fe,
+                                       sample_lengths=torch.from_numpy(sl))
+        feats = feats.numpy()
+        nf = mask.numpy().sum(axis=1).astype(np.int32)
+        for i in range(b):
+            data.append((feats[i, :nf[i]], labels[i, :ll[i]]))
+    return data, DEFAULT_ALPHABET
+
+
+def _dataset(cfg, args, split="train"):
+    """(utterances, alphabet) of the command's data flags; ``--data`` gives
+    a lazy ``ManifestDataset`` of ``split``."""
     if getattr(args, "synthetic_audio", 0):
-        raise NotImplementedError(f"--synthetic-audio {_FRONTEND_ITEM}")
-    if not args.synthetic:
-        raise NotImplementedError(f"--data {_FRONTEND_ITEM}; use "
-                                  f"--synthetic N")
-    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
-    corpus = SyntheticCorpus(num_utterances=args.synthetic,
-                             feature_dim=cfg.model.input_dim,
-                             frames_per_char=8)
-    return corpus.all_utterances(), corpus.alphabet
+        return _synthetic_audio_data(cfg, args.synthetic_audio)
+    if args.synthetic:
+        from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+        corpus = SyntheticCorpus(num_utterances=args.synthetic,
+                                 feature_dim=cfg.model.input_dim,
+                                 frames_per_char=8)
+        return corpus.all_utterances(), corpus.alphabet
+    if not args.data:
+        raise SystemExit("one of --data, --synthetic or --synthetic-audio "
+                         "is needed")
+    from tpu_ctc_torch.data.manifest import ManifestDataset
+    data = ManifestDataset(args.data, cfg, split=split)
+    return data, data.alphabet
+
+
+def _utt_ids(data):
+    """Utterance id per dataset index (the manifest's ids when there are)."""
+    records = getattr(data, "records", None)
+    if records is not None:
+        return [r["id"] for r in records]
+    return [f"utt{i:05d}" for i in range(len(data))]
+
+
+def _restore_model(cfg, directory, dev):
+    """The model of the newest checkpoint in ``directory`` (on ``dev``) and
+    its step, or None when there is none."""
+    from tpu_ctc_torch.train import checkpoint
+    from tpu_ctc_torch.train.step import create_train_state
+    restored = checkpoint.restore(directory,
+                                  create_train_state(cfg, device=dev))
+    if restored is None:
+        print(f"no checkpoint found in {directory}", file=sys.stderr)
+        return None
+    return restored[0].model, restored[0].step
 
 
 def cmd_train(args):
-    """Train on ``--synthetic N`` utterances, the first tenth held out for
+    """Train on the data flags' utterances, the first tenth held out for
     eval; metrics and checkpoints go to ``--work-dir``."""
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.train.loop import train
@@ -71,11 +131,11 @@ def cmd_train(args):
     if args.seed is not None:
         cfg = cfg.override(seed=args.seed)
     dev = resolve_device(args.device)
-    data, _ = _dataset(cfg, args)
+    data, alphabet = _dataset(cfg, args)
     n_eval = max(len(data) // 10, 1)
     _, metrics = train(cfg, data[n_eval:], eval_data=data[:n_eval],
                        work_dir=args.work_dir, resume=args.resume,
-                       device=dev)
+                       device=dev, alphabet=alphabet)
     print("final metrics:", metrics)
     return 0
 
@@ -97,8 +157,13 @@ def cmd_decode(args):
 
     cfg = _load_config(args)
     dev = resolve_device(args.device)
-    data, alphabet = _dataset(cfg, args)
-    if args.weights:
+    data, alphabet = _dataset(cfg, args, split=args.split)
+    if args.checkpoint:
+        restored = _restore_model(cfg, args.checkpoint, dev)
+        if restored is None:
+            return 1
+        model = restored[0]
+    elif args.weights:
         model = checkpoint.load_npz(birnn.BiRNN(cfg.model, device="cpu"),
                                     args.weights).to(dev)
     else:
@@ -120,11 +185,14 @@ def cmd_decode(args):
         if d.lm_order > MAX_ORDER:
             raise ValueError(f"device decoder supports LM order<={MAX_ORDER}, "
                              f"got {d.lm_order}")
-        # both LMs train on the transcripts of the data being decoded (the
-        # synthetic corpus is the train split)
-        lm = (train_char_lm_from_data(data, cfg) if cfg.decode.lm_order
+        # Both LMs train on the train split's transcripts, never on the
+        # split being decoded (the synthetic corpora are the train split).
+        lm_data = data
+        if args.split != "train" and hasattr(data, "records"):
+            lm_data = _dataset(cfg, args)[0]
+        lm = (train_char_lm_from_data(lm_data, cfg) if cfg.decode.lm_order
               else None)
-        nlm = train_nlm_from_data(data, cfg, device=dev)
+        nlm = train_nlm_from_data(lm_data, cfg, device=dev)
         decode_fn = make_beam_decoder(cfg, lm=lm, nlm_params=nlm, device=dev)
     else:
         def decode_fn(model, bd):
@@ -135,13 +203,14 @@ def cmd_decode(args):
             return greedy_decode(lp, mask)
 
     loader = BucketedLoader(data, cfg.data)
+    ids = _utt_ids(data)
     ref_texts, hyp_texts = {}, {}
     for _, batch in loader.epoch(0):
         hyp, hyp_len = decode_fn(model, batch_to_device_dict(batch))
         hyp, hyp_len = hyp.cpu().numpy(), hyp_len.cpu().numpy()
         for b in range(len(hyp)):
             if batch.weights[b] > 0:
-                utt = f"utt{int(batch.utt_indices[b]):05d}"
+                utt = ids[int(batch.utt_indices[b])]
                 ref_texts[utt] = alphabet.decode(
                     batch.labels[b][:batch.label_lengths[b]])
                 hyp_texts[utt] = alphabet.decode(hyp[b][:hyp_len[b]])
@@ -177,6 +246,22 @@ def cmd_score(args):
     return 0
 
 
+def cmd_export_weights(args):
+    """Write a checkpoint's parameters as a flat npz with the JAX export's
+    '/'-joined keys (what ``decode --weights`` and the JAX package's
+    ``checkpoint`` npz bridge read)."""
+    from tpu_ctc_torch import resolve_device
+    from tpu_ctc_torch.train import checkpoint
+    cfg = _load_config(args)
+    restored = _restore_model(cfg, args.checkpoint,
+                              resolve_device(args.device))
+    if restored is None:
+        return 1
+    n = checkpoint.export_npz(restored[0], args.out)
+    print(f"wrote {n} arrays to {args.out} (step {restored[1]})")
+    return 0
+
+
 def cmd_print_config(args):
     print(_load_config(args).to_json(indent=2))
     return 0
@@ -194,9 +279,9 @@ def main(argv=None):
     common.add_argument("--synthetic", type=int, default=0,
                         help="use N synthetic utterances instead of --data")
     common.add_argument("--synthetic-audio", type=int, default=0,
-                        help="N synthetic tone-waveform utterances through "
-                             "the frontend (not ported yet)")
-    common.add_argument("--data", help="manifest directory (not ported yet)")
+                        help="use N synthetic tone-waveform utterances "
+                             "through the frontend")
+    common.add_argument("--data", help="manifest directory")
 
     t = sub.add_parser("train", parents=[common])
     t.add_argument("--work-dir", default=".")
@@ -209,10 +294,12 @@ def main(argv=None):
     t.set_defaults(fn=cmd_train)
 
     d = sub.add_parser("decode", parents=[common])
+    d.add_argument("--checkpoint",
+                   help="checkpoint directory of `train` (the newest .pt)")
     d.add_argument("--weights",
-                   help="npz written by `python -m tpu_ctc.cli "
-                        "export-weights`; random weights from --seed "
-                        "without it")
+                   help="npz written by `export-weights` (this CLI's or "
+                        "`python -m tpu_ctc.cli`'s); random weights from "
+                        "--seed without it or --checkpoint")
     d.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when no --weights")
     d.add_argument("--device", default="cuda",
@@ -222,7 +309,7 @@ def main(argv=None):
     d.add_argument("--hyp-out", default=None,
                    help="directory to write ref.trn/hyp.trn for scoring")
     d.add_argument("--split", default="train",
-                   help="manifest split to decode (with --data)")
+                   help="manifest split to decode (e.g. valid)")
     d.set_defaults(fn=cmd_decode)
 
     sc = sub.add_parser("score")
@@ -232,6 +319,13 @@ def main(argv=None):
     sc.add_argument("--ci", action="store_true",
                     help="bootstrap 95%% CI (utterance resampling)")
     sc.set_defaults(fn=cmd_score)
+
+    ew = sub.add_parser("export-weights", parents=[common])
+    ew.add_argument("--checkpoint", required=True)
+    ew.add_argument("--out", required=True, help=".npz output path")
+    ew.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    ew.set_defaults(fn=cmd_export_weights)
 
     pc = sub.add_parser("print-config", parents=[common])
     pc.set_defaults(fn=cmd_print_config)

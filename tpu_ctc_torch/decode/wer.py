@@ -1,15 +1,16 @@
-"""Edit distance, CER and WER scoring (host side).
+"""Edit distance, CER and WER scoring.
 
-A copy of the host functions of ``tpu_ctc.decode.wer``: a numpy
+A copy of the host functions of ``tpu_ctc.decode.wer`` (a numpy
 Levenshtein with a sub/ins/del backtrace, corpus scoring, bootstrap CIs
-and sclite-style trn files.  The batched on-device edit distance of the
-JAX package is not ported yet.
+and sclite-style trn files), and its batched edit distance as tensor code
+on the batch's device (:func:`batched_edit_distance`, :func:`batched_cer`).
 """
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
     """Levenshtein distance (host-side, anti-diagonal-free simple DP)."""
@@ -205,3 +206,40 @@ def format_score_line(totals: dict, unit: str = "word") -> str:
             f"[sub {totals['sub']} ins {totals['ins']} del {totals['del']} "
             f"/ {totals['ref_tokens']} {unit}s, {totals['utts']} utts, "
             f"{totals['missing_hyps']} missing hyps]")
+
+
+def batched_edit_distance(refs: torch.Tensor, ref_lens: torch.Tensor,
+                          hyps: torch.Tensor,
+                          hyp_lens: torch.Tensor) -> torch.Tensor:
+    """Batched Levenshtein over padded id sequences, on their device.
+
+    refs [B, N], hyps [B, M]: padded; lengths give valid extents.  Returns
+    int32 distances [B].  The DP runs row by row over the ref axis; within a
+    row cur[j] = min(indep[j], cur[j-1] + 1) is the (min,+) prefix scan
+    cur = cummin(indep - j) + j.  Rows past an utterance's ref length keep
+    the previous row."""
+    b, n = refs.shape
+    m = hyps.shape[1]
+    dev = refs.device
+    j = torch.arange(m + 1, device=dev, dtype=torch.int64)
+    prev = j.expand(b, m + 1).clone()
+    ref_lens = torch.as_tensor(ref_lens, device=dev)
+    for i in range(n):
+        sub = (hyps != refs[:, i:i + 1]).to(torch.int64)        # [B, M]
+        indep = torch.minimum(prev[:, 1:] + 1,                  # deletion
+                              prev[:, :-1] + sub)               # substitution
+        indep = torch.cat([torch.full((b, 1), i + 1, dtype=torch.int64,
+                                      device=dev), indep], dim=1)
+        cur = torch.cummin(indep - j, dim=1).values + j
+        prev = torch.where((i < ref_lens)[:, None], cur, prev)
+    idx = torch.as_tensor(hyp_lens, device=dev).to(torch.int64)[:, None]
+    return torch.gather(prev, 1, idx)[:, 0].to(torch.int32)
+
+
+def batched_cer(refs, ref_lens, hyps, hyp_lens) -> torch.Tensor:
+    """Corpus CER of a batch of padded id sequences (on their device): the
+    summed edit distances over the summed ref lengths."""
+    d = batched_edit_distance(refs, ref_lens, hyps, hyp_lens)
+    ref_lens = torch.as_tensor(ref_lens, device=d.device)
+    return d.sum().to(torch.float32) / torch.clamp_min(
+        ref_lens.sum(), 1).to(torch.float32)

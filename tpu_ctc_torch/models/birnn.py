@@ -17,14 +17,21 @@ differentiate through ``ops.birnn_cuda.DotF32`` (the cotangent is rounded
 to ``compute_dtype`` where JAX rounds it, at the transpose of each
 ``astype(compute_dtype)``) and the recurrence through
 ``ops.birnn_cuda.BiRecurrence`` (kernel B2 on a card).  Inference callers
-run under ``torch.no_grad()``.  ``cfg.remat`` is not ported yet: it is
-ignored (the recurrence keeps its io-dtype states for the backward).
+run under ``torch.no_grad()``.  With ``cfg.remat`` each layer's
+bidirectional recurrence (not its dense projection, as in the reference)
+runs under ``torch.utils.checkpoint``: the backward keeps the layer's
+projection z instead of the recurrence's states and runs the forward
+sweeps (kernel B1 on a card) again to get them, so B1 launches twice per
+layer and step.  B1 is deterministic, so the loss and the gradients are
+bit-equal with and without it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from tpu_ctc_torch import resolve_device
@@ -137,10 +144,14 @@ def bi_recur_tm(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
     lengths = mask.to(torch.float32).sum(dim=1).to(torch.int32)
     cdt = torch_dtype(cfg.compute_dtype)
     io = torch_dtype(cfg.birnn_io_dtype) if cfg.birnn_io_dtype else cdt
-    return birnn_cuda.bi_recurrence(
-        z, wf, wb, lengths, clip=cfg.relu_clip, compute_dtype=cdt,
+    rec = functools.partial(
+        birnn_cuda.bi_recurrence, clip=cfg.relu_clip, compute_dtype=cdt,
         io_dtype=io, bidirectional=cfg.bidirectional,
         plain=resolve_birnn_impl(cfg) == "scan")
+    if cfg.remat:
+        return torch.utils.checkpoint.checkpoint(rec, z, wf, wb, lengths,
+                                                 use_reentrant=False)
+    return rec(z, wf, wb, lengths)
 
 
 def forward(model: BiRNN, cfg: ModelConfig, feats: torch.Tensor,

@@ -4,10 +4,13 @@ Counterpart of ``tpu_ctc.train.loop`` on one card: a plain loop over
 ``BucketedLoader.epoch`` calling ``train.step.train_step``, JSONL metrics
 (:class:`MetricsLogger`), checkpoints of the full state with the data
 cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
-(:class:`PreemptionGuard`), and greedy-CER/NLL evaluation.  The step's
+(:class:`PreemptionGuard`), and greedy-CER/NLL evaluation, with the beam
+search's corpus WER/CER too when ``train.eval_beam`` is set (the decoder's
+n-gram LM trains on the train split's transcripts).  Batches reach the card
+through ``data.prefetch.prefetch_to_device``: a thread runs the loader (and
+the lazy manifest's frontend) and copies ahead of the step.  The step's
 metrics stay on the card; they are read (one synchronisation) every
-``log_every`` steps.  Beam-search eval (``train.eval_beam``) and host
-prefetch are not ported yet.
+``log_every`` steps.
 """
 from __future__ import annotations
 
@@ -22,8 +25,12 @@ import numpy as np
 
 from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import Config
+from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
 from tpu_ctc_torch.data.bucketing import Batch, BucketedLoader
-from tpu_ctc_torch.decode.wer import cer
+from tpu_ctc_torch.data.prefetch import prefetch_to_device
+from tpu_ctc_torch.decode.beam import make_beam_decoder
+from tpu_ctc_torch.decode.lm import train_char_lm_from_data
+from tpu_ctc_torch.decode.wer import cer, score_corpus
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
                                       create_train_state, eval_step,
@@ -84,32 +91,51 @@ def batch_to_device_dict(batch: Batch) -> Dict[str, np.ndarray]:
     }
 
 
-def evaluate(model, cfg: Config, loader: BucketedLoader,
-             device) -> Dict[str, float]:
+def evaluate(model, cfg: Config, loader: BucketedLoader, device,
+             alphabet=None, beam_decode_fn=None) -> Dict[str, float]:
     """Greedy-decode CER (host edit distance) and mean NLL over an eval
-    set."""
+    set.  With ``beam_decode_fn`` (``train.eval_beam``, a
+    ``decode.beam.make_beam_decoder`` function) it also beam-decodes each
+    batch and reports the corpus WER/CER of the decoded text."""
+    alphabet = alphabet or DEFAULT_ALPHABET
     refs, hyps, nlls = [], [], []
-    for _, batch in loader.epoch(0):
-        out = eval_step(model, cfg, batch_to_tensors(
-            batch_to_device_dict(batch), device))
+    ref_texts, beam_texts = {}, {}
+    for i, (_, batch) in enumerate(loader.epoch(0)):
+        bd = batch_to_device_dict(batch)
+        out = eval_step(model, cfg, batch_to_tensors(bd, device))
         hyp = out["hyp"].cpu().numpy()
         hyp_len = out["hyp_len"].cpu().numpy()
         nll = out["nll"].cpu().numpy()
+        if beam_decode_fn is not None:
+            b_hyp, b_len = (t.cpu().numpy()
+                            for t in beam_decode_fn(model, bd))
         for b in range(len(hyp)):
             if batch.weights[b] > 0:
-                refs.append(list(batch.labels[b][: batch.label_lengths[b]]))
+                ref_ids = batch.labels[b][: batch.label_lengths[b]]
+                refs.append(list(ref_ids))
                 hyps.append(list(hyp[b][: hyp_len[b]]))
                 nlls.append(float(nll[b]))
-    return {"cer": cer(refs, hyps),
-            "nll": float(np.mean(nlls)) if nlls else 0.0,
-            "num_utts": len(refs)}
+                if beam_decode_fn is not None:
+                    utt = f"e{i}b{b}"
+                    ref_texts[utt] = alphabet.decode(ref_ids)
+                    beam_texts[utt] = alphabet.decode(b_hyp[b][: b_len[b]])
+    result = {"cer": cer(refs, hyps),
+              "nll": float(np.mean(nlls)) if nlls else 0.0,
+              "num_utts": len(refs)}
+    if ref_texts:
+        result.update(
+            beam_wer=score_corpus(ref_texts, beam_texts, "word")[0][
+                "error_rate"],
+            beam_cer=score_corpus(ref_texts, beam_texts, "char")[0][
+                "error_rate"])
+    return result
 
 
 def train(cfg: Config,
           train_data: Sequence[Tuple[np.ndarray, np.ndarray]],
           eval_data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None,
           work_dir: Optional[str] = None, resume: bool = False,
-          device=None) -> Tuple[TrainState, Dict[str, float]]:
+          device=None, alphabet=None) -> Tuple[TrainState, Dict[str, float]]:
     """Run the training job on ``device`` (default ``cuda``); returns
     (final state, last logged metrics)."""
     device = resolve_device(device)
@@ -136,13 +162,19 @@ def train(cfg: Config,
             print(f"[ckpt] resumed at epoch {start_epoch} batch {start_batch} "
                   f"step {state.step}")
 
+    beam_decode_fn = None
+    if cfg.train.eval_beam and eval_loader is not None:
+        lm = train_char_lm_from_data(train_data, cfg)
+        beam_decode_fn = make_beam_decoder(cfg, lm=lm, device=device)
+
     last_metrics: Dict[str, float] = {}
     t_start = time.time()
     guard = PreemptionGuard()
     t_win, audio_win, steps_win = time.time(), 0.0, 0
     for epoch in range(start_epoch, cfg.train.num_epochs):
         sb = start_batch if epoch == start_epoch else 0
-        for cursor, batch in loader.epoch(epoch, sb):
+        for cursor, batch, dev_batch in prefetch_to_device(
+                loader.epoch(epoch, sb), device):
             if guard.requested:
                 checkpoint.save(ckpt_dir, state, epoch, cursor, keep)
                 logger.log(kind="preempted", epoch=epoch, cursor=cursor,
@@ -152,8 +184,7 @@ def train(cfg: Config,
                 print(f"[preempt] checkpointed at step {state.step} "
                       f"(epoch {epoch}, batch {cursor}); exiting")
                 return state, last_metrics
-            state, m = train_step(state, batch_to_tensors(
-                batch_to_device_dict(batch), device), cfg)
+            state, m = train_step(state, dev_batch, cfg)
             audio_win += batch.audio_seconds()
             steps_win += 1
             if state.step % cfg.train.log_every == 0:
@@ -174,7 +205,9 @@ def train(cfg: Config,
             if (eval_loader is not None and cfg.train.eval_every
                     and state.step % cfg.train.eval_every == 0):
                 t0 = time.time()
-                ev = evaluate(state.model, cfg, eval_loader, device)
+                ev = evaluate(state.model, cfg, eval_loader, device,
+                              alphabet=alphabet,
+                              beam_decode_fn=beam_decode_fn)
                 logger.log(kind="eval", step=state.step, **ev)
                 t_win += time.time() - t0     # exclude the eval
         logger.log(kind="epoch_end", epoch=epoch, wall_s=time.time() - t_start)

@@ -21,8 +21,10 @@ import dataclasses
 import math
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
+from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import OptimConfig
 
 
@@ -38,6 +40,19 @@ def init_opt_state(params: Dict[str, torch.Tensor]) -> OptState:
     """A zero trace shaped like ``params`` and a count of 0."""
     return OptState({k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in params.items()})
+
+
+def opt_state_from_jax(trace: Dict[str, np.ndarray], count: int,
+                       device=None) -> OptState:
+    """The optimizer state of a JAX optax ``make_optimizer`` state: its
+    Nesterov trace as numpy arrays keyed by parameter path ('/'- or
+    '.'-joined, ``pre/0/w``) and the ``inject_hyperparams`` step count.
+    The trace is f32 on ``device`` (default ``cuda``), beside
+    ``checkpoint.params_from_jax``'s parameters."""
+    dev = resolve_device(device)
+    return OptState({key.replace("/", "."): torch.tensor(
+        np.asarray(val), dtype=torch.float32, device=dev)
+        for key, val in trace.items()}, int(count))
 
 
 def momentum_at(cfg: OptimConfig, count: int) -> float:
