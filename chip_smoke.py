@@ -68,8 +68,24 @@ against its plain PyTorch version on the same inputs:
      profiled with the frontend in the wall, beside phase 4's; prefetched
      batches bit-equal to the loader's own.
 
-Each main path (phases 4, 7, both widths of 10, and phase 11's training and
-its decodes) is run with every launch count set to 0 just before it and
+ 12. B1 from a nonzero carry and the distributed step: B1 from h0 at
+     preset 3's width (H = 1824, B = 64, bf16) over T = 1600 as 4 chunks
+     of 400 and at preset 2's (H = 1024, B = 32) over T = 800 as 2
+     chunks, both directions, each chunk against the plain loop from the
+     same h0 and the chain bit-equal to one sweep, a chunk from h0 timed
+     beside the same chunk from zero; ``CarryRecurrence``'s backward (B2,
+     the GEMMs) against its plain autograd at preset 2's width; preset 3
+     (``swbd_5layer_dp``) at B = 64 for 3 steps through ``make_mesh`` and
+     ``make_train_step`` with a one-rank NCCL group, bit-equal to
+     ``train_step``; then the same steps with ``mesh.seq=2`` over several
+     ranks (``nvidia-smi -L``: 2 NCCL ranks on 2 or 3 cards, 4 with
+     data = 2 on 4 or more; two gloo ranks on one card), the loss within
+     1e-3 of one card's, the parameters bit-equal across ranks, with the
+     step time and audio-s/s.
+
+Each main path (phases 4, 7, both widths of 10, phase 11's training and
+its decodes, and phase 12's two mesh runs, the ranks' launches summed) is
+run with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is the sum over the
 paths that run it.  The profile of each
 path prints its dense GEMMs' device ms.  B5 has two records,
@@ -85,9 +101,10 @@ beam boundary (bisected over the utterance's length).  Every check raises on fai
 the script exits non-zero and prints no result line.  Every time, of a
 kernel and of its plain version alike, is the median of CUDA-event times of
 single calls after a warm-up call.  The last two lines are the per-kernel
-JSON record and ``{"ok": true, "device": {...}}``.
+JSON record (B1's with ``h0_launches``, its launches from a carry on the
+sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all eleven phases, one card
+    python3 chip_smoke.py                 # all twelve phases, one card
 """
 from __future__ import annotations
 
@@ -1686,6 +1703,332 @@ def phase_audio(seed: int, phase7, phase4, dev="cuda"):
                              for k in dec_launches}}
 
 
+def chunk_chain(z, w, lens, reverse, n_chunks, plain_check):
+    """B1 over z [T, B, H] as ``n_chunks`` chunks, each from the last state
+    of the one before (sequence parallelism's carry), in the sweep's
+    order; each chunk held against the plain loop from the same h0 when
+    ``plain_check``.  Returns (the chained states [T, B, H], the worst
+    error against the plain loop, the states beyond tolerance, the middle
+    chunk's (z, lengths, h0))."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    n_t = z.shape[0]
+    size = n_t // n_chunks
+    starts = list(range(0, n_t, size))
+    parts, carry, err, bad, middle = {}, None, 0.0, 0, None
+    for s in (starts[::-1] if reverse else starts):
+        local = torch.clamp(lens - s, 0, size).to(torch.int32)
+        zc = z[s:s + size]
+        got = birnn_cuda.fwd_recurrence_cuda(zc, w, local, reverse=reverse,
+                                             clip=20.0, h0=carry)
+        if plain_check:
+            want = birnn_cuda.fwd_recurrence_plain(
+                zc, w, local, reverse=reverse, clip=20.0, h0=carry).float()
+            diff = (got.float() - want).abs()
+            err = max(err, float(diff.max()))
+            bad += int((diff > 2 ** -6 * want.abs() + 2e-2).sum())
+        if s == starts[n_chunks // 2]:
+            middle = (zc, local, carry)
+        parts[s] = got
+        carry = got[0] if reverse else got[-1]
+    return torch.cat([parts[s] for s in starts]), err, bad, middle
+
+
+def phase_carry(reps: int, dev="cuda"):
+    """Phase 12, parts 1 and 2: B1 from h0 at preset 3's width (H = 1824,
+    B = 64, bf16) over T = 1600 as 4 chunks of 400 and at preset 2's
+    (H = 1024, B = 32) over T = 800 as 2 chunks, both directions: each
+    chunk against the plain loop from the same h0, the chain against one
+    sweep over T (bit-equal), a chunk from h0 timed beside the same chunk
+    from zero; then ``CarryRecurrence``'s backward at preset 2's width
+    against its plain autograd."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    worst, out = 0.0, {}
+    for n_h, n_b, n_t, n_chunks in ((1824, 64, 1600, 4), (1024, 32, 800, 2)):
+        r = np.random.RandomState(n_h)
+        z = torch.from_numpy(3.0 * r.randn(n_t, n_b, n_h).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((0.5 / np.sqrt(n_h)) * r.randn(
+            2, n_h, n_h).astype(np.float32)).to(dev, torch.bfloat16)
+        lens = torch.from_numpy(r.randint(n_t // 4, n_t + 1, n_b).astype(
+            np.int32)).to(dev)
+        lens[0] = n_t
+        for d, reverse in enumerate((False, True)):
+            whole = birnn_cuda.fwd_recurrence_cuda(z, w[d], lens,
+                                                   reverse=reverse, clip=20.0)
+            chain, err, bad, middle = chunk_chain(z, w[d], lens, reverse,
+                                                  n_chunks, True)
+            torch.cuda.synchronize()
+            same = torch.equal(chain, whole)
+            worst = max(worst, err)
+            log(f"phase 12: B1 from h0, H={n_h} B={n_b} T={n_t} as "
+                f"{n_chunks} chunks {'reversed' if reverse else 'forward'}: "
+                f"max abs err against the plain loop {err:.3e}, {bad} beyond "
+                f"tolerance; the chain bit-equal to one sweep: {same}")
+            if bad or not same:
+                raise AssertionError("B1 from h0 disagrees with its plain "
+                                     "version or with one sweep")
+        zc, local, h0 = middle
+        ms_h0 = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+            zc, w[1], local, reverse=True, clip=20.0, h0=h0), reps)
+        ms_zero = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+            zc, w[1], local, reverse=True, clip=20.0), reps)
+        log(f"phase 12: B1 chunk of {zc.shape[0]} frames at H={n_h}, "
+            f"B={n_b}: {ms_h0:.3f} ms from h0, {ms_zero:.3f} ms from zero")
+        out[n_h] = (ms_h0, ms_zero)
+
+    # CarryRecurrence's backward (B2 and the GEMMs) against plain autograd.
+    # Held on the same forward states: with a forward of its own each path
+    # stores bf16 states that round the other way here and there, a few
+    # hundred units then sit on the other side of h > 0, and the masked
+    # deltas there move dz and dW by ~1e-2 of their norm (plain against
+    # plain with the f32 sums in another order does the same on the CPU:
+    # 663 flips, dz 1.3e-2).  The independent paths are printed too.
+    n_t, n_b, n_h = 400, 32, 1024
+    r = np.random.RandomState(12)
+    z = torch.from_numpy(3.0 * r.randn(n_b, n_t, n_h).astype(np.float32))
+    w = torch.from_numpy((0.5 / np.sqrt(n_h)) * r.randn(n_h, n_h).astype(
+        np.float32))
+    h0 = torch.from_numpy(np.abs(2 * r.randn(n_b, n_h)).astype(np.float32))
+    g = torch.from_numpy(r.randn(n_b, n_t, n_h).astype(np.float32)).to(dev)
+    lens = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b))
+    lens[0] = n_t            # a live first frame both ways: dh0 nonzero
+    mask = (torch.arange(n_t)[None] < lens[:, None]).float().to(dev)
+    bf = torch.bfloat16
+    for reverse in (False, True):
+        res = []
+        for plain in (False, True):
+            args = [x.to(dev).requires_grad_(True) for x in (z, w, h0)]
+            hs = birnn_cuda.carry_recurrence(
+                *args, mask, reverse=reverse, clip=20.0, compute_dtype=bf,
+                plain=plain)
+            hs.backward(g)
+            res.append([hs.detach()] + [a.grad for a in args])
+        flips = int(((res[0][0] > 0) != (res[1][0] > 0)).sum())
+        own = {name: rel_err(a, b) for name, a, b in
+               zip(("hs", "dz", "dW", "dh0"), *res)}
+        hs_io = res[0][0].transpose(0, 1).to(bf).contiguous()
+        h0_io, w_d = h0.to(dev, bf), w.to(dev)
+        g_t = g.transpose(0, 1)
+        same = [birnn_cuda.carry_sweep_grad(
+            g_t, hs_io, h0_io, w_d, reverse=reverse, clip=20.0, cdt=bf,
+            plain=plain) for plain in (False, True)]
+        held = {name: rel_err(a, b) for name, a, b in
+                zip(("dz", "dW", "dh0"), *same)}
+        log(f"phase 12: CarryRecurrence H={n_h} B={n_b} T={n_t} bf16 "
+            f"{'reversed' if reverse else 'forward'}: backward (B2, the "
+            f"GEMMs) against the plain backward on the same states, rel err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in held.items())
+            + f" (limit {GRAD_REL_TOL}); whole paths each with its own "
+            f"forward: " + ", ".join(f"{k} {v:.2e}" for k, v in own.items())
+            + f", {flips} units on the other side of h > 0")
+        if max(held.values()) > GRAD_REL_TOL or own["hs"] > GRAD_REL_TOL:
+            raise AssertionError("CarryRecurrence's gradients disagree")
+    return worst, out
+
+
+def preset3_batches(n_steps: int):
+    """The global batches of phase 12's steps: preset 3 (``swbd_5layer_dp``)
+    at B = 64 on synthetic utterances of 400-800 frames."""
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    cfg = get_config("swbd_5layer_dp")
+    corpus = SyntheticCorpus(64 * n_steps, feature_dim=cfg.model.input_dim,
+                             min_chars=50, max_chars=100, seed=12)
+    return cfg, [b for _, b in BucketedLoader(corpus.all_utterances(),
+                                              cfg.data).epoch(0)][:n_steps]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_one(steps=3, dev="cuda"):
+    """Phase 12, part 3: preset 3 at B = 64 through ``make_mesh`` and
+    ``make_train_step`` with a one-rank NCCL group, against ``train_step``
+    from the same seed on the same batches: loss and parameters bit-equal
+    (both in deterministic mode: the CTC glue's gather otherwise sums its
+    gradient with atomics)."""
+    import torch.distributed as dist
+    from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    cfg, batches = preset3_batches(steps)
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = mesh_lib.make_mesh(cfg.mesh)
+        log(f"phase 12: one-rank {dist.get_backend()} group, mesh "
+            f"{mesh.shape}; preset {cfg.name}, batches "
+            f"{[b.feats.shape for b in batches]}")
+        tensors = [step.batch_to_tensors(batch_to_device_dict(b), dev)
+                   for b in batches]
+        with deterministic_algorithms():
+            state = step.create_train_state(cfg, device=dev)
+            step_fn, state = step.make_train_step(cfg, mesh, state)
+
+            walls = []
+
+            def run():
+                nonlocal state
+                out = []
+                for bt in tensors:
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    state, m = step_fn(state, bt)
+                    out.append(float(m["loss"]))
+                    walls.append(time.time() - t0)
+                return out
+            losses, launches = run_main_path(run)
+            ref = step.create_train_state(cfg, device=dev)
+            ref_losses = []
+            for bt in tensors:
+                ref, m = step.train_step(ref, bt, cfg)
+                ref_losses.append(float(m["loss"]))
+        same = losses == ref_losses and all(
+            torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                              ref.model.parameters()))
+        step_s = float(np.median(walls[1:]))
+        audio = float(np.mean([int(b.frame_lengths.sum()) / 100
+                               for b in batches[1:]]))
+        log(f"phase 12: mesh path, {steps} steps: step {step_s * 1e3:.1f} "
+            f"ms (median of steps 2-3, deterministic mode) = "
+            f"{audio / step_s:.1f} audio-s/s; losses "
+            f"{[round(x, 4) for x in losses]}; loss and parameters bit-equal "
+            f"to train_step: {same}; launches on the path {launches}")
+        if not same:
+            raise AssertionError("the one-rank mesh step differs from "
+                                 "train_step")
+        if launches["birnn_fwd"] != 10 * steps:
+            raise AssertionError(f"launches {launches}")
+    finally:
+        dist.destroy_process_group()
+    return launches, ref_losses
+
+
+RANK_WORKER = r"""
+import hashlib, json, sys, time
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[6])
+import chip_smoke
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import step
+from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+coord, rank, world, backend, dev, _, data, seq, steps = sys.argv[1:10]
+rank, world = int(rank), int(world)
+dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
+cfg, batches = chip_smoke.preset3_batches(int(steps))
+cfg = cfg.override(**{"mesh.data": int(data), "mesh.seq": int(seq)})
+mesh = mesh_lib.make_mesh(cfg.mesh)
+state = step.create_train_state(cfg, device=dev)
+step_fn, state = step.make_train_step(cfg, mesh, state)
+tensors = [step.batch_to_tensors(step.local_batch(batch_to_device_dict(b),
+                                                  mesh), dev)
+           for b in batches]
+losses, walls = [], []
+def run():
+    global state
+    for bt in tensors:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step_fn(state, bt)
+        losses.append(float(m["loss"]))
+        walls.append(time.time() - t0)
+_, launches = chip_smoke.run_main_path(run)
+h = hashlib.sha256()
+for p in state.model.parameters():
+    h.update(p.detach().cpu().numpy().tobytes())
+print("RANK " + json.dumps({"rank": rank, "mesh": mesh.shape,
+                            "losses": losses, "walls": walls,
+                            "launches": launches,
+                            "params": h.hexdigest()}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def card_count() -> int:
+    listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                            text=True, check=True, timeout=60).stdout
+    return sum(1 for line in listed.splitlines() if line.startswith("GPU "))
+
+
+def spawn_ranks(world: int, backend: str, devs, data: int, seq: int,
+                steps: int = 3, timeout: int = 600):
+    """Preset 3's first ``steps`` global batches of
+    :func:`preset3_batches` through ``make_train_step`` on a mesh of
+    ``world`` ranks (one process each on ``devs[r]``, ``backend``, mesh
+    data x seq); returns each rank's record: losses, step walls, launches
+    on the path and a hash of its parameters."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_WORKER, coord, str(r), str(world),
+         backend, devs[r], root, str(data), str(seq), str(steps)], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [x for x in out.splitlines() if x.startswith("RANK ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} failed (exit {p.returncode}):\n"
+                                 f"{out[-3000:]}")
+        recs.append(json.loads(lines[-1][5:]))
+    return recs
+
+
+def phase_mesh_ranks(ref_losses):
+    """Phase 12, part 4: preset 3 with ``mesh.seq=2`` over several ranks
+    for 3 steps on phase 12's global batches: on 2 or more cards 2 NCCL
+    ranks, or 4 (data = 2) when there are 4; on one card 2 ranks on that
+    card over gloo (NCCL refuses two ranks on one device; gloo sums CUDA
+    tensors, and the step's collectives are all-reduces and broadcasts).
+    The loss against the one-card step's within LOSS_REL_TOL, the
+    parameters bit-equal across ranks."""
+    count = card_count()
+    if count >= 2:                      # 2 or 4 ranks: seq = 2, data = 1 or 2
+        world, backend = (4 if count >= 4 else 2), "nccl"
+        devs = [f"cuda:{r}" for r in range(world)]
+    else:
+        world, backend, devs = 2, "gloo", ["cuda:0", "cuda:0"]
+    log(f"phase 12: nvidia-smi -L lists {count} card(s): {world} {backend} "
+        f"ranks on {devs}, mesh data={world // 2} seq=2")
+    recs = spawn_ranks(world, backend, devs, world // 2, 2)
+    losses = recs[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    same = len({rec["params"] for rec in recs}) == 1
+    step_s = float(np.median(recs[0]["walls"][1:]))
+    _, batches = preset3_batches(3)
+    audio = float(np.mean([int(b.frame_lengths.sum()) / 100
+                           for b in batches[1:]]))
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    log(f"phase 12: {world} ranks ({backend}), mesh {recs[0]['mesh']}: "
+        f"losses {[round(x, 4) for x in losses]} against one card's "
+        f"{[round(x, 4) for x in ref_losses]} (rel {rel:.2e}, limit "
+        f"{LOSS_REL_TOL}); parameters bit-equal across ranks: {same}; step "
+        f"{step_s * 1e3:.1f} ms (median of steps 2-3) = "
+        f"{audio / step_s:.1f} audio-s/s; launches on the path (all ranks) "
+        f"{launches}")
+    if rel > LOSS_REL_TOL or not same:
+        raise AssertionError("the multi-rank SP step disagrees")
+    if launches["birnn_fwd"] == 0 or launches["birnn_bwd"] == 0:
+        raise AssertionError("the SP step launched no B1 or B2")
+    return launches, {"world": world, "backend": backend, "cards": count,
+                      "step_ms": step_s * 1e3, "rate": audio / step_s}
+
+
 def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
@@ -1742,17 +2085,23 @@ def main() -> int:
     paths = {"decode": decode_launches, "train": train_launches,
              "gru": gru_launches,
              **phase_audio(seed=0, phase7=phase7, phase4=phase4)}
+    carry_err, _ = phase_carry(REPS)
+    paths["mesh_one"], ref_losses = phase_mesh_one()
+    paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
+        if rec["name"] == "birnn_fwd":  # every SP sweep starts from h0
+            rec["h0_launches"] = paths["mesh_ranks"]["birnn_fwd"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], carry_err)
     records.sort(key=lambda rec: KERNEL_ORDER.index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "variant", "route", "source",
-                             "replaces", "launches", "max_abs_err", "ms",
-                             "plain_ms", "bound_ms", "bound_by",
-                             "library_ms") if k in rec}
+                             "replaces", "launches", "h0_launches",
+                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms") if k in rec}
         for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,7 +162,8 @@ class TestImportHygiene:
         modules = out.stdout.split()
         assert len(modules) >= 20
         for name in ("decode.neural_lm", "frontend.features", "data.audio_io",
-                     "data.manifest", "data.prefetch"):
+                     "data.manifest", "data.prefetch", "parallel.mesh",
+                     "parallel.distributed", "parallel.seq_parallel"):
             assert "tpu_ctc_torch." + name in modules
 
     def test_sources_never_name_jax(self):

@@ -753,3 +753,200 @@ def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
     assert (n0, n1) == (6, 12)
     if io == "float32":
         assert peak1 < peak0
+
+
+# B1 from a nonzero carry (h0 seeded into the exchange buffer's first half)
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (40, 16, 256, torch.bfloat16), (33, 5, 100, torch.bfloat16),
+    (12, 64, 1824, torch.bfloat16), (25, 7, 72, torch.float32),
+    (9, 5, 1024, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_birnn_kernel_from_h0_matches_plain(dev, t, b, h, dtype, reverse):
+    z, w, lens = _recurrence_inputs(t * b + h + 7, t, b, h)
+    h0 = torch.from_numpy(np.abs(2 * np.random.RandomState(h).randn(
+        b, h)).astype(np.float32))
+    z, w, lens, h0 = (z.to(dev, dtype), w.to(dev, dtype), lens.to(dev),
+                      h0.to(dev, dtype))
+
+    def launch(h0=h0):
+        return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
+                                              clip=20.0, h0=h0)
+
+    want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
+                                           clip=20.0, h0=h0).float()
+    if dtype == torch.float32:
+        got = launch().float()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        got = _launch_twice(birnn_cuda.KERNEL, launch)
+        assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
+    zero = torch.zeros_like(h0)
+    assert torch.equal(launch(zero), launch(None))     # h0 = 0 is no h0
+    assert not torch.equal(got, launch(zero).float())
+    for i, n in enumerate(lens.tolist()):
+        assert torch.all(got[n:, i] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_birnn_kernel_chunk_chain_is_one_sweep(dev, dtype, reverse):
+    """Four chunks, each swept from the last stored state of the one before
+    (sequence parallelism's carry), equal one sweep over all T bit for
+    bit: the dot input is the stored state at every step either way."""
+    t, b, h, n = 64, 32, 1024, 4
+    z, w, lens = _recurrence_inputs(3, t, b, h)
+    z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
+    whole = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
+                                           clip=20.0)
+    step_t = t // n
+    starts = list(range(0, t, step_t))
+    parts, carry = {}, None
+    for s in (starts[::-1] if reverse else starts):
+        local = torch.clamp(lens - s, 0, step_t)
+        parts[s] = birnn_cuda.fwd_recurrence_cuda(
+            z[s:s + step_t], w, local, reverse=reverse, clip=20.0, h0=carry)
+        carry = parts[s][0] if reverse else parts[s][-1]
+    assert torch.equal(torch.cat([parts[s] for s in starts]), whole)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_carry_recurrence_grad_kernel_matches_plain(dev, reverse):
+    """``CarryRecurrence`` on the kernels (B1 from h0, B2, the GEMMs)
+    against its plain autograd at f32: hs, dz, dW and dh0 within 1e-4 of
+    the largest magnitude."""
+    t, b, h = 30, 6, 256
+    z, w, lens = _recurrence_inputs(8 + reverse, t, b, h)
+    r = np.random.RandomState(9)
+    h0 = torch.from_numpy(np.abs(2 * r.randn(b, h)).astype(np.float32))
+    g = torch.from_numpy(r.randn(b, t, h).astype(np.float32)).to(dev)
+    mask = (torch.arange(t)[None] < lens[:, None]).float().to(dev)
+    res = []
+    for plain in (False, True):
+        zz, ww, hh = (x.to(dev).requires_grad_(True)
+                      for x in (z.transpose(0, 1).contiguous(), w, h0))
+        out = birnn_cuda.carry_recurrence(zz, ww, hh, mask, reverse=reverse,
+                                          clip=20.0,
+                                          compute_dtype=torch.float32,
+                                          plain=plain)
+        out.backward(g)
+        res.append((out.detach(), zz.grad, ww.grad, hh.grad))
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    assert float(res[0][3].abs().max()) > 0                # dh0 reached
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_carry_backward_kernels_match_plain_bf16(dev, reverse):
+    """At bf16 the backward (B2, dW, dh0) on the same forward states as its
+    plain version: dz, dW and dh0 within 1e-2 of each one's norm (two
+    forwards of their own would store states that round the other way and
+    flip h > 0 at some units, chip_smoke.py phase 12)."""
+    t, b, h = 30, 6, 256
+    z, w, lens = _recurrence_inputs(10 + reverse, t, b, h)
+    r = np.random.RandomState(11)
+    bf = torch.bfloat16
+    h0 = torch.from_numpy(np.abs(2 * r.randn(b, h)).astype(np.float32)).to(
+        dev, bf)
+    g = torch.from_numpy(r.randn(t, b, h).astype(np.float32)).to(dev)
+    z, w, lens = z.to(dev, bf), w.to(dev), lens.to(dev)
+    hs = birnn_cuda.fwd_recurrence_cuda(z, w.to(bf), lens, reverse=reverse,
+                                        clip=20.0, h0=h0)
+    got, want = (birnn_cuda.carry_sweep_grad(
+        g, hs, h0, w, reverse=reverse, clip=20.0, cdt=bf, plain=plain)
+        for plain in (False, True))
+    for a, ref in zip(got, want):
+        assert float(torch.linalg.norm(a - ref)) <= 1e-2 * float(
+            torch.linalg.norm(ref))
+    assert float(got[2].abs().max()) > 0
+
+
+def test_kernels_refuse_a_tensor_off_the_current_device(dev):
+    """A launch runs on the calling thread's current device: a tensor on
+    another one (the CPU here, another card when there are two) raises,
+    naming both, before anything launches."""
+    z, w, lens = _recurrence_inputs(1, 6, 4, 64)
+    z, w, lens = z.to(dev), w.to(dev, torch.float32), lens.to(dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False, clip=20.0,
+                                       h0=torch.zeros(4, 64))
+    if torch.cuda.device_count() < 2:
+        return
+    other = torch.device("cuda", 1)
+    before = birnn_cuda.KERNEL.launches
+    with torch.cuda.device(0):
+        with pytest.raises(ValueError, match="cuda:1 but the current "
+                                             "device is cuda:0"):
+            birnn_cuda.fwd_recurrence_cuda(z.to(other), w.to(other),
+                                           lens.to(other), reverse=False,
+                                           clip=20.0)
+    assert birnn_cuda.KERNEL.launches == before
+
+
+NCCL_WORKER = """
+import sys
+import numpy as np, torch
+from tpu_ctc_torch.config import get_config
+from tpu_ctc_torch.data.bucketing import BucketedLoader
+from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import step
+from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+coord, rank = sys.argv[1], int(sys.argv[2])
+dev = distributed.initialize(coord, 2, rank)
+cfg = get_config("2", **{"model.hidden_dim": 256, "data.batch_size": 8,
+                         "data.bucket_boundaries": (200,),
+                         "mesh.data": 2})
+data = SyntheticCorpus(16, feature_dim=120, min_chars=10, max_chars=20,
+                       seed=4).all_utterances()
+batches = [b for _, b in BucketedLoader(data, cfg.data).epoch(0)][:2]
+mesh = mesh_lib.make_mesh(cfg.mesh)
+state = step.create_train_state(cfg, device=dev)
+step_fn, state = step.make_train_step(cfg, mesh, state)
+losses = []
+for b in batches:
+    local = step.local_batch(batch_to_device_dict(b), mesh)
+    state, m = step_fn(state, step.batch_to_tensors(local, dev))
+    losses.append(float(m["loss"]))
+flat = torch.cat([p.detach().reshape(-1).cpu()
+                  for p in state.model.parameters()])
+np.save(sys.argv[3] + f"/rank{rank}.npy", np.concatenate(
+    [np.array(losses), flat.numpy()]))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_rank_nccl_dp_step(dev, tmp_path):
+    """Two NCCL ranks on two cards take DP steps of a narrow preset 2: the
+    parameters are bit-equal across ranks and the losses within 1e-3 of
+    one card's steps on the same global batches."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_WORKER, coord,
+                               str(r), str(tmp_path)], cwd=repo,
+                              env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    a, b = (np.load(tmp_path / f"rank{r}.npy") for r in range(2))
+    assert np.array_equal(a, b)
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    cfg = get_config("2", **{"model.hidden_dim": 256, "data.batch_size": 8,
+                             "data.bucket_boundaries": (200,)})
+    data = SyntheticCorpus(16, feature_dim=120, min_chars=10, max_chars=20,
+                           seed=4).all_utterances()
+    state = step.create_train_state(cfg, device=dev)
+    for _, batch in list(BucketedLoader(data, cfg.data).epoch(0))[:2]:
+        state, m = step.train_step(state, step.batch_to_tensors(
+            batch_to_device_dict(batch), dev), cfg)
+    np.testing.assert_allclose(a[1], float(m["loss"]), rtol=1e-3)

@@ -10,7 +10,12 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, plus:
     random-initialised from ``--seed``;
   * ``--device`` picks the torch device (default ``cuda``: without a card
     the command fails rather than run on the CPU);
-  * ``train --seed`` overrides the config's seed of the initial weights.
+  * ``train --seed`` overrides the config's seed of the initial weights;
+  * ``train`` under ``torchrun`` (``WORLD_SIZE`` set) joins the process
+    group (NCCL between cards, gloo for ``--device cpu``) and trains on the
+    mesh of ``cfg.mesh``: the batch's rows over 'data', and with ``--set
+    mesh.seq=N`` its frames over 'seq' too; rank 0 writes the metrics and
+    checkpoints.  A plain ``python -m`` run is one process on one card.
 
 ``--data DIR`` reads a manifest directory (``data/manifest.py``, lazily:
 each batch's audio goes through the frontend on the CPU when the loader
@@ -19,6 +24,8 @@ them through the frontend on the CPU in batches of 32.
 
 Usage:
   python -m tpu_ctc_torch.cli train --config 2 --data corpus --work-dir runs/x
+  torchrun --standalone --nproc-per-node 4 -m tpu_ctc_torch.cli train \
+      --config 3 --synthetic 256 --work-dir runs/dp [--set mesh.seq=2]
   python -m tpu_ctc_torch.cli decode --config 2 --checkpoint runs/x/checkpoints \
       --data corpus --split valid --beam --hyp-out runs/x/hyp
   python -m tpu_ctc_torch.cli score --ref runs/x/hyp/ref.trn \
@@ -124,19 +131,32 @@ def _restore_model(cfg, directory, dev):
 def cmd_train(args):
     """Train on the data flags' utterances, the first tenth held out for
     eval; metrics and checkpoints go to ``--work-dir``."""
+    import os
+
+    import torch.distributed as dist
+
     from tpu_ctc_torch import resolve_device
+    from tpu_ctc_torch.parallel import distributed
     from tpu_ctc_torch.train.loop import train
 
     cfg = _load_config(args)
     if args.seed is not None:
         cfg = cfg.override(seed=args.seed)
-    dev = resolve_device(args.device)
-    data, alphabet = _dataset(cfg, args)
-    n_eval = max(len(data) // 10, 1)
-    _, metrics = train(cfg, data[n_eval:], eval_data=data[:n_eval],
-                       work_dir=args.work_dir, resume=args.resume,
-                       device=dev, alphabet=alphabet)
-    print("final metrics:", metrics)
+    if "WORLD_SIZE" in os.environ:
+        dev = distributed.initialize(device=args.device)
+    else:
+        dev = resolve_device(args.device)
+    try:
+        data, alphabet = _dataset(cfg, args)
+        n_eval = max(len(data) // 10, 1)
+        _, metrics = train(cfg, data[n_eval:], eval_data=data[:n_eval],
+                           work_dir=args.work_dir, resume=args.resume,
+                           device=dev, alphabet=alphabet)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print("final metrics:", metrics)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -4,7 +4,13 @@
 // B1 replaces tpu_ctc/ops/birnn_pallas.py:103 (_fwd_kernel, launched by
 // _run_fwd):
 //     h_t = clip(z_t + bf16(h_{t-1}) @ W, 0, clip) * 1{t < len_b}
-// swept forward or reversed in time from a zero carry.
+// swept forward or reversed in time from the carry h0 (h_{-1} forward, h_T
+// reversed): zero, or the [B, H] io-type state that the launcher copies
+// into the exchange buffer's first half, which the first step reads.  The
+// f32 instance stages that half in shared memory like any step's carry, the
+// bf16 instance streams it through its copy rings.  A dead first frame
+// writes zero and zeroes the carry, so h0 reaches only the rows whose first
+// processed frame is live, as in the Pallas kernel.
 // B2 replaces birnn_pallas.py:167 (_bwd_kernel, launched by _run_bwd):
 //     d_t = (g_t + bf16(d_next) @ W^T) * 1{0 < h_t < clip}
 // swept against the forward sweep's time order from a zero carry: right to
@@ -505,12 +511,20 @@ int launch_coop(const void* kern, int grid, size_t smem, void** args,
 
 template <bool kBwd>
 int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
-             void* out, void* xbuf, unsigned int* count, int n_t, int n_b,
-             int n_h, int reverse, float clip, int bf16_io, void* stream) {
+             const void* h0, void* out, void* xbuf, unsigned int* count,
+             int n_t, int n_b, int n_h, int reverse, float clip, int bf16_io,
+             void* stream) {
   if (n_b < 1 || n_b > kMaxB || n_h < 1 || n_t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (n_h + kCols - 1) / kCols;
+  if (h0 != nullptr) {  // h0's rows into the zeroed first half, in order
+    const size_t elem = bf16_io ? sizeof(bf16) : sizeof(float);
+    const cudaError_t err = cudaMemcpy2DAsync(
+        xbuf, round_up(n_h, kPad) * elem, h0, n_h * elem, n_h * elem, n_b,
+        cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
     const bf16* wp = static_cast<const bf16*>(w);
@@ -543,14 +557,17 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
 extern "C" {
 
 // B1.  z, hs [T, B, H] and w [H, H] in the io type; lengths [B] int32;
-// xbuf [2, B_pad, H_pad] io type (B and H rounded up to multiples of 16),
-// zeroed (the zero carry h_{-1} and the padding); count one zeroed uint32.
+// h0 [B, H] io type, the initial carry, or null for a zero carry; xbuf
+// [2, B_pad, H_pad] io type (B and H rounded up to multiples of 16), zeroed
+// (the zero carry and the padding; h0, when given, is copied into its first
+// half on the stream before the launch); count one zeroed uint32.
 // Returns 0 or a CUDA error code.
-int birnn_fwd_launch(const void* z, const void* w, const int* lengths, void* hs,
-                     void* xbuf, unsigned int* count, int n_t, int n_b, int n_h,
-                     int reverse, float clip, int bf16, void* stream) {
-  return dispatch<false>(z, w, lengths, nullptr, hs, xbuf, count, n_t, n_b, n_h,
-                         reverse, clip, bf16, stream);
+int birnn_fwd_launch(const void* z, const void* w, const int* lengths,
+                     const void* h0, void* hs, void* xbuf, unsigned int* count,
+                     int n_t, int n_b, int n_h, int reverse, float clip,
+                     int bf16, void* stream) {
+  return dispatch<false>(z, w, lengths, nullptr, h0, hs, xbuf, count, n_t, n_b,
+                         n_h, reverse, clip, bf16, stream);
 }
 
 // B2.  g, hs, d_out [T, B, H] and wt = W^T [H, H] in the io type; the rest
@@ -559,8 +576,8 @@ int birnn_fwd_launch(const void* z, const void* w, const int* lengths, void* hs,
 int birnn_bwd_launch(const void* g, const void* wt, const void* hs, void* d_out,
                      void* xbuf, unsigned int* count, int n_t, int n_b, int n_h,
                      int reverse, float clip, int bf16, void* stream) {
-  return dispatch<true>(g, wt, nullptr, hs, d_out, xbuf, count, n_t, n_b, n_h,
-                        reverse, clip, bf16, stream);
+  return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
+                        n_b, n_h, reverse, clip, bf16, stream);
 }
 
 }  // extern "C"

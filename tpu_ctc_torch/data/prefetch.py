@@ -25,11 +25,14 @@ import torch
 _END = object()
 
 
-def prefetch_to_device(iterator: Iterator, device, size: int = 2) -> Iterator:
+def prefetch_to_device(iterator: Iterator, device, size: int = 2,
+                       select=None) -> Iterator:
     """Wrap an iterator of ``(cursor, Batch)``; yield ``(cursor, Batch,
     {name: tensor on device})`` with the arrays of
-    ``train.loop.batch_to_device_dict``.  The cursor is the yielded batch's
-    own, so a checkpoint taken while it is consumed resumes at it."""
+    ``train.loop.batch_to_device_dict``, passed through ``select`` (this
+    rank's block of them, ``train.step.local_batch``) before the copy when
+    it is given.  The cursor is the yielded batch's own, so a checkpoint
+    taken while it is consumed resumes at it."""
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -51,6 +54,8 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2) -> Iterator:
                       else None)
             for cursor, batch in iterator:
                 arrays = batch_to_device_dict(batch)
+                if select is not None:
+                    arrays = select(arrays)
                 if stream is None:
                     dev = {k: torch.as_tensor(np.asarray(v), device=device)
                            for k, v in arrays.items()}

@@ -137,16 +137,38 @@ def resolve_birnn_impl(cfg: ModelConfig) -> str:
     raise ValueError(f"unknown birnn impl {cfg.birnn_impl!r}")
 
 
+def _io_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The recurrence's io dtype: ``birnn_io_dtype``, else the compute
+    dtype."""
+    return (torch_dtype(cfg.birnn_io_dtype) if cfg.birnn_io_dtype
+            else torch_dtype(cfg.compute_dtype))
+
+
+def _recurrence_with_carry(z: torch.Tensor, w: torch.Tensor,
+                           mask: torch.Tensor, reverse: bool,
+                           h0: torch.Tensor, *, cfg: ModelConfig):
+    """One direction swept from carry h0, batch-major as the JAX
+    function: z [B, T, H] f32, mask [B, T], h0 [B, H] -> (hs [B, T, H] f32,
+    h_last [B, H]), h_last the state at the chunk's boundary (the last
+    frame forward, the first reversed): the carry that a sequence-parallel
+    neighbour chunk resumes from.  Kernel B1 from h0 on a card, the plain
+    sweep on the CPU (and for ``birnn_impl="scan"``)."""
+    hs = birnn_cuda.carry_recurrence(
+        z, w, h0, mask, reverse=reverse, clip=cfg.relu_clip,
+        compute_dtype=torch_dtype(cfg.compute_dtype), io_dtype=_io_dtype(cfg),
+        plain=resolve_birnn_impl(cfg) == "scan")
+    return hs, (hs[:, 0] if reverse else hs[:, -1])
+
+
 def bi_recur_tm(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
                 mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Recurrence from a projection z [T, B, H] f32 and mask [B, T]
     (trailing padding) -> f + b [T, B, H] f32."""
     lengths = mask.to(torch.float32).sum(dim=1).to(torch.int32)
-    cdt = torch_dtype(cfg.compute_dtype)
-    io = torch_dtype(cfg.birnn_io_dtype) if cfg.birnn_io_dtype else cdt
     rec = functools.partial(
-        birnn_cuda.bi_recurrence, clip=cfg.relu_clip, compute_dtype=cdt,
-        io_dtype=io, bidirectional=cfg.bidirectional,
+        birnn_cuda.bi_recurrence, clip=cfg.relu_clip,
+        compute_dtype=torch_dtype(cfg.compute_dtype), io_dtype=_io_dtype(cfg),
+        bidirectional=cfg.bidirectional,
         plain=resolve_birnn_impl(cfg) == "scan")
     if cfg.remat:
         return torch.utils.checkpoint.checkpoint(rec, z, wf, wb, lengths,

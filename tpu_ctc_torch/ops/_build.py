@@ -7,6 +7,10 @@ is git-ignored).  Nothing is compiled when a module is imported: the first
 launch builds, and :func:`build_all` builds several sources in parallel
 (one ``nvcc`` process each).  Each source is self-contained (no shared
 header), so the library is stale exactly when its one ``.cu`` is newer.
+Several processes (the ranks of a distributed run) may build at once: each
+``nvcc`` writes a file of its own in the build directory, which is then
+renamed over the library (``os.replace``), so a process that loads the
+library finds either no file or a whole one.
 Two kernels of one source (the BiRNN forward and backward sweeps, the CTC
 alpha and beta sweeps) are two :class:`CudaKernel` objects, each with its
 own launch count, over one library.
@@ -17,6 +21,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,10 +56,10 @@ class CudaKernel:
         self._lib = None
         self.build_log = ""
 
-    def command(self) -> List[str]:
+    def command(self, out: str) -> List[str]:
         return [_nvcc(), *ARCH, "-std=c++17", "-O3", "-lineinfo",
                 "-Xptxas", "-v", "-shared", "-Xcompiler",
-                "-fPIC", "-o", self.library, self.source]
+                "-fPIC", "-o", out, self.source]
 
     def _fresh(self) -> bool:
         return (os.path.exists(self.library) and os.path.getmtime(
@@ -73,19 +78,27 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     """Compile every kernel's source at once, one ``nvcc`` per library;
     raise with the compiler's output if any fails.  Returns name -> nvcc
     log (kernels that share a library share its log)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     by_lib: Dict[str, CudaKernel] = {}
     for k in kernels:
         by_lib.setdefault(k.library, k)
-    procs = [(k, subprocess.Popen(k.command(), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for k in by_lib.values()]
+    procs = []
+    for k in by_lib.values():
+        directory = os.path.dirname(k.library)
+        os.makedirs(directory, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=directory)
+        os.close(fd)
+        procs.append((k, tmp, subprocess.Popen(
+            k.command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
     failed = []
-    for k, p in procs:
+    for k, tmp, p in procs:
         k.build_log = p.communicate()[0]
         if p.returncode != 0:
             failed.append(f"{k.name}: nvcc exit {p.returncode}\n"
                           f"{k.build_log}")
+            os.remove(tmp)
+        else:
+            os.replace(tmp, k.library)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     for k in kernels:
@@ -103,6 +116,16 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(what: str, *tensors) -> ctypes.c_void_p:
+    """The current stream of the calling thread's current CUDA device, on
+    which a launcher runs its kernel; raises if a tensor of the launch
+    (None entries are skipped) lies on another device."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    current = torch.device("cuda", torch.cuda.current_device())
+    for t in tensors:
+        if t is not None and t.device != current:
+            raise ValueError(
+                f"{what} kernel: a tensor is on {t.device} but the current "
+                f"device is {current}; the kernel launches on the current "
+                f"device (torch.cuda.set_device)")
+    return ctypes.c_void_p(torch.cuda.current_stream(current).cuda_stream)

@@ -130,7 +130,7 @@ def reconstruct_cuda(bp: torch.Tensor, best: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     err = fn(ptr(bp), ptr(best), ptr(chars), ptr(hyps), n_b, n_t, k, max_len,
-             stream_of(bp))
+             stream_of(RECONSTRUCT.name, bp, best, chars, hyps))
     check(err, RECONSTRUCT.name)
     RECONSTRUCT.launches += 1
     return hyps
@@ -224,7 +224,7 @@ def launch(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
     fin = torch.empty((n_b, 3, beam_width), dtype=torch.float32,
                       device=lp.device)
     null = ctypes.c_void_p(None)
-    gru_args, n_h = [null] * 7, 0
+    gru_args, n_h, state = [null] * 7, 0, None
     if gru is not None:
         n_h = gru[5].shape[0]
         state = torch.empty((n_b, 2, beam_width, n_h), dtype=torch.float32,
@@ -241,7 +241,8 @@ def launch(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
              lm_order if lm is not None else 0, float(lm_alpha),
              float(lm_beta), int(prune_logp is not None),
              float(prune_logp if prune_logp is not None else 0.0),
-             *gru_args, n_h, stream_of(lp))
+             *gru_args, n_h, stream_of(kern.name, lp, lens, thr, lm, bp, fin,
+                                       *(gru or ()), state))
     check(err, kern.name)
     kern.launches += 1
     return bp, fin

@@ -5,15 +5,19 @@ Counterpart of ``tpu_ctc.ops.birnn_pallas``.  One direction computes
 
     h_t = clip(z_t + bf16(h_{t-1}) @ W, 0, clip) * 1{t < length}
 
-from a zero carry, forward or reversed in time; its backward is the delta
-sweep in the opposite time order,
+from a carry h0 (zero unless given), forward or reversed in time; its
+backward is the delta sweep in the opposite time order, from zero,
 
     d_t = (g_t + bf16(d_next) @ W^T) * 1{0 < h_t < clip}.
 
 :func:`bi_recurrence` sums the two directions in f32 and differentiates
 through :class:`BiRecurrence`, which mirrors ``_make_bi_recurrence``
-(``birnn_pallas.py:228-326``).  Rounding points are the Pallas kernels':
-z and g are rounded to the io dtype before a sweep, the dot input is the
+(``birnn_pallas.py:228-326``).  :func:`carry_recurrence` sweeps one
+direction from a nonzero h0 (a chunk of sequence parallelism) and
+differentiates through :class:`CarryRecurrence`, which mirrors
+``_make_carry_recurrence`` (``birnn_pallas.py:354-416``): its backward also
+returns dh0.  Rounding points are the Pallas kernels':
+z, g and h0 are rounded to the io dtype before a sweep, the dot input is the
 state (or delta) in the compute dtype with f32 accumulation, and each
 ``h_t`` and ``d_t`` is stored in the io dtype.  The weight gradients
 dW = sum_t h_neighbour^T d_t are one large product each, outside the
@@ -150,11 +154,13 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
                          lengths: torch.Tensor, *, reverse: bool,
-                         clip: float) -> torch.Tensor:
+                         clip: float, h0: torch.Tensor = None) -> torch.Tensor:
     """Plain per-frame loop: z [T, B, H] io dtype, w [H, H] compute dtype,
-    lengths [B] int -> hs [T, B, H] in z's dtype."""
+    lengths [B] int, h0 [B, H] the initial carry (rounded to z's dtype;
+    zero when None) -> hs [T, B, H] in z's dtype."""
     n_t, n_b, n_h = z.shape
-    h = torch.zeros((n_b, n_h), dtype=torch.float32, device=z.device)
+    h = (torch.zeros((n_b, n_h), dtype=torch.float32, device=z.device)
+         if h0 is None else h0.to(z.dtype).to(torch.float32))
     live = (torch.arange(n_t, device=z.device)[:, None]
             < lengths.to(z.device)[None, :])                  # [T, B]
     out = torch.empty_like(z)
@@ -193,17 +199,22 @@ def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
             f"per block (limit {_SMEM_LIMIT})")
 
 
-def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
-                w: torch.Tensor, third: torch.Tensor, *, reverse: bool,
-                clip: float) -> torch.Tensor:
+def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
+                third: torch.Tensor, *, reverse: bool, clip: float,
+                h0: torch.Tensor = None) -> torch.Tensor:
     """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
-    ``third`` the lengths (B1) or the stored states (B2) -> [T, B, H]."""
+    ``third`` the lengths (B1) or the stored states (B2), ``h0`` B1's
+    initial carry [B, H] in x's dtype or None -> [T, B, H]."""
     what = kernel.name
-    if not (x.is_cuda and w.is_cuda and third.is_cuda):
+    if not (x.is_cuda and w.is_cuda and third.is_cuda
+            and (h0 is None or h0.is_cuda)):
         raise ValueError(f"{what} kernel: tensors must be on a CUDA device")
     if x.dim() != 3 or w.shape != (x.shape[2], x.shape[2]):
         raise ValueError(f"{what} kernel: {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not fit [T,B,H] x [H,H]")
+    if h0 is not None and (h0.shape != x.shape[1:] or h0.dtype != x.dtype):
+        raise ValueError(f"{what} kernel: h0 {tuple(h0.shape)} {h0.dtype} "
+                         f"does not fit [B, H] {x.dtype}")
     if w.dtype != x.dtype:
         raise NotImplementedError(
             f"{what} kernel: io dtype {x.dtype} with compute dtype "
@@ -217,13 +228,18 @@ def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
     xbuf = torch.zeros(exchange_shape(n_b, n_h), dtype=x.dtype,
                        device=x.device)
     count = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    fn = getattr(kernel.lib(), fn_name)
+    fn = getattr(kernel.lib(), kernel.name + "_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    carry = []                  # B1 takes h0 (null: a zero carry)
+    if kernel.name == KERNEL.name:
+        h0 = None if h0 is None else h0.contiguous()
+        carry = [ctypes.c_void_p(None) if h0 is None else ptr(h0)]
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(carry)) + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    err = fn(ptr(x), ptr(w), ptr(third), ptr(out), ptr(xbuf), ptr(count),
-             n_t, n_b, n_h, int(reverse), float(clip),
-             int(x.dtype == torch.bfloat16), stream_of(x))
+    err = fn(ptr(x), ptr(w), ptr(third), *carry, ptr(out), ptr(xbuf),
+             ptr(count), n_t, n_b, n_h, int(reverse), float(clip),
+             int(x.dtype == torch.bfloat16),
+             stream_of(what, x, w, third, h0, out, xbuf, count))
     if err == _COOP_TOO_LARGE:
         raise NotImplementedError(
             f"{what} kernel: H={n_h} needs {grid_size(n_h)} co-resident "
@@ -235,20 +251,23 @@ def _sweep_cuda(kernel: CudaKernel, fn_name: str, x: torch.Tensor,
 
 def fwd_recurrence_cuda(z: torch.Tensor, w: torch.Tensor,
                         lengths: torch.Tensor, *, reverse: bool,
-                        clip: float) -> torch.Tensor:
+                        clip: float, h0: torch.Tensor = None) -> torch.Tensor:
     """Launch kernel B1 for one direction.  Same contract as
-    :func:`fwd_recurrence_plain`; z and w must share the io dtype."""
-    return _sweep_cuda(KERNEL, "birnn_fwd_launch", z, w,
-                       lengths.to(torch.int32).contiguous(), reverse=reverse,
-                       clip=clip)
+    :func:`fwd_recurrence_plain`; z and w must share the io dtype, and h0
+    is rounded to it."""
+    return _sweep_cuda(KERNEL, z, w, lengths.to(torch.int32).contiguous(),
+                       reverse=reverse, clip=clip,
+                       h0=None if h0 is None else h0.to(z.dtype))
 
 
-def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float):
+def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float, h0=None):
     """One direction: kernel B1 for CUDA tensors, the plain loop for CPU
     tensors."""
     if z.is_cuda:
-        return fwd_recurrence_cuda(z, w, lengths, reverse=reverse, clip=clip)
-    return fwd_recurrence_plain(z, w, lengths, reverse=reverse, clip=clip)
+        return fwd_recurrence_cuda(z, w, lengths, reverse=reverse, clip=clip,
+                                   h0=h0)
+    return fwd_recurrence_plain(z, w, lengths, reverse=reverse, clip=clip,
+                                h0=h0)
 
 
 def bwd_recurrence_plain(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
@@ -276,8 +295,8 @@ def bwd_recurrence_cuda(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
     if hs.shape != g.shape or hs.dtype != g.dtype:
         raise ValueError(f"birnn_bwd kernel: hs {tuple(hs.shape)} {hs.dtype} "
                          f"does not match g {tuple(g.shape)} {g.dtype}")
-    return _sweep_cuda(BWD_KERNEL, "birnn_bwd_launch", g, wt,
-                       hs.contiguous(), reverse=reverse, clip=clip)
+    return _sweep_cuda(BWD_KERNEL, g, wt, hs.contiguous(), reverse=reverse,
+                       clip=clip)
 
 
 def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
@@ -356,3 +375,68 @@ def bi_recurrence(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
                               float(clip), compute_dtype,
                               io_dtype or compute_dtype, bool(bidirectional),
                               bool(plain))
+
+
+def carry_sweep_grad(g: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
+                     w: torch.Tensor, *, reverse: bool, clip: float, cdt,
+                     plain: bool = False):
+    """The backward of one direction swept from h0, as
+    ``_make_carry_recurrence``'s ``_bwd``: g [T, B, H] the f32 cotangent of
+    the states, hs [T, B, H] and h0 [B, H] the io-dtype states and carry of
+    the forward sweep, w [H, H] -> (dz [T, B, H], dW [H, H], dh0 [B, H]),
+    all f32.  The delta sweep (B2 on a card) runs in the opposite time
+    order from zero; h0 is the neighbour of the first processed frame in
+    dW; dh0 = d_first W^T from the compute-dtype operands."""
+    wc = w.to(cdt)
+    bwd = bwd_recurrence_plain if plain else bwd_recurrence
+    d = bwd(g.to(hs.dtype), hs, wc.t(), reverse=not reverse, clip=clip)
+    h0_row = h0[None].to(hs.dtype)
+    if reverse:
+        h_nb, d_first = torch.cat([hs[1:], h0_row]), d[-1]
+    else:
+        h_nb, d_first = torch.cat([h0_row, hs[:-1]]), d[0]
+    dh0 = matmul_f32(d_first.to(cdt).to(torch.float32),
+                     wc.to(torch.float32).t())
+    return d.to(torch.float32), _weight_grad(h_nb, d), dh0
+
+
+class CarryRecurrence(torch.autograd.Function):
+    """One direction swept from a nonzero carry, with the custom gradient
+    of ``_make_carry_recurrence`` (:func:`carry_sweep_grad`): time-major z
+    [T, B, H] f32, w [H, H], h0 [B, H] f32, lengths [B] -> hs [T, B, H]
+    f32; differentiable in z, w and h0 (lengths get none)."""
+
+    @staticmethod
+    def forward(ctx, z, w, h0, lengths, clip, cdt, io, reverse, plain):
+        fwd = fwd_recurrence_plain if plain else fwd_recurrence
+        h0_io = h0.to(io)
+        hs = fwd(z.to(io), w.to(cdt), lengths, reverse=reverse, clip=clip,
+                 h0=h0_io)
+        ctx.save_for_backward(hs, h0_io, w)
+        ctx.opts = (clip, cdt, reverse, plain)
+        return hs.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        hs, h0_io, w = ctx.saved_tensors
+        clip, cdt, reverse, plain = ctx.opts
+        dz, dw, dh0 = carry_sweep_grad(g, hs, h0_io, w, reverse=reverse,
+                                       clip=clip, cdt=cdt, plain=plain)
+        return dz, dw.to(w.dtype), dh0, None, None, None, None, None, None
+
+
+def carry_recurrence(z: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+                     mask: torch.Tensor, *, reverse: bool, clip: float,
+                     compute_dtype, io_dtype=None,
+                     plain: bool = False) -> torch.Tensor:
+    """Single-direction clipped-ReLU recurrence from carry h0
+    (``birnn_pallas.carry_recurrence``): z [B, T, H] f32, w [H, H], h0
+    [B, H], mask [B, T] trailing-padded -> hs [B, T, H] f32,
+    differentiable in z, w and h0.  ``plain`` forces the plain loops on any
+    device."""
+    lengths = mask.to(torch.float32).sum(dim=1).to(torch.int32)
+    hs = CarryRecurrence.apply(z.transpose(0, 1).to(torch.float32), w,
+                               h0.to(torch.float32), lengths, float(clip),
+                               compute_dtype, io_dtype or compute_dtype,
+                               bool(reverse), bool(plain))
+    return hs.transpose(0, 1)

@@ -117,7 +117,8 @@ def _launch(kernel: CudaKernel, fn_name: str, emit, mask_a, mask_b, lengths):
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     err = fn(ptr(emit), ptr(mask_a), ptr(mask_b), ptr(lengths), ptr(out),
-             n_b, n_t, n_s, stream_of(emit))
+             n_b, n_t, n_s,
+             stream_of(kernel.name, emit, mask_a, mask_b, lengths, out))
     check(err, kernel.name)
     kernel.launches += 1
     return out

@@ -1,7 +1,8 @@
 """Training loop: epochs over bucketed batches, metrics, checkpoints, eval.
 
-Counterpart of ``tpu_ctc.train.loop`` on one card: a plain loop over
-``BucketedLoader.epoch`` calling ``train.step.train_step``, JSONL metrics
+Counterpart of ``tpu_ctc.train.loop``: a plain loop over
+``BucketedLoader.epoch`` calling the step of ``train.step.make_train_step``
+(``train_step`` itself on one card), JSONL metrics
 (:class:`MetricsLogger`), checkpoints of the full state with the data
 cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
 (:class:`PreemptionGuard`), and greedy-CER/NLL evaluation, with the beam
@@ -11,6 +12,16 @@ through ``data.prefetch.prefetch_to_device``: a thread runs the loader (and
 the lazy manifest's frontend) and copies ahead of the step.  The step's
 metrics stay on the card; they are read (one synchronisation) every
 ``log_every`` steps.
+
+On a mesh of ranks (``cfg.mesh``, the process group of
+``parallel.distributed.initialize``) every rank loads the same global
+batch from the same loader and keeps its block (rows over 'data', frames
+over 'seq'), as the JAX loop shards one global batch; the prefetch thread
+copies only that block to the rank's card.  Metrics, ``metrics.jsonl`` and
+checkpoints are written by rank 0 while the others wait at a barrier; the
+state is replicated, so a checkpoint restores under any world size.  The
+ranks agree on a preemption request every step (one all-reduce of a flag,
+read on the host), so all of them checkpoint and stop at the same step.
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import Config
@@ -31,10 +44,12 @@ from tpu_ctc_torch.data.prefetch import prefetch_to_device
 from tpu_ctc_torch.decode.beam import make_beam_decoder
 from tpu_ctc_torch.decode.lm import train_char_lm_from_data
 from tpu_ctc_torch.decode.wer import cer, score_corpus
+from tpu_ctc_torch.parallel.mesh import make_mesh
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
                                       create_train_state, eval_step,
-                                      train_step)
+                                      local_batch, make_eval_step,
+                                      make_train_step)
 
 
 class MetricsLogger:
@@ -92,17 +107,23 @@ def batch_to_device_dict(batch: Batch) -> Dict[str, np.ndarray]:
 
 
 def evaluate(model, cfg: Config, loader: BucketedLoader, device,
-             alphabet=None, beam_decode_fn=None) -> Dict[str, float]:
+             alphabet=None, beam_decode_fn=None,
+             eval_fn=None) -> Dict[str, float]:
     """Greedy-decode CER (host edit distance) and mean NLL over an eval
     set.  With ``beam_decode_fn`` (``train.eval_beam``, a
     ``decode.beam.make_beam_decoder`` function) it also beam-decodes each
-    batch and reports the corpus WER/CER of the decoded text."""
+    batch and reports the corpus WER/CER of the decoded text.
+    ``eval_fn(model, batch)`` (``train.step.make_eval_step``) replaces
+    ``train.step.eval_step`` when given."""
     alphabet = alphabet or DEFAULT_ALPHABET
+    if eval_fn is None:
+        def eval_fn(model, batch):
+            return eval_step(model, cfg, batch)
     refs, hyps, nlls = [], [], []
     ref_texts, beam_texts = {}, {}
     for i, (_, batch) in enumerate(loader.epoch(0)):
         bd = batch_to_device_dict(batch)
-        out = eval_step(model, cfg, batch_to_tensors(bd, device))
+        out = eval_fn(model, batch_to_tensors(bd, device))
         hyp = out["hyp"].cpu().numpy()
         hyp_len = out["hyp_len"].cpu().numpy()
         nll = out["nll"].cpu().numpy()
@@ -131,27 +152,52 @@ def evaluate(model, cfg: Config, loader: BucketedLoader, device,
     return result
 
 
+def _agreed(mesh, flag: bool, device) -> bool:
+    """``flag`` on any rank of the mesh (one all-reduce, read on the
+    host); ``flag`` itself on one rank."""
+    if mesh.size == 1:
+        return flag
+    x = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item())
+
+
 def train(cfg: Config,
           train_data: Sequence[Tuple[np.ndarray, np.ndarray]],
           eval_data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None,
           work_dir: Optional[str] = None, resume: bool = False,
-          device=None, alphabet=None) -> Tuple[TrainState, Dict[str, float]]:
-    """Run the training job on ``device`` (default ``cuda``); returns
-    (final state, last logged metrics)."""
+          device=None, alphabet=None,
+          mesh=None) -> Tuple[TrainState, Dict[str, float]]:
+    """Run the training job on ``device`` (default ``cuda``) and the mesh
+    of ``cfg.mesh`` over the process group (one rank without one) unless
+    ``mesh`` is given; returns (final state, last logged metrics)."""
     device = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(cfg.mesh)
+    lead = mesh.rank == 0
+
+    def barrier():
+        if mesh.size > 1:
+            dist.barrier()
+
     loader = BucketedLoader(train_data, cfg.data)
     eval_loader = (BucketedLoader(eval_data, cfg.data)
                    if eval_data is not None else None)
-    if loader.num_dropped:
+    if loader.num_dropped and lead:
         print(f"[data] dropped {loader.num_dropped} utterances longer than "
               f"{cfg.data.bucket_boundaries[-1]} frames")
 
     work_dir = work_dir or "."
     os.makedirs(work_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(work_dir, cfg.train.metrics_path)
-                           if cfg.train.metrics_path else None)
+                           if cfg.train.metrics_path and lead else None)
     ckpt_dir = os.path.join(work_dir, cfg.train.checkpoint_dir)
     keep = cfg.train.keep_checkpoints
+
+    def save(state, epoch, cursor):
+        if lead:
+            checkpoint.save(ckpt_dir, state, epoch, cursor, keep)
+        barrier()
 
     state = create_train_state(cfg, device=device)
     start_epoch, start_batch = 0, 0
@@ -159,8 +205,11 @@ def train(cfg: Config,
         restored = checkpoint.restore(ckpt_dir, state)
         if restored is not None:
             state, start_epoch, start_batch = restored
-            print(f"[ckpt] resumed at epoch {start_epoch} batch {start_batch} "
-                  f"step {state.step}")
+            if lead:
+                print(f"[ckpt] resumed at epoch {start_epoch} batch "
+                      f"{start_batch} step {state.step}")
+    step_fn, state = make_train_step(cfg, mesh, state)
+    eval_fn = make_eval_step(cfg, mesh)
 
     beam_decode_fn = None
     if cfg.train.eval_beam and eval_loader is not None:
@@ -174,17 +223,19 @@ def train(cfg: Config,
     for epoch in range(start_epoch, cfg.train.num_epochs):
         sb = start_batch if epoch == start_epoch else 0
         for cursor, batch, dev_batch in prefetch_to_device(
-                loader.epoch(epoch, sb), device):
-            if guard.requested:
-                checkpoint.save(ckpt_dir, state, epoch, cursor, keep)
+                loader.epoch(epoch, sb), device,
+                select=lambda arrays: local_batch(arrays, mesh)):
+            if _agreed(mesh, guard.requested, device):
+                save(state, epoch, cursor)
                 logger.log(kind="preempted", epoch=epoch, cursor=cursor,
                            step=state.step)
                 logger.close()
                 guard.restore()
-                print(f"[preempt] checkpointed at step {state.step} "
-                      f"(epoch {epoch}, batch {cursor}); exiting")
+                if lead:
+                    print(f"[preempt] checkpointed at step {state.step} "
+                          f"(epoch {epoch}, batch {cursor}); exiting")
                 return state, last_metrics
-            state, m = train_step(state, dev_batch, cfg)
+            state, m = step_fn(state, dev_batch)
             audio_win += batch.audio_seconds()
             steps_win += 1
             if state.step % cfg.train.log_every == 0:
@@ -200,18 +251,18 @@ def train(cfg: Config,
             if cfg.train.checkpoint_every and \
                     state.step % cfg.train.checkpoint_every == 0:
                 t0 = time.time()
-                checkpoint.save(ckpt_dir, state, epoch, cursor + 1, keep)
+                save(state, epoch, cursor + 1)
                 t_win += time.time() - t0     # exclude the save
             if (eval_loader is not None and cfg.train.eval_every
                     and state.step % cfg.train.eval_every == 0):
                 t0 = time.time()
                 ev = evaluate(state.model, cfg, eval_loader, device,
                               alphabet=alphabet,
-                              beam_decode_fn=beam_decode_fn)
+                              beam_decode_fn=beam_decode_fn, eval_fn=eval_fn)
                 logger.log(kind="eval", step=state.step, **ev)
                 t_win += time.time() - t0     # exclude the eval
         logger.log(kind="epoch_end", epoch=epoch, wall_s=time.time() - t_start)
     guard.restore()
-    checkpoint.save(ckpt_dir, state, cfg.train.num_epochs, 0, keep)
+    save(state, cfg.train.num_epochs, 0)
     logger.close()
     return state, last_metrics

@@ -1,27 +1,42 @@
-"""The training step on one card: forward, CTC loss, backward, update.
+"""The training step: forward, CTC loss, backward, update, on one card or
+on a mesh of ranks.
 
-Counterpart of ``tpu_ctc.train.step`` for one device: ``TrainState``,
+Counterpart of ``tpu_ctc.train.step``: ``TrainState``,
 ``create_train_state``, ``loss_fn`` (the weighted-mean NLL and its
 metrics), ``train_step`` (with ``grad_norm`` of the unclipped gradients)
-and the body of ``make_eval_step`` (forward, greedy collapse, NLL from the
-log probs).  On a card the step runs kernels B1 (forward recurrence), B3
-(CTC alpha), B4 (CTC beta) and B2 (delta sweep); the metrics stay on the
-device until the caller reads them.  The mesh, shard_map and sharding
-functions of the JAX module are not ported (one card).
+and the eval step (forward, greedy collapse, NLL from the log probs).  On
+a card the step runs kernels B1 (forward recurrence), B3 (CTC alpha), B4
+(CTC beta) and B2 (delta sweep); the metrics stay on the device until the
+caller reads them.
+
+The mesh half (``make_train_step``, ``make_eval_step`` and the sharding
+functions) runs the step on a ``parallel.mesh.Mesh`` of ranks: data
+parallelism (DP) splits the batch's rows over 'data' and sums the loss's
+sums over it; sequence parallelism (SP, ``parallel.seq_parallel``) also
+splits the frames over 'seq'.  Each rank takes its block of the global
+batch (:func:`batch_shardings`, :func:`local_batch`), the parameters and
+the optimizer state are replicated, and the parameter gradients are summed
+over all ranks before ``grad_norm`` and the clip, so the clip sees the
+global gradient as in JAX and every rank applies the same update.  A
+one-rank mesh runs :func:`train_step` as it is.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import Config
 from tpu_ctc_torch.decode.greedy import collapse_ids
 from tpu_ctc_torch.losses import ctc
 from tpu_ctc_torch.models import birnn
+from tpu_ctc_torch.parallel import mesh as mesh_lib
+from tpu_ctc_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_SEQ
 from tpu_ctc_torch.train import optim
 
 BATCH_KEYS = ("feats", "frame_mask", "frame_lengths", "labels",
@@ -53,18 +68,20 @@ def batch_to_tensors(batch: Dict[str, np.ndarray],
 
 
 def loss_fn(model: birnn.BiRNN, cfg: Config,
-            batch: Dict[str, torch.Tensor]):
+            batch: Dict[str, torch.Tensor], reduce=lambda x: x):
     """Weighted-mean per-utterance CTC NLL plus metrics (weights are 0 on
-    the repeated rows that pad a tail batch)."""
+    the repeated rows that pad a tail batch).  ``reduce`` turns this
+    rank's sums into global ones: the identity on one card, a sum over
+    'data' under DP (:func:`make_dp_loss_fn`)."""
     logits = birnn.forward(model, cfg.model, batch["feats"],
                            batch["frame_mask"])
     nll = ctc.ctc_loss(logits, batch["labels"], batch["frame_lengths"],
                        batch["label_lengths"], impl=cfg.ctc_impl)
     w = batch["weights"].to(torch.float32)
-    num = torch.sum(nll * w)
-    utts = torch.sum(w)
-    frames = torch.clamp_min(
-        torch.sum(batch["frame_lengths"].to(torch.float32) * w), 1.0)
+    num = reduce(torch.sum(nll * w))
+    utts = reduce(torch.sum(w))
+    frames = torch.clamp_min(reduce(
+        torch.sum(batch["frame_lengths"].to(torch.float32) * w)), 1.0)
     loss = num / torch.clamp_min(utts, 1.0)
     metrics = {"loss": loss, "loss_per_frame": num / frames,
                "num_utts": utts, "num_frames": frames}
@@ -84,16 +101,25 @@ def _check_finite(step: int, loss: torch.Tensor,
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               cfg: Config) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One update: value and gradient of :func:`loss_fn`, then the
-    optimizer chain in place on the parameters.  With
-    ``cfg.train.debug_nans`` a non-finite loss or gradient norm raises
-    ``FloatingPointError`` before the update, leaving the parameters and
-    the optimizer state as they were."""
+               cfg: Config, loss_closure: Optional[Callable] = None,
+               reduce_grads: Optional[Callable] = None
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One update: value and gradient of :func:`loss_fn` (or of
+    ``loss_closure(model, batch)``), the gradients passed through
+    ``reduce_grads`` (a sum over ranks) when given, then the optimizer
+    chain in place on the parameters.  With ``cfg.train.debug_nans`` a
+    non-finite loss or gradient norm raises ``FloatingPointError`` before
+    the update, leaving the parameters and the optimizer state as they
+    were."""
     params = dict(state.model.named_parameters())
     with torch.enable_grad():
-        loss, metrics = loss_fn(state.model, cfg, batch)
+        if loss_closure is None:
+            loss, metrics = loss_fn(state.model, cfg, batch)
+        else:
+            loss, metrics = loss_closure(state.model, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
+    if reduce_grads is not None:
+        grads = reduce_grads(list(grads))
     grads = dict(zip(params, grads))
     g_norm = optim.global_norm(list(grads.values()))
     if cfg.train.debug_nans:
@@ -119,3 +145,133 @@ def eval_step(model: birnn.BiRNN, cfg: Config,
                        batch["label_lengths"], impl=cfg.ctc_impl,
                        from_log_probs=True)
     return {"hyp": hyp, "hyp_len": hyp_len, "nll": nll}
+
+
+# ---------------------------------------------------------------------------
+# The mesh half: DP, SP and DP x SP over torch.distributed
+# ---------------------------------------------------------------------------
+
+def _uses_sp(mesh: mesh_lib.Mesh) -> bool:
+    return mesh.shape.get(AXIS_SEQ, 1) > 1
+
+
+def make_dp_loss_fn(cfg: Config, mesh: mesh_lib.Mesh):
+    """Pure-DP loss: :func:`loss_fn` on this rank's rows, its sums summed
+    over 'data' (the sum's backward is the identity: every rank of the
+    line computes the same loss, and the step sums the gradients)."""
+    group = mesh.group(AXIS_DATA)
+
+    def local_loss(model, batch):
+        return loss_fn(model, cfg, batch,
+                       reduce=lambda x: mesh_lib.all_reduce_sum(x, group))
+    return local_loss
+
+
+def batch_shardings(mesh: mesh_lib.Mesh) -> Dict[str, tuple]:
+    """Input specs: for each batch array, the mesh axis each dimension is
+    split over.  The batch's rows go over 'data'; with SP the frames of
+    feats and frame_mask go over 'seq' too."""
+    out = {k: (AXIS_DATA,) for k in BATCH_KEYS}
+    if _uses_sp(mesh):
+        out["feats"] = (AXIS_DATA, AXIS_SEQ, None)
+        out["frame_mask"] = (AXIS_DATA, AXIS_SEQ)
+    return out
+
+
+def local_batch(arrays: Dict[str, np.ndarray],
+                mesh: mesh_lib.Mesh) -> Dict[str, np.ndarray]:
+    """This rank's block of a global batch's host arrays."""
+    return mesh_lib.shard_batch(mesh, arrays, batch_shardings(mesh))
+
+
+def state_shardings(mesh: mesh_lib.Mesh, cfg: Config, state: TrainState):
+    """Specs of the train state: every parameter and every trace
+    replicated (``()``), as JAX's state without a 'model' axis."""
+    return {"params": {k: () for k, _ in state.model.named_parameters()},
+            "trace": {k: () for k in state.opt_state.trace}}
+
+
+def _place_state(state: TrainState, specs) -> None:
+    """Lay the state out by its :func:`state_shardings`: a replicated
+    tensor (``()``) is broadcast from rank 0 in place, so every rank starts
+    from the same bits."""
+    tensors = {**{("params", k): p for k, p in state.model.named_parameters()},
+               **{("trace", k): t for k, t in state.opt_state.trace.items()}}
+    with torch.no_grad():
+        for (kind, k), t in tensors.items():
+            if specs[kind][k] == ():
+                dist.broadcast(t, src=0)
+
+
+def _all_reduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient summed over all ranks: one all-reduce of the
+    flattened gradients."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    return [t.view_as(g) for t, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
+    """The train step of ``mesh``, with the JAX function's dispatch and
+    checks: returns (step_fn, state), step_fn(state, batch) taking this
+    rank's block of the batch as tensors (:func:`local_batch`).  The state
+    is replicated from rank 0.  TP and PP (``model > 1``) are not ported
+    and raise ``NotImplementedError`` before anything runs."""
+    shape = mesh.shape
+    loss_closure = None
+    if cfg.mesh.pipeline:
+        if shape.get(AXIS_SEQ, 1) > 1:
+            # Config validation, not a missing feature (PARITY.md
+            # "Parallelism composition"): the JAX package's words.
+            raise ValueError(
+                "mesh config invalid: pipeline=True with seq>1 is "
+                "unsupported (PP microbatch schedule and SP carry rings "
+                "serialize each other; use DPxPP or DPxSP — see "
+                "PARITY.md)")
+        if shape.get(AXIS_MODEL, 1) < 2:
+            raise ValueError("mesh.pipeline requires model axis >= 2 stages")
+        raise mesh_lib.not_ported(shape[AXIS_MODEL])
+    if _uses_sp(mesh):
+        if shape.get(AXIS_MODEL, 1) > 1:
+            raise ValueError(
+                "mesh config invalid: seq>1 with model>1 is unsupported "
+                "(SP carry rings and TP reduce-scatters compose into a "
+                "per-chunk collective chain; use DPxTP or DPxSP — see "
+                "PARITY.md)")
+        from tpu_ctc_torch.parallel.seq_parallel import make_sp_loss_fn
+        loss_closure, _ = make_sp_loss_fn(cfg, mesh)
+    elif shape.get(AXIS_MODEL, 1) > 1:
+        raise mesh_lib.not_ported(shape[AXIS_MODEL])
+    elif shape.get(AXIS_DATA, 1) > 1:
+        loss_closure = make_dp_loss_fn(cfg, mesh)
+    reduce_grads = None
+    if mesh.size > 1:
+        _place_state(state, state_shardings(mesh, cfg, state))
+        reduce_grads = _all_reduce_grads
+    return functools.partial(train_step, cfg=cfg, loss_closure=loss_closure,
+                             reduce_grads=reduce_grads), state
+
+
+def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
+    """Pure data parallelism: the eval step splits the batch's rows."""
+    shape = mesh.shape
+    return (shape.get(AXIS_DATA, 1) > 1 and shape.get(AXIS_MODEL, 1) == 1
+            and not _uses_sp(mesh) and not cfg.mesh.pipeline)
+
+
+def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
+    """eval_fn(model, batch) on the global batch's tensors -> the whole
+    batch's {"hyp", "hyp_len", "nll"} on every rank.  Under pure DP each
+    rank evaluates its rows and the outputs are gathered over 'data';
+    otherwise every rank evaluates the whole batch."""
+    if not _pure_dp(mesh, cfg):
+        return lambda model, batch: eval_step(model, cfg, batch)
+    specs = batch_shardings(mesh)
+
+    def dp_eval(model, batch):
+        local = mesh_lib.shard_batch(mesh, batch, specs)
+        out = eval_step(model, cfg, local)
+        return {k: mesh_lib.gather_blocks(mesh, v, AXIS_DATA, 0)
+                for k, v in out.items()}
+    return dp_eval
