@@ -82,6 +82,28 @@ against its plain PyTorch version on the same inputs:
      data = 2 on 4 or more; two gloo ranks on one card), the loss within
      1e-3 of one card's, the parameters bit-equal across ranks, with the
      step time and audio-s/s.
+ 13. the benchmarks and the tools: ``tpu_ctc_torch.bench.bench`` at its
+     defaults (the CPU reference on one utterance) with its JSON line and
+     the step's MFU; ``bench_ctc`` at its defaults, its spot check and B3 +
+     B4's device time within 20% of their CUDA-event time over runs of
+     back-to-back launches at its shape (phase 6's single-call medians
+     scaled to T = 1600 printed beside it);
+     ``bench_decode --preset4 --skip-plain`` and ``bench_decode
+     --host-utts 4``; the C++ host decoder (``decode/cpp_decoder.py``)
+     against B5 on phase 3's posteriors and trigram (no pruning: the C++
+     search has none), beside the plain search in float32 and in float64:
+     the C++ decoder equal to the float64 search everywhere, and to B5
+     (hypotheses, scores within ``torch_tools/cpp_b5.py``'s limit) on
+     every utterance where the float32 and float64 searches do not part;
+     ``torch_tools/smoke_cuda_decode.py``; ``preset_fit --budget --step`` for presets 2
+     and 3 (B = 8), the budget beside the measured peak; ``bench_scaling
+     --strategy dp`` over 1 and all the cards ``nvidia-smi -L`` lists;
+     then the tools under ``build/chip_smoke_tools``:
+     ``make_sample_corpus``, ``make_manifest --layout timit``, a 2-point
+     ``sweep_decode`` of phase 11's checkpoint on the card, ``cli decode``
+     at its best point (its CER printed beside the sweep's) and
+     ``score``.  The benches' launches are not a main path's: the counts
+     are zeroed before the phase and not read.
 
 Each main path (phases 4, 7, both widths of 10, phase 11's training and
 its decodes, and phase 12's two mesh runs, the ranks' launches summed) is
@@ -104,7 +126,7 @@ single calls after a warm-up call.  The last two lines are the per-kernel
 JSON record (B1's with ``h0_launches``, its launches from a carry on the
 sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all twelve phases, one card
+    python3 chip_smoke.py                 # all thirteen phases, one card
 """
 from __future__ import annotations
 
@@ -1437,11 +1459,13 @@ def check_batched_cer(what, hyp_dir, dev="cuda"):
         raise AssertionError("batched_edit_distance disagrees with the host")
 
 
-def phase_audio(seed: int, phase7, phase4, dev="cuda"):
+def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
+                dev="cuda"):
     """Audio in, text out on the card: the frontend, a manifest corpus,
     ``cli train --data`` (preset 2, with ``train.eval_beam``), remat, the
     checkpoint's decode and score, ``export-weights``, preset 4 from audio,
-    ``batched_cer`` and the prefetch.  Returns {path: launches}."""
+    ``batched_cer`` and the prefetch.  The trained checkpoint is copied to
+    ``keep_checkpoint`` (phase 13 sweeps it).  Returns {path: launches}."""
     import shutil
 
     from tpu_ctc_torch import cli
@@ -1697,6 +1721,8 @@ def phase_audio(seed: int, phase7, phase4, dev="cuda"):
         n_eq += 1
     log(f"phase 11: prefetch: {n_eq} batches bit-equal to the loader's own "
         f"moved without it")
+    shutil.rmtree(keep_checkpoint, ignore_errors=True)
+    shutil.copytree(ckpt_dir, keep_checkpoint)
     shutil.rmtree(root, ignore_errors=True)
     return {"audio_train": train_launches,
             "audio_decode": {k: dec_launches.get(k, 0) + p4_launches.get(k, 0)
@@ -1839,13 +1865,6 @@ def preset3_batches(n_steps: int):
                                               cfg.data).epoch(0)][:n_steps]
 
 
-def free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def phase_mesh_one(steps=3, dev="cuda"):
     """Phase 12, part 3: preset 3 at B = 64 through ``make_mesh`` and
     ``make_train_step`` with a one-rank NCCL group, against ``train_step``
@@ -1857,7 +1876,8 @@ def phase_mesh_one(steps=3, dev="cuda"):
     from tpu_ctc_torch.train import step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     cfg, batches = preset3_batches(steps)
-    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0,
+                           device=dev)
     try:
         mesh = mesh_lib.make_mesh(cfg.mesh)
         log(f"phase 12: one-rank {dist.get_backend()} group, mesh "
@@ -1963,29 +1983,14 @@ def spawn_ranks(world: int, backend: str, devs, data: int, seq: int,
     ``world`` ranks (one process each on ``devs[r]``, ``backend``, mesh
     data x seq); returns each rank's record: losses, step walls, launches
     on the path and a hash of its parameters."""
+    from tpu_ctc_torch.parallel import distributed
     root = os.path.dirname(os.path.abspath(__file__))
-    coord = f"127.0.0.1:{free_port()}"
-    env = dict(os.environ, PYTHONPATH=root)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK_WORKER, coord, str(r), str(world),
-         backend, devs[r], root, str(data), str(seq), str(steps)], cwd=root,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    recs = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        lines = [x for x in out.splitlines() if x.startswith("RANK ")]
-        if p.returncode != 0 or not lines:
-            raise AssertionError(f"rank {r} failed (exit {p.returncode}):\n"
-                                 f"{out[-3000:]}")
-        recs.append(json.loads(lines[-1][5:]))
-    return recs
+    coord = f"127.0.0.1:{distributed.free_port()}"
+    return distributed.spawn_ranks(
+        [[sys.executable, "-c", RANK_WORKER, coord, str(r), str(world),
+          backend, devs[r], root, str(data), str(seq), str(steps)]
+         for r in range(world)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), timeout=timeout)
 
 
 def phase_mesh_ranks(ref_losses):
@@ -2027,6 +2032,185 @@ def phase_mesh_ranks(ref_losses):
         raise AssertionError("the SP step launched no B1 or B2")
     return launches, {"world": world, "backend": backend, "cards": count,
                       "step_ms": step_s * 1e3, "rate": audio / step_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the benchmarks and the tools
+# ---------------------------------------------------------------------------
+
+def run_tool(what: str, main, argv):
+    """``main(argv)`` (a bench's or a tool's) with its stdout and stderr
+    logged line by line as ``phase 13: <what>: ...``; raises unless it
+    returns 0.  Returns its stdout's lines."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        for line in err.getvalue().splitlines() + out.getvalue().splitlines():
+            log(f"phase 13: {what}: {line}")
+    if rc != 0:
+        raise AssertionError(f"{what} returned {rc}")
+    return out.getvalue().splitlines()
+
+
+def bench_json(what: str, lines, may_be_null=()):
+    """The JSON object on the last of a bench's stdout lines; raises where
+    a value other than those in ``may_be_null`` is null."""
+    rec = json.loads(lines[-1])
+    nulls = [k for k, v in rec.items() if v is None and k not in may_be_null]
+    if nulls:
+        raise AssertionError(f"{what}: null in place of {nulls}")
+    return rec
+
+
+def cpp_against_b5(dev="cuda"):
+    """The native C++ decoder (double sums, ``decode/cpp_decoder.py``)
+    against kernel B5 on phase 3's posteriors and trigram (B = 64,
+    T = 800, K = 128, alpha 1.25, beta 1.5, no pruning or char cap: the
+    C++ search takes neither), with the plain search in float32 and in
+    float64 on the card beside them, under ``torch_tools/cpp_b5.py``'s
+    rule (PERF.md section 2).  The C++ search runs slices of the batch at
+    once; its rate is the audio over the slices' summed times (one
+    core's rate)."""
+    from torch_tools import cpp_b5
+    lp, lens = peaked_posteriors(2, 64, 800)
+    r = cpp_b5.compare(lp, lens, seeded_trigram(3), 128, 216, 1.25, 1.5, dev)
+    audio = float(lens.sum()) / 100
+    log(f"phase 13: cpp against B5 (B=64, T=800, K=128, trigram): "
+        f"{cpp_b5.summary(r)}; cpp {audio / r['cpp_cpu_s']:.1f} audio-s/s a "
+        f"core ({r['cpp_cpu_s']:.1f} s on {cpp_b5.THREADS} threads, "
+        f"{r['cpp_wall_s']:.1f} s wall)")
+    if not cpp_b5.holds(r):
+        raise AssertionError("the C++ decoder disagrees with B5")
+
+
+def tools_round_trip(checkpoint_dir: str, dev="cuda"):
+    """The tools on a corpus under ``build/chip_smoke_tools``:
+    ``make_sample_corpus`` (24 SPHERE utterances in a TIMIT layout), then
+    ``make_manifest --layout timit`` with valid and dev splits, then a
+    2-point ``sweep_decode`` (CER) of phase 11's checkpoint (preset 2) on
+    the dev split on the card, then ``cli decode`` of the dev split at the
+    best point and ``score`` of its trn files.  Each must run and print
+    its line; the decode's CER is printed beside the sweep's, not held to
+    it: phase 11's checkpoint has taken a few steps and decodes empty
+    hypotheses, so every grid point reads 100% whatever alpha and beta
+    do."""
+    import shutil
+
+    from tpu_ctc_torch import cli
+    from torch_tools import make_manifest, make_sample_corpus, score
+    from torch_tools import sweep_decode
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_tools")
+    tree, data, hyp = (os.path.join(root, d) for d in ("tree", "manifest",
+                                                       "hyp"))
+    for d in (tree, data, hyp):
+        shutil.rmtree(d, ignore_errors=True)
+    run_tool("make_sample_corpus", make_sample_corpus.main,
+             ["--out", tree, "--n", "24", "--seed", "13"])
+    run_tool("make_manifest", make_manifest.main,
+             ["--layout", "timit", "--src", tree, "--out", data,
+              "--val-frac", "0.2", "--dev-frac", "0.4"])
+    lines = run_tool("sweep_decode", sweep_decode.main, [
+        "--config", "2", "--data", data, "--split", "dev", "--checkpoint",
+        checkpoint_dir, "--alphas", "1.0", "--betas", "0.5,1.5", "--unit",
+        "char", "--device", dev])
+    best = bench_json("sweep_decode", lines)["best"]
+    decoded = run_tool("cli decode", cli.main, [
+        "decode", "--config", "2", "--checkpoint", checkpoint_dir, "--data",
+        data, "--split", "dev", "--beam", "--hyp-out", hyp, "--device", dev,
+        "--set", f"decode.lm_alpha={best['alpha']}",
+        "--set", f"decode.lm_beta={best['beta']}"])
+    cer = float(re.search(r"CER ([\d.]+)%", "\n".join(decoded)).group(1))
+    line = run_tool("score", score.main, [
+        "--ref", os.path.join(hyp, "ref.trn"), "--hyp",
+        os.path.join(hyp, "hyp.trn"), "--unit", "char"])[0]
+    log(f"phase 13: tools round trip: best point {best}; the decode's CER at "
+        f"it {cer:.2f}%; score of its trn files (trailing spaces dropped): "
+        f"{line}")
+    if "CER" not in line:
+        raise AssertionError(f"score printed no CER: {line}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def ctc_event_ms_at_bench_shape(dev="cuda"):
+    """B3 + B4 on ``bench_ctc``'s inputs at its defaults (B = 32,
+    T = 1600, L = 120) as phase 6 launches them, each timed with CUDA
+    events around runs of back-to-back launches
+    (``utils.devtime.event_ms``)."""
+    from tpu_ctc_torch.bench import bench_ctc
+    from tpu_ctc_torch.ops import ctc_cuda
+    from tpu_ctc_torch.utils.devtime import event_ms
+    logits, labels, tl, ll = bench_ctc.inputs(device=dev)
+    emit, skip, skip2, init, final, lengths = ctc_cuda.lattice(
+        torch.log_softmax(logits, -1), labels, tl, ll)
+    return (event_ms(ctc_cuda.alpha_cuda, emit, skip, init, lengths)
+            + event_ms(ctc_cuda.beta_cuda, emit, skip2, final, lengths))
+
+
+def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
+    """Phase 13: the port's benches and tools on the card, each JSON line
+    printed; B3 + B4's device time in ``bench_ctc`` (T = 1600) within 20%
+    of their CUDA-event time on its lattice
+    (:func:`ctc_event_ms_at_bench_shape`; phase 6's single-call medians
+    scaled by 1600 / 800 are printed beside it).  The benches' launches
+    are no main path's: the counts are zeroed first and not read."""
+    from tpu_ctc_torch.bench import (bench, bench_ctc, bench_decode,
+                                     bench_scaling)
+    from torch_tools import preset_fit, smoke_cuda_decode
+    for kern in all_kernels():
+        kern.launches = 0
+    t0 = time.time()
+    bench_json("bench.bench", run_tool(
+        "bench.bench", bench.main, ["--cpu-utts", "1"]))
+
+    ran = {}
+
+    def ctc_bench(_):
+        ran["results"], cells = bench_ctc.run()
+        print(json.dumps(bench_ctc.report(ran["results"], cells, dev)))
+        return 0
+    bench_json("bench_ctc", run_tool("bench_ctc", ctc_bench, []))
+    got = ran["results"]["b3"] + ran["results"]["b4"]
+    want = ctc_event_ms_at_bench_shape()
+    ms6 = {r["name"]: r["ms"] for r in phase6}
+    scaled = (ms6["ctc_alpha"] + ms6["ctc_beta"]) * 1600 / 800
+    log(f"phase 13: bench_ctc B3 + B4 device time {got:.4f} ms a call at "
+        f"T=1600; CUDA events around runs of 10 launches of phase 6's "
+        f"kernels on its lattice {want:.4f} ms ({got / want - 1:+.1%}, limit "
+        f"20%); phase 6's single-call event medians scaled to T=1600 "
+        f"{scaled:.4f} ms ({got / scaled - 1:+.1%}: a single call's events "
+        f"also time the wrapper's host work, which T does not scale)")
+    if abs(got - want) > 0.2 * want:
+        raise AssertionError("bench_ctc's B3 + B4 device time is off their "
+                             "event time")
+
+    # preset 4's shape runs no host decoder (minutes at T = 1600), so its
+    # vs_baseline is null by the bench's design
+    bench_json("bench_decode --preset4", run_tool(
+        "bench_decode --preset4", bench_decode.main,
+        ["--preset4", "--skip-plain"]), may_be_null=("vs_baseline",))
+    bench_json("bench_decode", run_tool(
+        "bench_decode", bench_decode.main, ["--host-utts", "4"]))
+    cpp_against_b5(dev)
+    run_tool("smoke_cuda_decode", lambda _: smoke_cuda_decode.main(), [])
+    for preset, extra in (("2", []), ("3", ["--batch", "8"])):
+        lines = run_tool(f"preset_fit --preset {preset}", preset_fit.main,
+                         ["--preset", preset, "--budget", "--step", *extra])
+        step = json.loads(lines[-1])
+        log(f"phase 13: preset {preset} at B={step['batch']} "
+            f"T={step['frames']}: budget total "
+            f"{step['budget_total_bytes'] / 2**30:.3f} GiB, measured peak "
+            f"{step['peak_bytes'] / 2**30:.3f} GiB "
+            f"({step['peak_over_budget']} of the budget)")
+    counts = ",".join(str(c) for c in sorted({1, card_count()}))
+    bench_json("bench_scaling", run_tool(
+        "bench_scaling --strategy dp", bench_scaling.main,
+        ["--strategy", "dp", "--device-counts", counts]))
+    tools_round_trip(checkpoint_dir, dev)
+    log(f"phase 13: benches and tools passed in {time.time() - t0:.1f} s")
 
 
 def device_breakdown(run, phase: str):
@@ -2082,12 +2266,16 @@ def main() -> int:
     phase_wide_ngram(REPS)
     records.append(phase_beam_gru(REPS, "phase 9", k=200))
     gru_launches, _ = phase_gru_decode(seed=0)
+    kept = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_tools", "checkpoint")
     paths = {"decode": decode_launches, "train": train_launches,
              "gru": gru_launches,
-             **phase_audio(seed=0, phase7=phase7, phase4=phase4)}
+             **phase_audio(seed=0, phase7=phase7, phase4=phase4,
+                           keep_checkpoint=kept)}
     carry_err, _ = phase_carry(REPS)
     paths["mesh_one"], ref_losses = phase_mesh_one()
     paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
+    phase_tools(records, kept)
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))

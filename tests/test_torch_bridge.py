@@ -144,17 +144,26 @@ class TestCopiedModules:
 class TestImportHygiene:
     def test_no_jax_in_the_port(self):
         code = (
-            "import importlib, pkgutil, sys\n"
-            "import tpu_ctc_torch\n"
-            "for m in pkgutil.walk_packages(tpu_ctc_torch.__path__, "
-            "'tpu_ctc_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "import importlib, os, pkgutil, sys\n"
+            "import tpu_ctc_torch, torch_tools\n"
+            "for pkg in (tpu_ctc_torch, torch_tools):\n"
+            "    for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.'):\n"
+            "        importlib.import_module(m.name)\n"
             "bad = [n for n in sys.modules if n == 'jax' or "
             "n.startswith('jax.') or n == 'tpu_ctc' or "
             "n.startswith('tpu_ctc.')]\n"
             "assert not bad, bad\n"
+            "root = os.getcwd()\n"
+            "tools = os.path.join(root, 'tools') + os.sep\n"
+            "bench = os.path.join(root, 'bench.py')\n"
+            "files = {n: os.path.abspath(getattr(m, '__file__', None) or '')"
+            " for n, m in list(sys.modules.items())}\n"
+            "bad = [n for n, f in files.items() if f.startswith(tools) or "
+            "f == bench]\n"
+            "assert not bad, bad\n"
             "print(' '.join(n for n in sys.modules "
-            "if n.startswith('tpu_ctc_torch')))\n")
+            "if n.startswith(('tpu_ctc_torch', 'torch_tools'))))\n")
         env = dict(os.environ, PYTHONPATH=REPO)
         out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                              text=True, cwd=REPO, env=env, timeout=120)
@@ -163,8 +172,15 @@ class TestImportHygiene:
         assert len(modules) >= 20
         for name in ("decode.neural_lm", "frontend.features", "data.audio_io",
                      "data.manifest", "data.prefetch", "parallel.mesh",
-                     "parallel.distributed", "parallel.seq_parallel"):
+                     "parallel.distributed", "parallel.seq_parallel",
+                     "decode.cpp_decoder", "bench.reference_numpy",
+                     "bench.bench", "bench.bench_ctc", "bench.bench_decode",
+                     "bench.bench_scaling", "utils.profiling",
+                     "utils.devtime"):
             assert "tpu_ctc_torch." + name in modules
+        for name in ("score", "make_manifest", "make_sample_corpus",
+                     "sweep_decode", "preset_fit", "smoke_cuda_decode"):
+            assert "torch_tools." + name in modules
 
     def test_sources_never_name_jax(self):
         paths = [os.path.join(REPO, "chip_smoke.py")]

@@ -23,6 +23,10 @@ expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
 its f32 sums.  The audio path: the frontend on the card within PERF.md
 section 2's limits of the CPU's, prefetched batches bit-equal, and
 ``model.remat`` bit-equal (in deterministic mode) with B1 launched twice.
+The benches and tools: ``utils.devtime.device_time_ms`` of B3 within 20%
+of its CUDA-event time, the C++ host decoder against B5 under the rule of
+``torch_tools/cpp_b5.py`` (phase 13's) and
+``torch_tools/smoke_cuda_decode.py`` passing.
 """
 import ctypes
 import dataclasses
@@ -950,3 +954,48 @@ def test_two_rank_nccl_dp_step(dev, tmp_path):
         state, m = step.train_step(state, step.batch_to_tensors(
             batch_to_device_dict(batch), dev), cfg)
     np.testing.assert_allclose(a[1], float(m["loss"]), rtol=1e-3)
+
+
+def test_device_time_of_b3_matches_its_event_time(dev):
+    """``utils.devtime.device_time_ms`` of kernel B3, picked by its
+    ``kernel=`` filter out of a call that launches B3 and B4, within 20%
+    of B3's CUDA-event time over runs of back-to-back launches
+    (``utils.devtime.event_ms``: a run keeps the card busy while the host
+    prepares the next launch; an event pair around one call after a sync
+    also times the wrapper's host work, ~0.05-0.1 ms).  Without the
+    filter the call's device time also holds B4's, which takes about as
+    long as B3's on this lattice."""
+    from tpu_ctc_torch.utils.devtime import device_time_ms, event_ms
+    emit, skip, skip2, init, final, lengths = _lattice(
+        dev, 21, 32, 1600, 29, 120, tl=np.full(32, 1600),
+        ll=np.full(32, 120))
+
+    def b3():
+        return ctc_cuda.alpha_cuda(emit, skip, init, lengths)
+
+    def b3_b4():
+        return b3(), ctc_cuda.beta_cuda(emit, skip2, final, lengths)
+
+    ev_ms = event_ms(b3)
+    dev_ms = device_time_ms(b3_b4, iters=10, kernel="ctc_alpha_kernel")
+    assert abs(dev_ms - ev_ms) <= 0.2 * ev_ms, (dev_ms, ev_ms)
+    assert device_time_ms(b3_b4, iters=10) >= 1.5 * dev_ms
+
+
+def test_cpp_decoder_matches_b5(dev):
+    """The native host decoder (double sums) against kernel B5 on the same
+    posteriors and trigram, under the rule phase 13 of ``chip_smoke.py``
+    holds them to (``torch_tools/cpp_b5.py``): B5 equal to the float32
+    plain search, the C++ decoder to the float64 one, and the two equal
+    where those do not part."""
+    from torch_tools import cpp_b5
+    lp, lens = _posteriors(31, 6, 120, 29)
+    r = cpp_b5.compare(lp, lens, _lm(3, 29, 3), 32, 60, 1.25, 1.5, dev)
+    assert cpp_b5.holds(r), cpp_b5.summary(r)
+
+
+def test_smoke_cuda_decode_passes(dev):
+    """``torch_tools/smoke_cuda_decode.py`` at the product shape (B = 32,
+    T = 400, K = 64): every row agrees with the plain search."""
+    from torch_tools import smoke_cuda_decode
+    assert smoke_cuda_decode.main() == 0

@@ -139,6 +139,9 @@ with pytest.raises(AssertionError, match="divergence"):
     distributed.assert_same_across_hosts(float(pid), "differs")
 with pytest.raises(NotImplementedError, match="tensor and pipeline"):
     mesh_lib.make_mesh(MeshConfig(data=1, model=2, seq=1))
+# leave together: a rank whose peer has gone can abort in gloo's teardown
+dist.barrier()
+dist.destroy_process_group()
 print(f"OK process {pid}", flush=True)
 """
 

@@ -40,10 +40,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "torch_tools"))
 
 import chip_smoke  # noqa: E402
-import kernel_stamps  # noqa: E402
+from torch_tools import kernel_stamps  # noqa: E402
 from tpu_ctc_torch.ops import _build, beam_cuda  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "beam_breakdown")

@@ -14,7 +14,8 @@ states equal the kernels'.
 :func:`prefix_beam_search_host` is the dict-based host algorithm for one
 utterance, the recompute-from-prefix oracle of the batched search.
 
-:func:`make_beam_decoder` routes CUDA batches through kernel B5 (K <= 128)
+:func:`make_beam_decoder` (the model, then :func:`make_beam_search`, its
+search on log posteriors) routes CUDA batches through kernel B5 (K <= 128)
 or B6 (K in (128, 256]) in ``ops.beam_cuda`` and raises on CUDA for what
 they do not take; on the CPU this plain search runs, with a warning for a
 configuration that the kernels would refuse.
@@ -138,7 +139,8 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
                        lm_beta: float = 0.0, nlm_params=None,
                        char_topk: int = 0,
                        prune_logp: Optional[float] = None,
-                       return_beams: bool = False):
+                       return_beams: bool = False,
+                       dtype: torch.dtype = torch.float32):
     """Batched prefix beam search on the tensors' device.
 
     log_probs [B, T, A] normalized log posteriors, frame_lengths [B] ->
@@ -148,16 +150,19 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
     ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``) on the
     tensors' device; its rows ``lm_alpha * log_probs(h) + lm_beta`` are
     added to the n-gram rows (so beta counts twice when both are on, as in
-    the JAX package).
+    the JAX package).  ``dtype`` is that of the scores and their sums:
+    float32 as the kernels and the reference; float64 gives the same
+    search in double, the twin of the C++ host decoder
+    (``decode/cpp_decoder.py``), which sums in double.
     """
     dev = log_probs.device
-    lp_all = log_probs.to(torch.float32)
+    lp_all = log_probs.to(dtype)
     n_b, n_t, a = lp_all.shape
     k = beam_width
     c_cols = a - 1 if not char_topk else min(char_topk, a - 1)
     lens = frame_lengths.to(dev).to(torch.int64)
     if lm_table is not None:
-        lm_table = lm_table.to(device=dev, dtype=torch.float32)
+        lm_table = lm_table.to(device=dev, dtype=dtype)
 
     i64 = torch.int64
     bidx = torch.arange(n_b, device=dev)[:, None]            # [B, 1]
@@ -170,10 +175,10 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
     dead_hash = (beam_ids + 1).expand(n_b, k)
     h1 = torch.where(beam_ids == 0, _H1_EMPTY, beam_ids + 1).expand(n_b, k)
     h2 = torch.where(beam_ids == 0, _H2_EMPTY, beam_ids + 1).expand(n_b, k)
-    pb = torch.where(beam_ids == 0, 0.0, NEG_INF).to(torch.float32).expand(
+    pb = torch.where(beam_ids == 0, 0.0, NEG_INF).to(dtype).expand(
         n_b, k).clone()
-    pnb = torch.full((n_b, k), NEG_INF, device=dev)
-    neg = torch.tensor(NEG_INF, device=dev)
+    pnb = torch.full((n_b, k), NEG_INF, dtype=dtype, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=dtype, device=dev)
     hlm = None
     if nlm_params is not None:
         # per-beam GRU state over the prefix, from the BOS-stepped start
@@ -192,7 +197,8 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
             chars_sel = torch.where(chars < blank, chars,
                                     chars + 1)[:a - 1].expand(n_b, a - 1)
             lp_sel = torch.gather(lp_ext, 1, chars_sel)
-            sel_thresh = torch.full((n_b, 1), 2 * NEG_INF, device=dev)
+            sel_thresh = torch.full((n_b, 1), 2 * NEG_INF, dtype=dtype,
+                                    device=dev)
         if prune_logp is not None:
             lp_sel = torch.where(lp_sel < prune_logp, neg, lp_sel)
 
@@ -250,7 +256,7 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
         ext_pnb = torch.where(excl > 0, neg, ext_pnb)
 
         # ---- one top-K over the [A, K] grid in enumeration order ----------
-        ext_full = torch.full((n_b, k, a), NEG_INF, device=dev)
+        ext_full = torch.full((n_b, k, a), NEG_INF, dtype=dtype, device=dev)
         ext_full.scatter_(2, chars_sel[:, None, :].expand(n_b, k, -1),
                           ext_pnb)
         stay_merged = _lse2(stay_pb, stay_pnb)
@@ -323,48 +329,78 @@ def prefix_beam_search(log_probs: torch.Tensor, frame_lengths: torch.Tensor,
     return out
 
 
-def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
-                      nlm_params=None, device=None):
-    """Build a (model, batch) -> (hyps, lens) decode function.
-
-    ``batch`` holds ``feats`` [B, T, D], ``frame_mask`` [B, T],
-    ``frame_lengths`` [B] and ``labels`` [B, L] (numpy arrays or tensors);
-    ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``), moved to the
-    device here.  With ``cfg.decode.use_fused_kernel`` set, the search runs
-    kernel B5 (K <= 128) or B6 (K in (128, 256]) on CUDA and the plain
-    search on the CPU.  A configuration that the kernels do not take (K >
-    256, vocab > 64, LM order > 3, GRU dims over E = 128 or H = 256) is
-    decided from the configuration alone, before anything touches the
-    device: on CUDA it raises ``NotImplementedError`` naming the limit (no
-    plain search runs on the card in the kernels' place); on the CPU a
-    warning names the configuration and the plain search runs, where LM
-    order > 3 raises in its first frame, as in the reference.  The model
-    runs on ``device`` (default ``cuda``).
-    """
+def make_beam_search(cfg, lm: Optional[NGramCharLM] = None,
+                     nlm_params=None, device=None):
+    """The search :func:`make_beam_decoder` runs, on log posteriors:
+    (log_probs [B, T, A], frame_lengths [B], max_len, lm_alpha=None,
+    lm_beta=None) -> (hyps [B, max_len] int32, lens [B] int32, scores [B]
+    f32), alpha and beta defaulting to ``cfg.decode``'s.  With
+    ``cfg.decode.use_fused_kernel`` set it is kernel B5 (K <= 128) or B6
+    (K in (128, 256]) on CUDA and the plain search on the CPU.  A
+    configuration that the kernels do not take (K > 256, vocab > 64, LM
+    order > 3, GRU dims over E = 128 or H = 256) is decided from the
+    configuration alone, before anything touches the device: on CUDA it
+    raises ``NotImplementedError`` naming the limit (no plain search runs
+    on the card in the kernels' place); on the CPU a warning names the
+    configuration and the plain search runs, where LM order > 3 raises in
+    its first frame, as in the reference.  ``nlm_params`` is moved to
+    ``device`` (default ``cuda``)."""
     from tpu_ctc_torch import resolve_device
-    from tpu_ctc_torch.models import birnn
     from tpu_ctc_torch.ops import beam_cuda
 
+    d = cfg.decode
     vocab = cfg.model.vocab_size
     lm_order = lm.order if lm is not None else 0
-    use_kernel = cfg.decode.use_fused_kernel and beam_cuda.supported(
-        cfg.decode.beam_width, vocab, lm_order, nlm_params)
-    if cfg.decode.use_fused_kernel and not use_kernel:
+    use_kernel = d.use_fused_kernel and beam_cuda.supported(
+        d.beam_width, vocab, lm_order, nlm_params)
+    if d.use_fused_kernel and not use_kernel:
         if torch.device(device if device is not None else "cuda").type \
                 == "cuda":                      # raises, naming the limit
-            beam_cuda.check_supported(cfg.decode.beam_width, vocab, lm_order,
+            beam_cuda.check_supported(d.beam_width, vocab, lm_order,
                                       nlm_params)
         logging.getLogger("tpu_ctc_torch.decode").warning(
             "fused beam-search kernel does not support this configuration "
             "(K=%d vocab=%d lm_order=%d neural_lm=%s) — decoding on the "
             "plain search (prefix_beam_search) on the CPU; on a CUDA device "
             "this configuration raises NotImplementedError",
-            cfg.decode.beam_width, vocab, lm_order, nlm_params is not None)
+            d.beam_width, vocab, lm_order, nlm_params is not None)
     dev = resolve_device(device)
     lm_table = lm.tables(dev) if lm is not None else None
     if nlm_params is not None:
         nlm_params = nlm_params.to(dev)
-    search = beam_cuda.beam_search if use_kernel else prefix_beam_search
+    impl = beam_cuda.beam_search if use_kernel else prefix_beam_search
+
+    def search(log_probs, frame_lengths, max_len, lm_alpha=None,
+               lm_beta=None):
+        return impl(
+            log_probs, frame_lengths, beam_width=d.beam_width,
+            max_len=max_len, lm_table=lm_table, lm_order=lm_order,
+            lm_alpha=d.lm_alpha if lm_alpha is None else lm_alpha,
+            lm_beta=d.lm_beta if lm_beta is None else lm_beta,
+            nlm_params=nlm_params, char_topk=d.char_topk,
+            prune_logp=d.prune_logp)
+
+    return search
+
+
+def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
+                      nlm_params=None, device=None):
+    """Build a (model, batch) -> (hyps, lens) decode function.
+
+    ``batch`` holds ``feats`` [B, T, D], ``frame_mask`` [B, T],
+    ``frame_lengths`` [B] and ``labels`` [B, L] (numpy arrays or tensors);
+    ``nlm_params`` is a GRU char LM (``neural_lm.CharRNNLM``).  The model's
+    log posteriors go through :func:`make_beam_search`'s search (kernel B5
+    or B6 on CUDA, the plain search on the CPU; what the kernels do not
+    take raises on CUDA and warns on the CPU, before anything touches the
+    device), with ``max_len`` = min(2 L + 16, T).  The model runs on
+    ``device`` (default ``cuda``).
+    """
+    from tpu_ctc_torch import resolve_device
+    from tpu_ctc_torch.models import birnn
+
+    search = make_beam_search(cfg, lm, nlm_params, device)
+    dev = resolve_device(device)
 
     def decode(model, batch):
         feats = torch.as_tensor(batch["feats"], device=dev)
@@ -374,12 +410,7 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
             log_probs = birnn.log_posteriors(model, cfg.model, feats, mask)
         max_len = min(int(batch["labels"].shape[1]) * 2 + 16,
                       int(feats.shape[1]))
-        hyps, lens, _ = search(
-            log_probs, lengths, beam_width=cfg.decode.beam_width,
-            max_len=max_len, lm_table=lm_table, lm_order=lm_order,
-            lm_alpha=cfg.decode.lm_alpha, lm_beta=cfg.decode.lm_beta,
-            nlm_params=nlm_params, char_topk=cfg.decode.char_topk,
-            prune_logp=cfg.decode.prune_logp)
+        hyps, lens, _ = search(log_probs, lengths, max_len)
         return hyps, lens
 
     return decode

@@ -5,12 +5,16 @@ Counterpart of ``tpu_ctc.parallel.distributed``.  JAX brings up one
 process per host and lets the compiler drive the host's chips; here every
 card is a rank of its own (one process each, as ``torchrun
 --nproc-per-node`` starts them), joined by ``torch.distributed``: NCCL
-between cards, gloo on the CPU.
+between cards, gloo on the CPU.  :func:`spawn_ranks` starts such a group
+as processes of one host and collects what each rank reports.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+import socket
+import subprocess
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -91,3 +95,38 @@ def assert_same_across_hosts(value: float, tag: str = "") -> None:
     if abs(total - expected) > 1e-6 * max(abs(expected), 1.0):
         raise AssertionError(
             f"cross-rank divergence in {tag}: local={value} sum={total}")
+
+
+def free_port() -> int:
+    """A TCP port of this host that is free now (for a coordinator)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(commands: Sequence[Sequence[str]], cwd: str,
+                env: Dict[str, str], timeout: int = 600) -> List[dict]:
+    """Run one process per rank (rank r runs ``commands[r]``) at once, wait
+    for all of them and return each rank's record: the JSON object on the
+    last line of its output that starts with ``RANK ``.  Every process has
+    ended when this returns; a rank that fails or prints no record raises
+    ``RuntimeError`` with the end of its output."""
+    procs = [subprocess.Popen(list(cmd), cwd=cwd, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [x for x in out.splitlines() if x.startswith("RANK ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"rank {r} failed (exit {p.returncode}):\n"
+                               f"{out[-3000:]}")
+        recs.append(json.loads(lines[-1][5:]))
+    return recs
