@@ -104,9 +104,27 @@ against its plain PyTorch version on the same inputs:
      at its best point (its CER printed beside the sweep's) and
      ``score``.  The benches' launches are not a main path's: the counts
      are zeroed before the phase and not read.
+ 14. preset 5's width and the 'model' axis: B1/B2's wide instance (H
+     above 16 columns a resident block) at H = 4096, B = 16 (a rank's rows
+     of preset 5 under model = 4), T = 1600, bf16 and f32, against the
+     plain loops (B1 from zero and from h0 both ways, B2 on B1's states),
+     two launches bit-equal, timed with its bound and launch plan, and B1
+     at H = 1824 still on the narrow instance; preset 5 (H = 4096, 2 dense
+     + 5 bidirectional layers) under tensor parallelism, model = 2 at a
+     global B = 8, T = 200 (two gloo ranks sharing the card, or NCCL ranks
+     on 2-3 cards; model = 4 at B = 64, T = 800 on 4 or more), bf16 and
+     f32, 2 steps against one card's ``train_step``; preset 2 as 3
+     pipeline stages, M = 4, B = 32, T = 400; the collective decode of
+     preset 4 over 2 ranks with the length-balancing redistribution, its
+     hypotheses on phase 4's posteriors bit-equal to the one-card decode;
+     ``python -m tpu_ctc_torch.dryrun`` under torchrun over 2 ranks.  The
+     wide instance's records (``birnn_fwd_wide``, ``birnn_bwd_wide``) are
+     kernels of their own in the JSON line, and B1's and B2's records
+     carry their ``wide_launches`` and ``wide_ms``.
 
 Each main path (phases 4, 7, both widths of 10, phase 11's training and
-its decodes, and phase 12's two mesh runs, the ranks' launches summed) is
+its decodes, phase 12's two mesh runs and phase 14's TP, PP and
+collective-decode runs, the ranks' launches summed) is
 run with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is the sum over the
 paths that run it.  The profile of each
@@ -126,7 +144,7 @@ single calls after a warm-up call.  The last two lines are the per-kernel
 JSON record (B1's with ``h0_launches``, its launches from a carry on the
 sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all thirteen phases, one card
+    python3 chip_smoke.py                 # all fourteen phases, one card
 """
 from __future__ import annotations
 
@@ -170,8 +188,12 @@ B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
 # The walk replaces the reference's jax.lax.scan, not a Pallas kernel.
 WALK_REPLACES = "tpu_ctc/ops/beam_pallas.py:1191"
-KERNEL_ORDER = ["birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta",
-                "beam_search", "beam_search_wide", "beam_reconstruct"]
+KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_bwd",
+                "birnn_bwd_wide", "ctc_alpha", "ctc_beta", "beam_search",
+                "beam_search_wide", "beam_reconstruct"]
+# f32 products on the FP32 pipe: the data sheet's 67 TFLOP/s counts an FMA
+# as two operations, as a product's 2 M N K does.
+F32_FMA_OPS = 67e12
 # Device kernels of the dense products (cuBLAS names them so on an H100).
 GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 B3_REPLACES = "tpu_ctc/ops/ctc_pallas.py:134"
@@ -242,9 +264,10 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 
 def all_kernels():
     from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
-    return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, ctc_cuda.ALPHA,
-            ctc_cuda.BETA, beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL,
-            beam_cuda.RECONSTRUCT)
+    return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL,
+            birnn_cuda.WIDE_KERNEL, birnn_cuda.WIDE_BWD_KERNEL,
+            ctc_cuda.ALPHA, ctc_cuda.BETA, beam_cuda.KERNEL,
+            beam_cuda.WIDE_KERNEL, beam_cuda.RECONSTRUCT)
 
 
 @contextlib.contextmanager
@@ -549,12 +572,14 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
         f"{walk_plain_ms:.3f} ms, bound {w_ms:.6f} ms ({w_by}); library: "
         f"none (no PyTorch call follows backpointers)")
     return [dict(name="beam_search", variant="trigram",
-                 paths=("decode", "audio_train", "audio_decode"),
+                 paths=("decode", "audio_train", "audio_decode",
+                        "collective"),
                  route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None),
             dict(name="beam_reconstruct",
-                 paths=("decode", "gru", "audio_train", "audio_decode"),
+                 paths=("decode", "gru", "audio_train", "audio_decode",
+                        "collective"),
                  route="cuda", source=B5_SOURCE, replaces=WALK_REPLACES,
                  max_abs_err=0.0, ms=walk_ms, plain_ms=walk_plain_ms,
                  bound_ms=w_ms, bound_by=w_by, library_ms=None)]
@@ -909,10 +934,11 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
         f"path {launches}")
     n_bi = cfg.model.num_bi_layers
     want = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
+            "birnn_fwd_wide": 0, "birnn_bwd_wide": 0,
             "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
             "beam_search_wide": 0, "beam_reconstruct": 0}
     for name, n in launches.items():
-        if not name.startswith("beam_") and n == 0:
+        if want[name] and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"training path")
     if launches != want:
@@ -2213,6 +2239,526 @@ def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
     log(f"phase 13: benches and tools passed in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: preset 5's width (B1/B2's wide instance), TP, PP, the
+# collective decode and the dry run
+# ---------------------------------------------------------------------------
+
+def sweep_bound(hs, lens, n_h, itemsize, peak, bwd_active=None, d=None):
+    """Bound of one timed sweep, as phases 2 and 5 count it: B1 reads z at
+    live frames, writes hs, reads W once and multiplies h_{t-1} @ W over
+    its nonzero entries at live frames; B2 (``bwd_active``, the units
+    0 < h < clip, and its deltas ``d``, right to left) reads hs and g at
+    active units, writes d and multiplies d_{t+1} @ W^T for the active
+    units over d_{t+1}'s nonzero entries."""
+    n_t, n_b = hs.shape[:2]
+    if bwd_active is None:
+        live = (torch.arange(n_t, device=hs.device)[:, None] < lens[None, :])
+        prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).ne(0).sum(2)
+        n_bytes = ((int(live.sum()) + n_t * n_b) * n_h + n_h * n_h) \
+            * itemsize + n_b * 4
+        n_ops = 2 * n_h * int((prev * live).sum())
+    else:
+        nxt = torch.cat([d[1:], torch.zeros_like(d[:1])]).ne(0).sum(2)
+        n_bytes = (2 * n_t * n_b * n_h + int(bwd_active.sum())
+                   + n_h * n_h) * itemsize
+        n_ops = 2 * int((bwd_active.sum(2) * nxt).sum())
+    return bound_ms(n_bytes, n_ops, peak)
+
+
+def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
+    """Phase 14, part 1: B1/B2's wide instance at preset 5's width and a
+    rank's rows under model = 4 (H = 4096, B = 16, T = 1600), bf16 and
+    f32, against the plain loops: B1 from zero and from h0 both ways, B2
+    on B1's states both ways (B1's limit, 2^-6 |x| + 2e-2, for both), two
+    launches bit-equal; times, bounds and the launch plan; B1 at H = 1824
+    still on the narrow instance."""
+    from tpu_ctc_torch.ops import birnn_cuda as bc
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(14)   # on the card
+        z = 3.0 * torch.randn((n_t, n_b, n_h), generator=gen, device=dev)
+        w = (0.5 / np.sqrt(n_h)) * torch.randn((n_h, n_h), generator=gen,
+                                               device=dev)
+        g = torch.randn((n_t, n_b, n_h), generator=gen, device=dev)
+        h0 = torch.rand((n_b, n_h), generator=gen, device=dev)
+        lens = torch.randint(n_t // 2, n_t + 1, (n_b,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        z, w, g, h0 = (x.to(dtype) for x in (z, w, g, h0))
+        wt = w.t().contiguous()
+        name = str(dtype).removeprefix("torch.")
+        if bc.instance(n_h, dtype, torch.cuda.get_device_properties(
+                0).multi_processor_count) != "wide":
+            raise AssertionError(f"H={n_h} {name} does not take the wide "
+                                 f"instance")
+        plan = bc.wide_plan(n_b, n_h, dtype)
+        counts = (bc.WIDE_KERNEL.launches, bc.WIDE_BWD_KERNEL.launches)
+
+        def check(what, got, want):
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            bad = int((diff > 2 ** -6 * want.abs() + 2e-2).sum())
+            log(f"phase 14: wide {what} {name}: max abs err "
+                f"{float(diff.max()):.3e}, {bad} beyond tolerance, max "
+                f"|value| {float(want.abs().max()):.2f}")
+            if bad:
+                raise AssertionError(f"wide {what} disagrees with its plain "
+                                     f"version")
+            return float(diff.max())
+
+        err_f = err_b = 0.0
+        states = {}
+        for reverse in (False, True):
+            for carry in (None, h0):
+                got = bc.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
+                                             clip=20.0, h0=carry)
+                torch.cuda.synchronize()
+                want = bc.fwd_recurrence_plain(z, w, lens, reverse=reverse,
+                                               clip=20.0, h0=carry)
+                err_f = max(err_f, check(
+                    f"B1 {'reversed' if reverse else 'forward'} from "
+                    f"{'h0' if carry is not None else 'zero'}", got, want))
+            states[reverse] = got
+        again = bc.fwd_recurrence_cuda(z, w, lens, reverse=True, clip=20.0,
+                                       h0=h0)
+        same_f = torch.equal(again, states[True])
+        deltas = {}
+        for reverse in (True, False):   # the forward direction's: right to left
+            hs = bc.fwd_recurrence_cuda(z, w, lens, reverse=not reverse,
+                                        clip=20.0)
+            got = bc.bwd_recurrence_cuda(g, hs, wt, reverse=reverse,
+                                         clip=20.0)
+            torch.cuda.synchronize()
+            want = bc.bwd_recurrence_plain(g, hs, wt, reverse=reverse,
+                                           clip=20.0)
+            err_b = max(err_b, check(
+                f"B2 {'right to left' if reverse else 'left to right'}",
+                got, want))
+            deltas[reverse] = (hs, got)
+        hs_f, d_f = deltas[True]
+        same_b = torch.equal(bc.bwd_recurrence_cuda(
+            g, hs_f, wt, reverse=True, clip=20.0), d_f)
+        log(f"phase 14: wide {name}: two launches bit-equal: B1 {same_f}, "
+            f"B2 {same_b}")
+        if not (same_f and same_b):
+            raise AssertionError("two launches of the wide instance differ")
+        if (bc.WIDE_KERNEL.launches == counts[0]
+                or bc.WIDE_BWD_KERNEL.launches == counts[1]):
+            raise AssertionError("the wide instance was not launched")
+        ms_f = time_ms(lambda: bc.fwd_recurrence_cuda(
+            z, w, lens, reverse=False, clip=20.0), reps)
+        ms_b = time_ms(lambda: bc.bwd_recurrence_cuda(
+            g, hs_f, wt, reverse=True, clip=20.0), reps)
+        plain_f = time_ms(lambda: bc.fwd_recurrence_plain(
+            z, w, lens, reverse=False, clip=20.0), 1)
+        plain_b = time_ms(lambda: bc.bwd_recurrence_plain(
+            g, hs_f, wt, reverse=True, clip=20.0), 1)
+        item = torch.tensor([], dtype=dtype).element_size()
+        peak = BF16_TENSOR_OPS if dtype == torch.bfloat16 else F32_FMA_OPS
+        bf = sweep_bound(states[False], lens, n_h, item, peak)
+        bb = sweep_bound(hs_f, lens, n_h, item, peak,
+                         bwd_active=(hs_f.float() > 0) & (hs_f.float() < 20),
+                         d=d_f)
+        log(f"phase 14: wide {name} at H={n_h} B={n_b} T={n_t}: grid "
+            f"{plan['grid']} blocks of 256 threads, {plan['own']} column "
+            f"tiles a block, {plan['cached']} pieces of W kept in shared "
+            f"memory ({'a warp' if item == 2 else 'a block'}), "
+            f"{plan['smem']} B of shared memory a block")
+        log(f"phase 14: wide {name}: B1 one direction {ms_f:.3f} ms "
+            f"({ms_f * 1e3 / n_t:.2f} us a step), plain {plain_f:.3f} ms, "
+            f"bound {bf[0]:.4f} ms ({bf[1]}); B2 one direction {ms_b:.3f} "
+            f"ms ({ms_b * 1e3 / n_t:.2f} us a step), plain {plain_b:.3f} "
+            f"ms, bound {bb[0]:.4f} ms ({bb[1]}); library: none")
+        if dtype == torch.bfloat16:
+            out["birnn_fwd_wide"] = dict(
+                name="birnn_fwd_wide", route="cuda", source=BIRNN_SOURCE,
+                replaces=B1_REPLACES, max_abs_err=err_f, ms=ms_f,
+                plain_ms=plain_f, bound_ms=bf[0], bound_by=bf[1],
+                library_ms=None)
+            out["birnn_bwd_wide"] = dict(
+                name="birnn_bwd_wide", route="cuda", source=BIRNN_SOURCE,
+                replaces=B2_REPLACES, max_abs_err=err_b, ms=ms_b,
+                plain_ms=plain_b, bound_ms=bb[0], bound_by=bb[1],
+                library_ms=None)
+    # H = 1824 (preset 3/4's width) still takes the narrow instance
+    r = np.random.RandomState(2)
+    z = torch.from_numpy(r.randn(64, 64, 1824).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((0.5 / np.sqrt(1824)) * r.randn(1824, 1824).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    counts = (bc.KERNEL.launches, bc.WIDE_KERNEL.launches)
+    bc.fwd_recurrence_cuda(z, w, torch.full((64,), 64, dtype=torch.int32,
+                                            device=dev), reverse=False,
+                           clip=20.0)
+    narrow = (bc.KERNEL.launches - counts[0], bc.WIDE_KERNEL.launches
+              - counts[1])
+    log(f"phase 14: B1 at H=1824: narrow launches {narrow[0]}, wide "
+        f"{narrow[1]}")
+    if narrow != (1, 0):
+        raise AssertionError("B1 at H=1824 did not take the narrow instance")
+    return [out["birnn_fwd_wide"], out["birnn_bwd_wide"]]
+
+
+def synthetic_batches(cfg, n_steps: int, batch: int, frames: int, seed: int):
+    """``n_steps`` global batches of ``batch`` seeded utterances of
+    frames/2 .. frames frames and 10-30 characters (the arrays of
+    ``train.loop.batch_to_device_dict``)."""
+    from tpu_ctc_torch.data.bucketing import make_batch
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_steps):
+        utts = [(rng.randn(rng.randint(frames // 2, frames + 1),
+                           cfg.model.input_dim).astype(np.float32),
+                 rng.randint(1, cfg.model.vocab_size,
+                             rng.randint(10, 31)).astype(np.int32))
+                for _ in range(batch)]
+        out.append(batch_to_device_dict(make_batch(
+            utts, t_pad=frames, l_pad=32, batch_size=batch)))
+    return out
+
+
+MESH14_WORKER = r"""
+import hashlib, json, sys, time
+import numpy as np, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[6])
+import chip_smoke
+from tpu_ctc_torch.config import get_config
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import step
+
+coord, rank, world, backend, dev, _, spec = sys.argv[1:8]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
+cfg = get_config(spec["preset"], **spec["overrides"])
+mesh = mesh_lib.make_mesh(cfg.mesh)
+rec = {"rank": rank, "mesh": mesh.shape}
+if spec["kind"] == "train":
+    batches = chip_smoke.synthetic_batches(cfg, spec["steps"], spec["batch"],
+                                           spec["frames"], spec["seed"])
+    state = step.create_train_state(cfg, device=dev)
+    step_fn, state = step.make_train_step(cfg, mesh, state)
+    tensors = [step.batch_to_tensors(step.local_batch(b, mesh), dev)
+               for b in batches]
+    losses, walls = [], []
+    def run():
+        global state
+        for bt in tensors:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step_fn(state, bt)
+            losses.append(float(m["loss"]))
+            walls.append(time.time() - t0)
+    _, launches = chip_smoke.run_main_path(run)
+    h = hashlib.sha256()
+    for k, p in state.model.named_parameters():
+        if step.sharded_dim(state.specs.get(k, ())) is None:
+            h.update(p.detach().cpu().numpy().tobytes())
+    if spec.get("out"):                 # the gathered parameters
+        whole = step.full_state(state)
+        if rank == 0:
+            torch.save({k: p.detach() for k, p in
+                        whole.model.named_parameters()}, spec["out"])
+    rec.update(losses=losses, walls=walls, launches=launches,
+               replicated=h.hexdigest())
+else:                               # the collective decode of preset 4
+    from tpu_ctc_torch.decode.collective import make_collective_decoder
+    from tpu_ctc_torch.models import birnn
+    model, lm, bd, max_len = chip_smoke.preset4_decode_inputs(cfg, dev)
+    dec = make_collective_decoder(cfg, mesh, lm=lm, use_beam=True,
+                                  max_len=max_len, redistribute=True,
+                                  device=dev)
+    dec(model, bd)                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (hyps, lens), launches = chip_smoke.run_main_path(
+        lambda: dec(model, bd))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ref = torch.load(spec["posteriors"])
+    n = mesh.axis_size("data")
+    rows = slice(rank * len(ref["lp"]) // n, (rank + 1) * len(ref["lp"]) // n)
+    with torch.no_grad():
+        lp = birnn.log_posteriors(
+            model, cfg.model, torch.as_tensor(bd["feats"][rows], device=dev),
+            torch.as_tensor(bd["frame_mask"][rows], device=dev))
+    same_lp = torch.equal(lp.cpu(), ref["lp"][rows])
+    h2, l2 = dec.from_posteriors(ref["lp"][rows].to(dev),
+                                 ref["lens"][rows].to(dev),
+                                 ref["mask"][rows].to(dev))
+    if rank == 0:
+        torch.save({"hyps": hyps.cpu(), "lens": lens.cpu(),
+                    "hyps_same_lp": h2.cpu(), "lens_same_lp": l2.cpu()},
+                   spec["out"])
+    rec.update(launches=launches, wall=wall, posteriors_bit_equal=same_lp)
+print("RANK " + json.dumps(rec), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def spawn_mesh14(world: int, spec: dict, timeout: int = 900):
+    """``world`` ranks of MESH14_WORKER on ``spec``: NCCL ranks one card
+    each when ``nvidia-smi -L`` lists enough cards, else gloo ranks sharing
+    card 0 (NCCL refuses two ranks on one device).  Returns (records,
+    backend)."""
+    from tpu_ctc_torch.parallel import distributed
+    count = card_count()
+    if count >= world:
+        backend, devs = "nccl", [f"cuda:{r}" for r in range(world)]
+    else:
+        backend, devs = "gloo", ["cuda:0"] * world
+    root = os.path.dirname(os.path.abspath(__file__))
+    coord = f"127.0.0.1:{distributed.free_port()}"
+    recs = distributed.spawn_ranks(
+        [[sys.executable, "-c", MESH14_WORKER, coord, str(r), str(world),
+          backend, devs[r], root, json.dumps(spec)] for r in range(world)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), timeout=timeout)
+    return recs, backend
+
+
+def one_card_reference(cfg, batches, dev="cuda"):
+    """``train_step`` of ``cfg`` (one card, its seeded weights) over the
+    batches: (losses, initial parameters, parameters after), the
+    parameters on the CPU."""
+    from tpu_ctc_torch.train import step
+    state = step.create_train_state(cfg, device=dev)
+    init = {k: p.detach().cpu().clone()
+            for k, p in state.model.named_parameters()}
+    losses = []
+    for b in batches:
+        state, m = step.train_step(state, step.batch_to_tensors(b, dev), cfg)
+        losses.append(float(m["loss"]))
+    after = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, init, after
+
+
+def param_gaps(gathered, ref):
+    """{name: |p - p_one| / |p_one - p_init|}: each parameter's distance
+    from one card's after the steps, over one card's update of it."""
+    _, init, after = ref
+    return {k: float((gathered[k].float() - want.float()).norm())
+            / max(float((want - init[k]).float().norm()), 1e-30)
+            for k, want in after.items()}
+
+
+def check_mesh_train(what, recs, backend, ref, gathered, audio_s,
+                     limits=None):
+    """Losses within LOSS_REL_TOL of one card's, replicated parameters
+    bit-equal across ranks, each gathered parameter's gap from one card's
+    (:func:`param_gaps`) within ``limits[name]`` (default GRAD_REL_TOL,
+    §2's gradient limit)."""
+    ref_losses = ref[0]
+    losses = recs[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    same = len({rec["replicated"] for rec in recs}) == 1
+    gaps = param_gaps(gathered, ref)
+    limits = limits or {k: GRAD_REL_TOL for k in gaps}
+    worst_k = max(gaps, key=lambda k: gaps[k] / limits[k])
+    step_s = float(np.median(recs[0]["walls"][1:] or recs[0]["walls"]))
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    log(f"phase 14: {what}: {len(recs)} {backend} ranks, mesh "
+        f"{recs[0]['mesh']}: losses {[round(x, 4) for x in losses]} against "
+        f"one card's {[round(x, 4) for x in ref_losses]} (rel {rel:.2e}, "
+        f"limit {LOSS_REL_TOL}); replicated parameters bit-equal across "
+        f"ranks: {same}; worst parameter |p - p_one| / |p_one - p_init| "
+        f"{gaps[worst_k]:.2e} ({worst_k}, limit {limits[worst_k]:.2e}); "
+        f"step {step_s * 1e3:.1f} ms = {audio_s / step_s:.1f} audio-s/s; "
+        f"launches on the path (all ranks) "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if rel > LOSS_REL_TOL or not same or gaps[worst_k] > limits[worst_k]:
+        raise AssertionError(f"{what} disagrees with one card's step")
+    return launches
+
+
+def phase_tp_preset5(steps=2):
+    """Phase 14, part 2: preset 5 (``swbd_wide_tp``: 2 dense and 5
+    bidirectional layers at H = 4096, bf16) under tensor parallelism at
+    full width: model = 2 at a global B = 8, T = 200 (two gloo ranks
+    sharing the card, or NCCL ranks on 2-3 cards), or model = 4 at B = 64,
+    T = 800 on 4 or more cards; 2 steps against one card's ``train_step``
+    of preset 5 on the same batches.  At bf16 a parameter's gap from one
+    card's moves with the order of f32 sums alone (one card with the f32
+    GEMMs in place of the bf16 ones moves the first layer's by ~6e-2 of
+    its update), so there each gap is held to GRAD_REL_TOL plus twice
+    that one-card gap; the same run at an f32 compute dtype (the wide
+    instance's f32 kernels) holds every gap to GRAD_REL_TOL."""
+    from tpu_ctc_torch.config import get_config
+    world, batch, frames = ((4, 64, 800) if card_count() >= 4
+                            else (2, 8, 200))
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke_tp.pt")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config("5", **{"model.compute_dtype": dtype})
+        batches = synthetic_batches(cfg, steps, batch, frames, seed=5)
+        spec = dict(kind="train", preset="5", steps=steps, batch=batch,
+                    frames=frames, seed=5, out=out,
+                    overrides={"mesh.data": 1, "mesh.model": world,
+                               "model.compute_dtype": dtype})
+        log(f"phase 14: preset {cfg.name} (H={cfg.model.hidden_dim}, "
+            f"{cfg.model.num_pre_layers} dense + {cfg.model.num_bi_layers} "
+            f"bidirectional layers, {dtype}) under TP, model = {world}, "
+            f"global B={batch} T={frames}, {steps} steps")
+        recs, backend = spawn_mesh14(world, spec)
+        gathered = torch.load(out)
+        os.remove(out)
+        one = cfg.override(**{"mesh.model": 1})
+        ref = one_card_reference(one, batches)
+        limits = None
+        if dtype == "bfloat16":
+            with f32_dense_products():
+                other = one_card_reference(one, batches)
+            floor = param_gaps(other[2], ref)
+            limits = {k: GRAD_REL_TOL + 2 * g for k, g in floor.items()}
+            worst = max(floor, key=floor.get)
+            log(f"phase 14: one card, f32 GEMMs against bf16 GEMMs: worst "
+                f"parameter gap {floor[worst]:.2e} ({worst})")
+        audio = float(np.mean([b["frame_lengths"].sum() / 100
+                               for b in batches]))
+        got = check_mesh_train(f"preset 5 TP {dtype}", recs, backend, ref,
+                               gathered, audio, limits)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    if not launches["birnn_fwd_wide"] or not launches["birnn_bwd_wide"]:
+        raise AssertionError("the TP step did not take B1/B2's wide "
+                             "instance")
+    return launches
+
+
+def phase_pp_preset2(steps=2, stages=3, batch=32, frames=400):
+    """Phase 14, part 3: preset 2 (3 bidirectional layers at H = 1024,
+    bf16) as 3 pipeline stages with M = 4 microbatches (gloo ranks sharing
+    the card, or NCCL ranks on 3 or more cards), 2 steps at B = 32,
+    T = 400 against one card's ``train_step``, the gaps held as part 2's
+    bf16 gaps."""
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.parallel.pipeline import stack_bi_params
+    cfg = get_config("2")
+    batches = synthetic_batches(cfg, steps, batch, frames, seed=2)
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_pp.pt")
+    spec = dict(kind="train", preset="2", steps=steps, batch=batch,
+                frames=frames, seed=2, out=out,
+                overrides={"mesh.data": 1, "mesh.model": stages,
+                           "mesh.pipeline": True,
+                           "mesh.pipeline_microbatches": 4})
+    log(f"phase 14: preset {cfg.name} as {stages} pipeline stages, M = 4, "
+        f"B={batch} T={frames}, {steps} steps")
+    recs, backend = spawn_mesh14(stages, spec)
+    gathered = torch.load(out)
+    os.remove(out)
+
+    def stacked(ref):
+        return (ref[0], stack_bi_params(ref[1]), stack_bi_params(ref[2]))
+    ref = stacked(one_card_reference(cfg, batches))
+    with f32_dense_products():
+        other = stacked(one_card_reference(cfg, batches))
+    limits = {k: GRAD_REL_TOL + 2 * g
+              for k, g in param_gaps(other[2], ref).items()}
+    audio = float(np.mean([b["frame_lengths"].sum() / 100
+                           for b in batches]))
+    return check_mesh_train("preset 2 PP", recs, backend, ref, gathered,
+                            audio, limits)
+
+
+def preset4_decode_inputs(cfg, dev="cuda"):
+    """Phase 4's decode inputs: preset 4's seeded model, the trigram of the
+    64 synthetic transcripts, their one batch (host arrays) and its
+    ``max_len`` as ``make_beam_decoder`` sets it."""
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.decode.lm import train_char_lm_from_data
+    from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    corpus = SyntheticCorpus(64, feature_dim=cfg.model.input_dim,
+                             min_chars=50, max_chars=100, seed=0)
+    data = corpus.all_utterances()
+    lm = train_char_lm_from_data(data, cfg)
+    model = birnn.init_params(cfg.model, seed=0, device=dev)
+    batch = [b for _, b in BucketedLoader(data, cfg.data).epoch(0)][0]
+    bd = batch_to_device_dict(batch)
+    max_len = min(int(bd["labels"].shape[1]) * 2 + 16,
+                  int(bd["feats"].shape[1]))
+    return model, lm, bd, max_len
+
+
+def phase_collective_decode(world=2, dev="cuda"):
+    """Phase 14, part 4: preset 4's collective decode over 2 ranks with
+    the length-balancing redistribution, its hypotheses bit-equal to the
+    one-card decode (phase 4's) on the same posteriors."""
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.decode.beam import make_beam_search
+    from tpu_ctc_torch.models import birnn
+    cfg = get_config("swbd_beam_decode")
+    model, lm, bd, max_len = preset4_decode_inputs(cfg, dev)
+    feats, mask, lens = (torch.as_tensor(bd[k], device=dev) for k in (
+        "feats", "frame_mask", "frame_lengths"))
+    with torch.no_grad():
+        lp = birnn.log_posteriors(model, cfg.model, feats, mask)
+    hyps, hyp_lens, _ = make_beam_search(cfg, lm, device=dev)(lp, lens,
+                                                               max_len)
+    root = os.path.dirname(os.path.abspath(__file__))
+    lp_path = os.path.join(root, "build", "chip_smoke_lp.pt")
+    out = os.path.join(root, "build", "chip_smoke_collective.pt")
+    torch.save({"lp": lp.cpu(), "lens": lens.cpu(), "mask": mask.cpu()},
+               lp_path)
+    spec = dict(kind="decode", preset="swbd_beam_decode", out=out,
+                posteriors=lp_path, overrides={"mesh.data": world})
+    recs, backend = spawn_mesh14(world, spec)
+    got = torch.load(out)
+    for path in (out, lp_path):
+        os.remove(path)
+    same = (torch.equal(got["hyps_same_lp"], hyps.cpu())
+            and torch.equal(got["lens_same_lp"], hyp_lens.cpu()))
+    agree = int(sum(torch.equal(got["hyps"][i, :int(got["lens"][i])],
+                                hyps.cpu()[i, :int(hyp_lens[i])])
+                    and int(got["lens"][i]) == int(hyp_lens[i])
+                    for i in range(len(hyps))))
+    lp_equal = all(rec["posteriors_bit_equal"] for rec in recs)
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    audio = int(bd["frame_lengths"].sum()) / 100
+    wall = max(rec["wall"] for rec in recs)
+    log(f"phase 14: collective decode of preset 4 over {world} {backend} "
+        f"ranks with redistribute: hypotheses on phase 4's posteriors "
+        f"bit-equal to the one-card decode: {same}; the whole path's "
+        f"(each rank's own posteriors, bit-equal to one card's: "
+        f"{lp_equal}) equal on {agree} of {len(hyps)} utterances; "
+        f"{wall:.3f} s = {audio / wall:.1f} audio-s/s; launches on the "
+        f"path (all ranks) { {k: n for k, n in launches.items() if n} }")
+    if not same or (lp_equal and agree != len(hyps)):
+        raise AssertionError("the collective decode disagrees with one "
+                             "card's")
+    if not launches["beam_search"] or not launches["birnn_fwd"]:
+        raise AssertionError("the collective decode launched no B1 or B5")
+    return launches
+
+
+def phase_dryrun(world=2):
+    """Phase 14, part 5: ``python -m tpu_ctc_torch.dryrun`` under torchrun
+    over 2 ranks: NCCL one card each, or gloo ranks sharing card 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    extra = ([] if card_count() >= world
+             else ["--device", "cuda:0", "--backend", "gloo"])
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), "-m", "tpu_ctc_torch.dryrun",
+         *extra], capture_output=True, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    lines = [x for x in res.stdout.splitlines()
+             if x.startswith("dryrun_multichip")]
+    for line in lines:
+        log(f"phase 14: {line}")
+    if res.returncode != 0 or len(lines) != 4:
+        log(res.stdout[-3000:] + res.stderr[-3000:])
+        raise AssertionError("the dry run failed")
+
+
 def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
@@ -2276,20 +2822,36 @@ def main() -> int:
     paths["mesh_one"], ref_losses = phase_mesh_one()
     paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
     phase_tools(records, kept)
+    records += phase_wide_birnn(REPS)
+    paths["tp"] = phase_tp_preset5()
+    paths["pp"] = phase_pp_preset2()
+    paths["collective"] = phase_collective_decode()
+    phase_dryrun()
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
         if rec["name"] == "birnn_fwd":  # every SP sweep starts from h0
             rec["h0_launches"] = paths["mesh_ranks"]["birnn_fwd"]
             rec["max_abs_err"] = max(rec["max_abs_err"], carry_err)
+    wide = {rec["name"]: rec for rec in records
+            if rec["name"].endswith("_wide") and "replaces" in rec
+            and rec["name"].startswith("birnn")}
+    for rec in records:  # B1 and B2 carry their wide instance's numbers
+        if rec["name"] + "_wide" in wide:
+            rec["wide_launches"] = wide[rec["name"] + "_wide"]["launches"]
+            rec["wide_ms"] = wide[rec["name"] + "_wide"]["ms"]
+    if not all(rec["launches"] for rec in wide.values()):
+        raise AssertionError("a wide B1/B2 instance was not launched on "
+                             "the main paths")
     records.sort(key=lambda rec: KERNEL_ORDER.index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "variant", "route", "source",
                              "replaces", "launches", "h0_launches",
-                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms") if k in rec}
+                             "wide_launches", "max_abs_err", "ms",
+                             "wide_ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms") if k in rec}
         for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

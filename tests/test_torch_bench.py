@@ -202,7 +202,15 @@ class TestBenches:
         assert out["unit"].startswith("t(1)/t(2)") and "(cpu)" in out["unit"]
         assert out["value"] > 0 and out["vs_baseline"] > 0
 
-    def test_pipeline_scaling_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            bench_scaling.main(["--strategy", "pp", "--force-cpu-devices",
-                                "2"])
+    def test_pipeline_scaling_is_not_ported(self, capsys):
+        """``--strategy pp`` (once refused) runs: 2 gloo ranks as 2
+        pipeline stages of one layer each, 4 microbatches of the fixed
+        batch, against one rank."""
+        assert bench_scaling.main([
+            "--force-cpu-devices", "2", "--strategy", "pp",
+            "--per-device-batch", "4", "--frames", "16", "--hidden", "16",
+            "--layers", "2", "--steps", "1"]) == 0
+        out = _json_line(capsys)
+        assert out["metric"] == "pp_scaling_efficiency"
+        assert out["unit"] == "t(1)/t(2) fixed batch (cpu)"
+        assert out["value"] > 0 and out["vs_baseline"] > 0

@@ -392,37 +392,71 @@ class TestKernelGuards:
     @pytest.mark.parametrize("b,h,dtype,refusal", [
         (64, 1824, torch.bfloat16, None), (128, 2048, torch.bfloat16, None),
         (129, 64, torch.bfloat16, "batch 129"),
+        (129, 4096, torch.bfloat16, "batch 129"),
         (8, 64, torch.float16, "io dtype"),
         (64, 1824, torch.float32, None),
-        (64, 16384, torch.bfloat16, "1024 co-resident blocks"),
-        # the last width whose 16-column blocks fit 132 SMs, and the next
+        (64, 16384, torch.bfloat16, "above the widths the JAX package"),
+        # the last narrow width on 132 SMs, the first wide one, and the
+        # JAX kernel's ceilings (birnn_pallas.supported pads H to 128
+        # lanes: 6017 to 6144 and 4097 to 4224, over its VMEM budget)
         (128, 2112, torch.bfloat16, None), (128, 2112, torch.float32, None),
-        (1, 2113, torch.bfloat16, "133 co-resident blocks"),
+        (1, 2113, torch.bfloat16, None), (128, 6016, torch.bfloat16, None),
+        (128, 4096, torch.float32, None),
+        (1, 6017, torch.bfloat16, r"H=6017 at torch.bfloat16 is above"),
+        (1, 4097, torch.float32, r"H=4097 at torch.float32 is above"),
         # each preset's width at its batch size and dtype (config.py)
         *[pytest.param(*_preset_shape(name), refusal, id=name)
           for name, refusal in (
               ("timit_subset_1layer", None), ("timit_full_3layer", None),
               ("swbd_5layer_dp", None), ("swbd_beam_decode", None),
-              ("swbd_wide_tp", r"H=4096 needs 256 co-resident blocks .* "
-                               r"\(tensor parallelism\)"))]])
+              ("swbd_wide_tp", None))]])
     def test_supported_shapes(self, b, h, dtype, refusal):
         if refusal is None:
             birnn_cuda.check_supported(b, h, dtype)
         else:
-            with pytest.raises(NotImplementedError, match=refusal):
+            with pytest.raises(NotImplementedError, match=refusal) as err:
                 birnn_cuda.check_supported(b, h, dtype)
+            assert "tensor parallelism" not in str(err.value)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_limits_are_the_jax_kernel_s(self, dtype):
+        """``check_supported`` takes exactly the widths that
+        ``birnn_pallas.supported`` admits for the dtype (B <= 128), and the
+        instance is the narrow one up to 16 columns a block on 132 SMs."""
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        for h in [1, 100, 2112, 2113, 3000, 4096, 4097, 5000, 6016, 6017,
+                  6144, 8192]:
+            want = birnn_pallas.supported(h, jdt)
+            assert birnn_cuda.jax_admits(h, tdt) == want, h
+            if want:
+                birnn_cuda.check_supported(128, h, tdt)
+                assert birnn_cuda.instance(h, tdt) == (
+                    "narrow" if h <= 2112 else "wide")
+            else:
+                with pytest.raises(NotImplementedError):
+                    birnn_cuda.check_supported(128, h, tdt)
 
     @pytest.mark.parametrize("b,h,shape,grid", [
         (64, 1824, (2, 64, 1824), 114), (32, 1024, (2, 32, 1024), 64),
         (1, 100, (2, 16, 112), 7), (17, 200, (2, 32, 208), 13),
-        (128, 2048, (2, 128, 2048), 128)])
+        (128, 2048, (2, 128, 2048), 128),
+        (16, 4096, (2, 16, 4096), (128, 2)),
+        (128, 6016, (2, 128, 6016), (126, 3)),
+        (5, 2113, (2, 16, 2128), (67, 2))])
     def test_exchange_layout(self, b, h, shape, grid):
         """The zeroed exchange buffer pads B and H to multiples of 16, so
-        its rows are 16-byte aligned for the bf16 kernel's copies; one
-        block per 16 columns; the bf16 block's shared memory is its
-        copy rings (8 warps x 4 stages x 4 KB) and W's 16 padded columns."""
+        its rows are 16-byte aligned for the bf16 kernel's copies; a narrow
+        launch has one block per 16 columns, and its bf16 block's shared
+        memory is its copy rings (8 warps x 4 stages x 4 KB) and W's 16
+        padded columns; a wide launch deals the 16-column tiles over at
+        most one block a SM (132), ``grid`` = (blocks, tiles a block)."""
         assert birnn_cuda.exchange_shape(b, h) == shape
         assert shape[2] * 2 % 16 == 0
+        if isinstance(grid, tuple):
+            assert birnn_cuda.instance(h, torch.bfloat16) == "wide"
+            assert birnn_cuda.wide_grid(h) == grid
+            return
+        assert birnn_cuda.instance(h, torch.bfloat16) == "narrow"
         assert birnn_cuda.grid_size(h) == grid
         assert birnn_cuda.smem_bytes(h, torch.bfloat16) == (
             8 * 4 * 4096 + 16 * (shape[2] + 8) * 2)
@@ -442,6 +476,13 @@ class TestKernelGuards:
             tool.STAMPS)
 
     def test_refusal_counts_the_card_s_sms(self):
+        """The instance follows the card's SMs: H = 1824 is narrow on 114
+        and wide on 113 (2 tiles a block); a card too small for 4 tiles a
+        block refuses, naming its SMs."""
         birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=114)
-        with pytest.raises(NotImplementedError, match="holds 113"):
-            birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=113)
+        assert birnn_cuda.instance(1824, torch.bfloat16, 114) == "narrow"
+        birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=113)
+        assert birnn_cuda.instance(1824, torch.bfloat16, 113) == "wide"
+        assert birnn_cuda.wide_grid(1824, 113) == (57, 2)
+        with pytest.raises(NotImplementedError, match="over the 60 SMs"):
+            birnn_cuda.check_supported(64, 4096, torch.bfloat16, n_sm=60)

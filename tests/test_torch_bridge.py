@@ -176,10 +176,12 @@ class TestImportHygiene:
                      "decode.cpp_decoder", "bench.reference_numpy",
                      "bench.bench", "bench.bench_ctc", "bench.bench_decode",
                      "bench.bench_scaling", "utils.profiling",
-                     "utils.devtime"):
+                     "utils.devtime", "parallel.tensor_parallel",
+                     "parallel.pipeline", "decode.collective", "dryrun"):
             assert "tpu_ctc_torch." + name in modules
         for name in ("score", "make_manifest", "make_sample_corpus",
-                     "sweep_decode", "preset_fit", "smoke_cuda_decode"):
+                     "sweep_decode", "preset_fit", "smoke_cuda_decode",
+                     "mesh_steps"):
             assert "torch_tools." + name in modules
 
     def test_sources_never_name_jax(self):

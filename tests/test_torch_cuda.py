@@ -109,6 +109,81 @@ def test_birnn_kernel_matches_plain(dev, t, b, h, dtype, reverse):
         assert torch.all(got[n:, i] == 0)
 
 
+# The wide instance (H > 16 columns a resident block): at the widths that
+# take it on an H100 (2560, 4096; 6016, bf16's ceiling), bf16 and f32.
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (24, 16, 2560, torch.bfloat16), (20, 16, 2560, torch.float32),
+    (16, 16, 4096, torch.bfloat16), (12, 17, 4096, torch.float32),
+    (8, 128, 6016, torch.bfloat16)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_wide_birnn_kernels_match_plain(dev, t, b, h, dtype, reverse):
+    """B1 (from zero and from h0) and B2 on its states against the plain
+    loops, each launch counted on the wide kernel and none on the narrow
+    one, two launches bit-equal."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if birnn_cuda.instance(h, dtype, n_sm) != "wide":
+        pytest.skip(f"H={h} takes the narrow instance on {n_sm} SMs")
+    z, w, lens = _recurrence_inputs(t * b + h, t, b, h)
+    z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
+    h0 = torch.rand((b, h), generator=torch.Generator().manual_seed(h)).to(
+        dev, dtype)
+    tol = ((lambda want: 1e-4 + 1e-4 * want.abs()) if dtype == torch.float32
+           else (lambda want: 2 ** -6 * want.abs() + 2e-2))
+    narrow = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches)
+    for carry in (None, h0):
+        got = _launch_twice(birnn_cuda.WIDE_KERNEL, lambda: (
+            birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
+                                           clip=20.0, h0=carry)))
+        want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
+                                               clip=20.0, h0=carry).float()
+        assert torch.all((got - want).abs() <= tol(want))
+    hs = got.to(dtype)
+    g = z.flip(0)
+    d = _launch_twice(birnn_cuda.WIDE_BWD_KERNEL, lambda: (
+        birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=not reverse,
+                                       clip=20.0)))
+    want = birnn_cuda.bwd_recurrence_plain(g, hs, w.t(), reverse=not reverse,
+                                           clip=20.0).float()
+    assert torch.all((d - want).abs() <= tol(want))
+    assert (birnn_cuda.KERNEL.launches,
+            birnn_cuda.BWD_KERNEL.launches) == narrow
+
+
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (30, 32, 1024, torch.bfloat16), (25, 17, 100, torch.bfloat16),
+    (20, 64, 512, torch.float32), (16, 5, 2000, torch.bfloat16)])
+def test_wide_instance_is_bit_equal_to_the_narrow_one(dev, t, b, h, dtype):
+    """At a width both instances take, the wide one (forced) sums in the
+    narrow one's order: B1 from h0 and B2 bit-equal to the narrow launch."""
+    z, w, lens = _recurrence_inputs(h + b, t, b, h)
+    z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
+    h0 = torch.rand((b, h), generator=torch.Generator().manual_seed(b)).to(
+        dev, dtype)
+    hs = [birnn_cuda._sweep_cuda(birnn_cuda.KERNEL, z, w, lens, reverse=True,
+                                 clip=20.0, h0=h0, wide=wide)
+          for wide in (False, True)]
+    assert torch.equal(hs[0], hs[1])
+    d = [birnn_cuda._sweep_cuda(birnn_cuda.BWD_KERNEL, z, w.t(), hs[0],
+                                reverse=False, clip=20.0, wide=wide)
+         for wide in (False, True)]
+    assert torch.equal(d[0], d[1])
+
+
+def test_wide_plan_and_limits_on_this_card(dev):
+    """``check_supported`` on this card's SMs at the JAX ceiling (bf16
+    6016, f32 4096) and above it; the C launcher's plan agrees with
+    ``wide_grid``."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h, dtype in ((6016, torch.bfloat16), (4096, torch.float32)):
+        birnn_cuda.check_supported(128, h, dtype, n_sm=n_sm)
+        plan = birnn_cuda.wide_plan(128, h, dtype)
+        assert (plan["grid"], plan["own"]) == birnn_cuda.wide_grid(h, n_sm)
+        assert 0 < plan["smem"] <= 232448
+    for h, dtype in ((6017, torch.bfloat16), (4097, torch.float32)):
+        with pytest.raises(NotImplementedError, match="JAX package"):
+            birnn_cuda.check_supported(16, h, dtype, n_sm=n_sm)
+
+
 def test_birnn_kernel_refuses_what_it_cannot_take(dev):
     z, w, lens = _recurrence_inputs(0, 4, 129, 32)
     with pytest.raises(NotImplementedError):
@@ -954,6 +1029,69 @@ def test_two_rank_nccl_dp_step(dev, tmp_path):
         state, m = step.train_step(state, step.batch_to_tensors(
             batch_to_device_dict(batch), dev), cfg)
     np.testing.assert_allclose(a[1], float(m["loss"]), rtol=1e-3)
+
+
+TP_WORKER = """
+import sys
+import numpy as np, torch
+from tpu_ctc_torch.config import get_config
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import step
+
+coord, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dev = distributed.initialize(coord, 2, rank)
+cfg = get_config("2", **{"model.hidden_dim": 256, "mesh.data": 1,
+                         "mesh.model": 2})
+r = np.random.RandomState(3)
+lens = r.randint(60, 121, 8)
+arrays = {"feats": r.randn(8, 120, 120).astype(np.float32),
+          "frame_mask": (np.arange(120)[None] < lens[:, None]).astype(
+              np.float32),
+          "frame_lengths": lens.astype(np.int32),
+          "labels": r.randint(1, 29, (8, 20)).astype(np.int32),
+          "label_lengths": r.randint(5, 20, 8).astype(np.int32),
+          "weights": np.ones(8, np.float32)}
+if rank == 0:
+    np.savez(out + "/batch.npz", **arrays)
+mesh = mesh_lib.make_mesh(cfg.mesh)
+state = step.create_train_state(cfg, device=dev)
+step_fn, state = step.make_train_step(cfg, mesh, state)
+state, m = step_fn(state, step.batch_to_tensors(
+    step.local_batch(arrays, mesh), dev))
+whole = step.full_state(state)
+np.save(out + f"/rank{rank}.npy", np.concatenate(
+    [[float(m["loss"])]] + [p.detach().reshape(-1).float().numpy()
+                            for p in whole.model.parameters()]))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_card_tp_step(dev, tmp_path):
+    """Two NCCL ranks on two cards take a TP step (model = 2) of a narrow
+    preset 2: the gathered parameters are bit-equal across ranks and the
+    loss within 1e-3 of one card's step on the same batch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", TP_WORKER, coord,
+                               str(r), str(tmp_path)], cwd=repo,
+                              env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    a, b = (np.load(tmp_path / f"rank{r}.npy") for r in range(2))
+    assert np.array_equal(a, b)
+    cfg = get_config("2", **{"model.hidden_dim": 256})
+    batch = dict(np.load(tmp_path / "batch.npz"))
+    state = step.create_train_state(cfg, device=dev)
+    _, m = step.train_step(state, step.batch_to_tensors(batch, dev), cfg)
+    np.testing.assert_allclose(a[0], float(m["loss"]), rtol=1e-3)
 
 
 def test_device_time_of_b3_matches_its_event_time(dev):

@@ -137,8 +137,10 @@ assert float(x) == 3.0, float(x)
 distributed.assert_same_across_hosts(2.5, "same")
 with pytest.raises(AssertionError, match="divergence"):
     distributed.assert_same_across_hosts(float(pid), "differs")
-with pytest.raises(NotImplementedError, match="tensor and pipeline"):
-    mesh_lib.make_mesh(MeshConfig(data=1, model=2, seq=1))
+tp = mesh_lib.make_mesh(MeshConfig(data=1, model=2, seq=1))
+assert tp.shape == {"data": 1, "model": 2, "seq": 1}, tp.shape
+assert tp.lines["model"] == (0, 1) and tp.axis_index("model") == pid
+assert set(tp.groups) == {"model"}
 # leave together: a rank whose peer has gone can abort in gloo's teardown
 dist.barrier()
 dist.destroy_process_group()
@@ -182,11 +184,10 @@ CASES = {                       # name: (data, seq, birnn_impl)
 }
 
 
-@pytest.fixture(scope="module")
-def inputs(tmp_path_factory):
-    """The npz inputs (weights, 3 global batches) and each case's JAX
-    losses, gradient norms and parameters, computed once."""
-    work = tmp_path_factory.mktemp("mesh")
+def write_inputs(work):
+    """Write the npz inputs into ``work``: JAX's seeded weights
+    (``w.npz``) and 3 global batches (``batches.npz``); returns the
+    batches."""
     cfg1 = build(jax_config, tiny_fields(1, 1))
     corpus = SyntheticCorpus(num_utterances=24, feature_dim=12,
                              frames_per_char=7, min_chars=2, max_chars=8)
@@ -199,6 +200,15 @@ def inputs(tmp_path_factory):
                                       for k, v in b.items()})
     jax_ckpt.export_npz(str(work / "w.npz"),
                         jax_step.create_train_state(cfg1).params)
+    return batches
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    """The npz inputs (weights, 3 global batches) and each case's JAX
+    losses, gradient norms and parameters, computed once."""
+    work = tmp_path_factory.mktemp("mesh")
+    batches = write_inputs(work)
     refs = {}
     for name, (data, seq, impl) in CASES.items():
         cfg = build(jax_config, tiny_fields(data, seq, impl))
@@ -303,8 +313,10 @@ class TestMesh:
 
 class TestStepValidation:
     """``make_train_step``'s configuration errors, with the JAX package's
-    words, and TP/PP (``model > 1``) refused before anything runs (the
-    meshes have no process group: a collective would fail)."""
+    words, raised before anything runs (the meshes have no process group:
+    a collective would fail): the compositions the JAX package refuses,
+    and TP's and PP's own checks (TP and PP steps themselves run in
+    ``test_torch_tensor_parallel.py`` and ``test_torch_pipeline.py``)."""
 
     @pytest.mark.parametrize("mesh_kw,shape,error,match", [
         (dict(model=2, seq=4), (1, 2, 4), ValueError, "PARITY.md"),
@@ -312,12 +324,16 @@ class TestStepValidation:
          (1, 2, 4), ValueError, "PARITY.md"),
         (dict(model=1, seq=1, pipeline=True), (2, 1, 1), ValueError,
          "requires model axis"),
-        (dict(model=2, seq=1), (2, 2, 1), NotImplementedError,
-         "tensor and pipeline parallelism are not ported"),
-        (dict(model=2, seq=1, pipeline=True), (1, 2, 1),
-         NotImplementedError, "not ported")])
+        (dict(model=8, seq=1), (1, 8, 1), ValueError,
+         r"\(batch_size / data axis\) divisible by the model axis"),
+        # 2 layers over 4 stages: the port's check names the stages, the
+        # JAX package's layer-axis sharding its divisor
+        (dict(model=4, seq=1, pipeline=True), (2, 4, 1), ValueError,
+         "divisible by 4")])
     def test_errors(self, mesh_kw, shape, error, match):
         fields = tiny_fields(shape[0], **mesh_kw)
+        if mesh_kw["model"] == 8:        # 8 rows a rank: 1 row per shard
+            fields["data"]["batch_size"] = 4
         mesh = mesh_lib.Mesh(dict(zip(mesh_lib.MESH_AXES, shape)))
         state = step.create_train_state(build(config, fields), device="cpu")
         before = [p.detach().clone() for p in state.model.parameters()]
@@ -333,7 +349,9 @@ class TestStepValidation:
                     jax_step.create_train_state(jcfg))
 
     def test_model_axis_refused_by_make_mesh(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """A 'model' axis that does not cover the ranks is refused, as
+        ``resolve_mesh_shape`` refuses any axis (one process here)."""
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
             mesh_lib.make_mesh(config.MeshConfig(data=1, model=4, seq=1))
 
 
@@ -358,9 +376,10 @@ def _cli_train(work, *extra, nproc=0):
 
 
 class TestCliUnderTorchrun:
-    @pytest.mark.parametrize("mesh", ["mesh.data=2", "mesh.seq=2"])
+    @pytest.mark.parametrize("mesh", ["mesh.data=2", "mesh.seq=2",
+                                      "mesh.model=2"])
     def test_two_ranks_match_one_process(self, tmp_path, mesh):
-        """``cli train`` under torchrun with 2 ranks (DP, or SP with
+        """``cli train`` under torchrun with 2 ranks (DP, or SP or TP with
         data = 1): rank 0 alone prints and writes the metrics (3 steps, one
         eval) and the checkpoint, whose parameters agree with the same
         command in one process."""

@@ -227,8 +227,15 @@ def test_preset_fit_cli_on_the_cpu(capsys):
     assert "total:   33.29 GiB" in out and "one card (80.0 GiB): FITS" in out
     with pytest.raises(SystemExit, match="--card-gib"):
         preset_fit.main(["--preset", "2", "--budget", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        preset_fit.main(["--preset", "5", "--tp-dryrun"])
+    # the TP step at preset 5's real width (H = 4096) over 2 gloo ranks,
+    # one bidirectional layer and 8 frames to fit the host
+    assert preset_fit.main(["--preset", "5", "--tp-dryrun", "--tp", "2",
+                            "--device", "cpu", "--batch", "2", "--frames",
+                            "8", "--bi-layers", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["hidden"], line["tp"], line["backend"]) == (4096, 2,
+                                                             "gloo")
+    assert np.isfinite(line["loss"])
 
 
 @pytest.mark.parametrize("name", ["beam_frame_breakdown",

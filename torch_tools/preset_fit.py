@@ -13,16 +13,22 @@ Counterpart of ``tools/preset_fit.py``:
      card (``--batch``/``--frames`` cut the batch to fit) and prints the
      measured peak (``torch.cuda.max_memory_allocated``) beside the
      budget's ``total`` at that shape, a check the JAX tool could not
-     make.  ``--preset 5 --step`` raises kernel B1's own refusal (H = 4096
-     is over B1/B2's H <= 2112 on one card), which stays until B1/B2 take
-     that width (ROADMAP queue A item 9);
-  3. ``--tp-dryrun`` raises ``NotImplementedError``: tensor parallelism is
-     not ported yet (ROADMAP queue A item 9).
+     make.  ``--preset 5 --step`` runs preset 5's H = 4096 on one card
+     through B1/B2's wide instance;
+  3. ``--tp-dryrun`` is the JAX tool's TP step at the real width: ``--tp``
+     ranks (default the preset's 'model' axis, at least 2) take one
+     tensor-parallel train step of the preset's model on a mesh data x
+     model = 1 x tp, one process each (``parallel.distributed.spawn_ranks``):
+     NCCL ranks one card each where the host has the cards, else gloo ranks
+     sharing card 0, or gloo ranks on the CPU with ``--device cpu``.
+     ``--bi-layers`` cuts the depth (never the width) to fit a host.
 
 Usage:
   python3 torch_tools/preset_fit.py --preset 2 --budget --step
   python3 torch_tools/preset_fit.py --preset 3 --budget --step --batch 8
   python3 torch_tools/preset_fit.py --preset 5 --budget --card-gib 80 --device cpu
+  python3 torch_tools/preset_fit.py --preset 5 --step --batch 8 --frames 200
+  python3 torch_tools/preset_fit.py --preset 5 --tp-dryrun --batch 8 --frames 200
 """
 from __future__ import annotations
 
@@ -190,6 +196,105 @@ def cmd_step(cfg, args):
     }), flush=True)
 
 
+def _tp_batch(cfg, batch, frames):
+    """The JAX tool's batch: ``batch`` utterances of ``frames`` frames and
+    4 labels each, seeded."""
+    from tpu_ctc_torch.data.bucketing import make_batch
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    rng = np.random.RandomState(0)
+    utts = [(rng.randn(frames, cfg.model.input_dim).astype(np.float32),
+             rng.randint(1, cfg.model.vocab_size, 4).astype(np.int32))
+            for _ in range(batch)]
+    return batch_to_device_dict(make_batch(utts, t_pad=frames, l_pad=8,
+                                           batch_size=batch))
+
+
+def _tp_config(spec):
+    from tpu_ctc_torch.config import DataConfig, MeshConfig, get_config
+    cfg = get_config(spec["preset"])
+    if spec["bi_layers"]:
+        cfg = cfg.override(**{"model.num_bi_layers": spec["bi_layers"]})
+    return dataclasses.replace(
+        cfg, data=DataConfig(batch_size=spec["batch"],
+                             max_frames=spec["frames"],
+                             bucket_boundaries=(spec["frames"],)),
+        mesh=MeshConfig(data=1, model=spec["world"], seq=1))
+
+
+def tp_rank_main(spec_json: str) -> None:
+    """One rank of ``--tp-dryrun``: join the group, take one TP step,
+    print ``RANK {...}``."""
+    import torch.distributed as dist
+
+    from tpu_ctc_torch.parallel import distributed
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    from tpu_ctc_torch.train.step import (batch_to_tensors,
+                                          create_train_state, local_batch,
+                                          make_train_step)
+
+    spec = json.loads(spec_json)
+    dev = distributed.initialize(spec["coord"], spec["world"], spec["rank"],
+                                 device=spec["device"],
+                                 backend=spec["backend"])
+    try:
+        cfg = _tp_config(spec)
+        mesh = make_mesh(cfg.mesh)
+        state = create_train_state(cfg, device=dev)
+        step_fn, state = make_train_step(cfg, mesh, state)
+        bt = batch_to_tensors(local_batch(
+            _tp_batch(cfg, spec["batch"], spec["frames"]), mesh), dev)
+        t0 = time.time()
+        state, m = step_fn(state, bt)
+        loss = float(m["loss"])
+        print("RANK " + json.dumps({"loss": loss,
+                                    "wall_s": time.time() - t0}),
+              flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def cmd_tp_dryrun(cfg, args):
+    """One TP train step of the preset at its real width over ``--tp``
+    ranks (default the preset's 'model' axis, at least 2)."""
+    from tpu_ctc_torch import resolve_device
+    from tpu_ctc_torch.parallel import distributed
+    from tpu_ctc_torch.utils.profiling import card_line
+
+    tp = args.tp or max(cfg.mesh.model, 2)
+    dev = resolve_device(args.device)
+    if dev.type == "cpu":
+        backend, devs = "gloo", ["cpu"] * tp
+    else:
+        import torch
+        if torch.cuda.device_count() >= tp:
+            backend, devs = "nccl", [f"cuda:{r}" for r in range(tp)]
+        else:                  # NCCL refuses two ranks on one card
+            backend, devs = "gloo", ["cuda:0"] * tp
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    coord = f"127.0.0.1:{distributed.free_port()}"
+    commands = []
+    for r in range(tp):
+        spec = dict(coord=coord, rank=r, world=tp, device=devs[r],
+                    backend=backend, preset=args.preset, batch=args.batch,
+                    frames=args.frames, bi_layers=args.bi_layers)
+        commands.append([sys.executable, os.path.abspath(__file__),
+                         "--tp-rank", json.dumps(spec)])
+    t0 = time.time()
+    recs = distributed.spawn_ranks(commands, cwd=root,
+                                   env=dict(os.environ, PYTHONPATH=root))
+    loss = recs[0]["loss"]
+    assert np.isfinite(loss), loss
+    print(json.dumps({
+        "preset": cfg.name, "hidden": cfg.model.hidden_dim, "tp": tp,
+        "bi_layers": args.bi_layers or cfg.model.num_bi_layers,
+        "frames": args.frames, "batch": args.batch, "loss": round(loss, 3),
+        "step_s": round(recs[0]["wall_s"], 3),
+        "wall_s": round(time.time() - t0, 1), "backend": backend,
+        "device": card_line(dev) if dev.type == "cuda" else "cpu",
+    }), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default="5")
@@ -203,17 +308,26 @@ def main(argv=None):
                         "the card's memory (needed on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="--tp-dryrun: ranks on the 'model' axis (default "
+                        "the preset's, at least 2)")
+    p.add_argument("--bi-layers", type=int, default=0,
+                   help="--tp-dryrun: bidirectional layers (default the "
+                        "preset's; the width is never cut)")
+    p.add_argument("--tp-rank", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.tp_rank:
+        tp_rank_main(args.tp_rank)
+        return 0
 
     from tpu_ctc_torch.config import get_config
-    from tpu_ctc_torch.parallel.mesh import not_ported
     cfg = get_config(args.preset)
-    if args.tp_dryrun:
-        raise not_ported(max(cfg.mesh.model, 2))
-    if args.budget or not args.step:
+    if args.budget or not (args.step or args.tp_dryrun):
         cmd_budget(cfg, args)
     if args.step:
         cmd_step(cfg, args)
+    if args.tp_dryrun:
+        cmd_tp_dryrun(cfg, args)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Scaling-efficiency harness of the port: DP (weak scaling) and SP (fixed
-batch) over ranks of one host.
+"""Scaling-efficiency harness of the port: DP (weak scaling), SP and PP
+(fixed batch) over ranks of one host.
 
 Counterpart of ``tpu_ctc.bench.bench_scaling``.  Each point of the sweep is
 one mesh of N ranks, one process each, started together
@@ -17,8 +17,10 @@ the point's step time.
     perfect weak scaling.
   * ``--strategy sp``: 'seq' = N at a fixed batch (the frames split over
     the ranks); t(1) / t(N) is the speedup.
-  * ``--strategy pp`` raises ``NotImplementedError``: pipeline
-    parallelism is not ported yet (ROADMAP queue A item 9).
+  * ``--strategy pp``: 'model' = N pipeline stages (``mesh.pipeline``,
+    4 microbatches) at a fixed batch: t(1) / t(N) shows the GPipe schedule's
+    idle ticks, (S - 1) / (S + M - 1) of a stage's, and its replicated
+    dense layers (``--layers`` must divide over the stages).
 
 Prints ONE JSON line {"metric": "<strategy>_scaling_efficiency", ...}.
 
@@ -47,11 +49,10 @@ def log(*a):
 def scaling_config(n_dev, batch, frames, hidden, layers, strategy):
     from tpu_ctc_torch.config import (Config, DataConfig, MeshConfig,
                                       ModelConfig, OptimConfig, TrainConfig)
-    if strategy == "pp":
-        from tpu_ctc_torch.parallel.mesh import not_ported
-        raise not_ported(n_dev)
     mesh = {"dp": dict(data=n_dev, model=1, seq=1),
-            "sp": dict(data=1, model=1, seq=n_dev)}[strategy]
+            "sp": dict(data=1, model=1, seq=n_dev),
+            "pp": dict(data=1, model=n_dev, seq=1, pipeline=n_dev > 1,
+                       pipeline_microbatches=4)}[strategy]
     return Config(
         model=ModelConfig(input_dim=120, hidden_dim=hidden, num_pre_layers=1,
                           num_bi_layers=layers, vocab_size=29),
@@ -160,15 +161,13 @@ def main(argv=None):
                    help="N gloo ranks on the CPU (functional check)")
     p.add_argument("--strategy", choices=("dp", "sp", "pp"), default="dp",
                    help="dp: weak-scaled data parallel; sp: FIXED batch "
-                        "sharded over 'seq'; pp: not ported (raises)")
+                        "sharded over 'seq'; pp: FIXED batch through "
+                        "pipeline stages over 'model'")
     p.add_argument("--fixed-batch", type=int, default=0,
                    help="override the global batch (default: "
                         "per-device-batch, weak-scaled only for dp)")
     args = p.parse_args(argv)
 
-    if args.strategy == "pp":
-        from tpu_ctc_torch.parallel.mesh import not_ported
-        raise not_ported(2)
     if args.force_cpu_devices:
         device, avail = "cpu", args.force_cpu_devices
     else:

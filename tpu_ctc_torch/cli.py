@@ -14,8 +14,11 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, plus:
   * ``train`` under ``torchrun`` (``WORLD_SIZE`` set) joins the process
     group (NCCL between cards, gloo for ``--device cpu``) and trains on the
     mesh of ``cfg.mesh``: the batch's rows over 'data', and with ``--set
-    mesh.seq=N`` its frames over 'seq' too; rank 0 writes the metrics and
-    checkpoints.  A plain ``python -m`` run is one process on one card.
+    mesh.seq=N`` its frames over 'seq' too, with ``--set mesh.model=N``
+    the parameters over 'model' (tensor parallelism; with ``--set
+    mesh.pipeline=True`` pipeline stages instead); rank 0 writes the
+    metrics and checkpoints.  A plain ``python -m`` run is one process on
+    one card.
 
 ``--data DIR`` reads a manifest directory (``data/manifest.py``, lazily:
 each batch's audio goes through the frontend on the CPU when the loader

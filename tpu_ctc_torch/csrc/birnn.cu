@@ -480,6 +480,383 @@ f32_sweep_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- the wide instances: H above 16 columns a resident block -------------
+//
+// At H > 16 n_SM (2112 on an H100 SXM) the narrow instances need more
+// blocks than the card holds at once, and from H ~ 6700 (bf16) a block's
+// 16 columns of W alone outgrow its shared memory.  All of W cannot stay on
+// chip either: at H = 4096 it is 32 MiB in bf16, over the 30.7 MB of all
+// SMs' shared memory together, and 64 MiB in f32, over the 50 MB L2.  The
+// wide instances compute exactly what the narrow ones compute, in the same
+// order, on a grid of at most n_SM co-resident blocks:
+// - the H_pad / 16 column tiles are dealt round-robin: block j owns tiles
+//   j, j + grid, ... (at most kMaxOwn a block) and runs a narrow step for
+//   each in turn, the previous value fetched again for each tile;
+// - W arrives in 16 x 16 pieces (k rows of 16 columns) from a copy of W
+//   zero-padded to [H_pad, H_pad].  Each warp keeps the first pieces of its
+//   k-range of its tiles, as many as fit, in a shared-memory cache filled
+//   once a sweep; the rest it streams every step through its copy ring
+//   beside the state (from L2 for bf16, from HBM for f32 at H = 4096);
+// - every warp of a tile sums its k-range as in the narrow instance and
+//   the partials are summed in warp order, so a wide launch is bit-equal
+//   to a narrow one on the same inputs (and two wide launches are too);
+// - a block arrives at the grid barrier once a step, after it has stored
+//   all of its tiles: the exchange buffer and the barrier are the narrow
+//   instances'.
+// The f32 instance keeps the narrow one's scalar loop, its carry and W
+// staged in k-chunks of 64 through a 3-deep ring of cp.async stages.
+// Not made fast: no TMA, no clusters, no multicast of the state.
+
+constexpr int kMaxOwn = 4;              // column tiles a wide block owns
+constexpr int kPieceBytes = 16 * 16 * 2;    // a bf16 piece of W
+constexpr int kWideStateBytes = 2048;   // state bytes of a wide ring stage
+constexpr int kF32Depth = 3;            // stages of the f32 wide ring
+constexpr int kCs = kKc + 4;            // f32: a staged carry row, floats
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ int tiles_owned(int n_tiles) {
+  return (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+}
+
+// One 512-byte piece of W (rows 16 kt .. + 15, columns 16 jt .. + 15 of
+// the padded [h_pad, h_pad] matrix) into shared memory at dst, a row of
+// 32 bytes, its two 16-byte chunks swizzled by bit 2 of the row: one
+// chunk a lane.
+__device__ __forceinline__ void copy_piece(uint32_t dst, const bf16* w,
+                                           int h_pad, int kt, int jt,
+                                           int lane) {
+  const int r = lane >> 1, c = lane & 1;
+  cp_async16(dst + r * 32 + ((c ^ ((r >> 2) & 1)) * 16),
+             w + (size_t)(kt * 16 + r) * h_pad + jt * 16 + c * 8);
+}
+
+// cap: pieces of W a warp keeps in shared memory for the whole sweep.
+template <bool kBwd>
+__global__ void __launch_bounds__(kThreads, 1)
+mma_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                const int* __restrict__ lengths, const bf16* __restrict__ hs,
+                bf16* __restrict__ out, bf16* xbuf, unsigned int* count,
+                int n_t, int n_b, int n_h, int reverse, float clip, bool vec,
+                int cap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
+  const int n_mt = b_pad / 16;
+  const int tile_bytes = b_pad * 32;
+  const int tps = max(1, kWideStateBytes / tile_bytes);
+  const int stage_bytes = tps * (tile_bytes + kPieceBytes);
+  const int ring_bytes = kStages * stage_bytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_tiles = h_pad / kCols, n_own = tiles_owned(n_tiles);
+  const int n_kt = h_pad / 16;
+  const int kt0 = warp * n_kt / kWarps, kt1 = (warp + 1) * n_kt / kWarps;
+  const int nk = kt1 - kt0;
+  unsigned char* ring = smem + warp * ring_bytes;
+  const uint32_t ring_sa = smem_u32(ring);
+  const uint32_t cache_sa =
+      smem_u32(smem + kWarps * ring_bytes) + warp * cap * kPieceBytes;
+  const int n_cached = min(cap, n_own * nk);
+
+  // this warp's resident pieces, once: piece p is (tile p / nk, k-tile
+  // kt0 + p % nk)
+  for (int p = 0; p < n_cached; ++p)
+    copy_piece(cache_sa + p * kPieceBytes, w, h_pad, kt0 + p % nk,
+               blockIdx.x + (p / nk) * gridDim.x, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t a_off =
+      a_row * 32 + (((lane >> 4) ^ ((a_row >> 2) & 1)) * 16);
+  const int b_row = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const uint32_t b_off = b_row * 32 + ((((lane >> 4) & 1) ^ ((b_row >> 2) & 1)) * 16);
+
+  const bool epi = tid < 2 * b_pad;
+  const int eb = tid >> 1, c0 = (tid & 1) * 8;
+  const bool row_live = epi && eb < n_b;
+  const int len_b = (!kBwd && row_live) ? lengths[eb] : 0;
+  const unsigned int per_step = gridDim.x * (unsigned int)n_mt;
+  Pack8 xv[kMaxOwn], hv[kMaxOwn];  // each tile's next-frame inputs
+  for (int i = 0; i < n_own; ++i) {
+    xv[i].u = hv[i].u = make_uint4(0, 0, 0, 0);
+    const int j0 = (blockIdx.x + i * gridDim.x) * kCols;
+    const int n_val = min(max(n_h - (j0 + c0), 0), 8);
+    if (row_live) {
+      const int t = reverse ? n_t - 1 : 0;
+      const size_t o = ((size_t)t * n_b + eb) * n_h + j0 + c0;
+      xv[i].u = load8(x + o, n_val, vec);
+      if (kBwd) hv[i].u = load8(hs + o, n_val, vec);
+    }
+  }
+
+  for (int s = 0; s < n_t; ++s) {
+    const int t = reverse ? n_t - 1 - s : s;
+    const bf16* src = xbuf + (size_t)(s & 1) * b_pad * h_pad;
+    bf16* dst = xbuf + (size_t)((s + 1) & 1) * b_pad * h_pad;
+    if (s > 0) {  // the grid's values of step s - 1 are all in src
+      if (lane == 0) wait_count(count, per_step * s);
+      __syncwarp();
+    }
+    for (int i = 0; i < n_own; ++i) {
+      const int jt = blockIdx.x + i * gridDim.x, j0 = jt * kCols;
+      const int n_st = (nk + tps - 1) / tps;
+      // stage st: the state's k-tiles and the uncached pieces of W
+      auto stage_in = [&](int st) {
+        const int k_first = kt0 + st * tps;
+        const int n_in = min(tps, kt1 - k_first);
+        const uint32_t slot = ring_sa + (st % kStages) * stage_bytes;
+        for (int e = lane; e < n_in * b_pad * 2; e += 32) {
+          const int c = e & 1, rk = e >> 1;
+          const int r = rk / n_in, kk = rk - r * n_in;
+          cp_async16(slot + kk * tile_bytes + r * 32 + ((c ^ ((r >> 2) & 1)) * 16),
+                     src + (size_t)r * h_pad + (k_first + kk) * 16 + c * 8);
+        }
+        for (int kk = 0; kk < n_in; ++kk)
+          if (i * nk + (k_first + kk - kt0) >= cap)
+            copy_piece(slot + tps * tile_bytes + kk * kPieceBytes, w, h_pad,
+                       k_first + kk, jt, lane);
+      };
+
+      float acc[kMaxB / 16][2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMaxB / 16; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+      for (int st = 0; st < kStages - 1; ++st) {
+        if (st < n_st) stage_in(st);
+        cp_async_commit();
+      }
+      for (int st = 0; st < n_st; ++st) {
+        cp_async_wait<kStages - 2>();
+        __syncwarp();  // stage st is in for every lane; slot st - 1 is free
+        if (st + kStages - 1 < n_st) stage_in(st + kStages - 1);
+        cp_async_commit();
+        const int k_first = kt0 + st * tps;
+        const int n_in = min(tps, kt1 - k_first);
+        const uint32_t slot = ring_sa + (st % kStages) * stage_bytes;
+        for (int kk = 0; kk < n_in; ++kk) {
+          const int p = i * nk + (k_first + kk - kt0);
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, (p < cap ? cache_sa + p * kPieceBytes
+                                        : slot + tps * tile_bytes +
+                                              kk * kPieceBytes) + b_off);
+#pragma unroll
+          for (int mt = 0; mt < kMaxB / 16; ++mt) {
+            if (mt < n_mt) {
+              uint32_t a[4];
+              ldmatrix_x4(a, slot + a_off + kk * tile_bytes + mt * 512);
+              mma_bf16(acc[mt][0], a, b[0], b[1]);
+              mma_bf16(acc[mt][1], a, b[2], b[3]);
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+      __syncwarp();  // the ring is free for this warp's partial
+
+      float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+      for (int mt = 0; mt < kMaxB / 16; ++mt) {
+        if (mt < n_mt) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int r = mt * 16 + (lane >> 2), c = nt * 8 + (lane & 3) * 2;
+            *reinterpret_cast<float2*>(part + r * 16 + c) =
+                make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+            *reinterpret_cast<float2*>(part + (r + 8) * 16 + c) =
+                make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+          }
+        }
+      }
+      __syncthreads();  // every warp's partial of tile i is in its ring
+
+      if (epi) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) {  // warp order, as narrow
+          const float4* p = reinterpret_cast<const float4*>(
+              smem + wi * ring_bytes + (eb * 16 + c0) * 4);
+          const float4 lo = p[0], hi = p[1];
+          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        }
+        const int n_val = min(max(n_h - (j0 + c0), 0), 8);
+        const bool live = kBwd || t < len_b;
+        Pack8 o;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float r = 0.f;
+          if (row_live && e < n_val) {
+            const float xi = __bfloat162float(xv[i].h[e]);
+            if (kBwd) {
+              const float h = __bfloat162float(hv[i].h[e]);
+              r = (h > 0.f && h < clip) ? xi + v[e] : 0.f;
+            } else {
+              r = live ? fminf(fmaxf(xi + v[e], 0.f), clip) : 0.f;
+            }
+          }
+          o.h[e] = __float2bfloat16(r);
+        }
+        if (eb < n_b)
+          __stcg(reinterpret_cast<uint4*>(dst + (size_t)eb * h_pad + j0 + c0),
+                 o.u);
+        if (row_live) {
+          store8(out + ((size_t)t * n_b + eb) * n_h + j0 + c0, o, n_val, vec);
+          if (s + 1 < n_t) {
+            const int tn = reverse ? t - 1 : t + 1;
+            const size_t on = ((size_t)tn * n_b + eb) * n_h + j0 + c0;
+            xv[i].u = load8(x + on, n_val, vec);
+            if (kBwd) hv[i].u = load8(hs + on, n_val, vec);
+          }
+        }
+      }
+      // the partials are read before any warp stages the next tile
+      if (i + 1 < n_own) __syncthreads();
+    }
+    if (epi) {  // all of this block's tiles are stored: arrive
+      __syncwarp();
+      if (!lane) arrive(count);
+    }
+  }
+}
+
+// The f32 wide sweep: the narrow f32 loop over each owned tile; cap: k-chunks
+// of W ([64][16] floats each) the block keeps in shared memory.
+template <bool kBwd>
+__global__ void __launch_bounds__(kThreads)
+f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const int* __restrict__ lengths, const float* __restrict__ hs,
+                float* __restrict__ out, float* xbuf, unsigned int* count,
+                int n_t, int n_b, int n_h, int reverse, float clip, int cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
+  const int stage_floats = b_pad * kCs + kKc * kCols;
+  float* stages = reinterpret_cast<float*>(smem_raw);
+  float* cache = stages + (size_t)kF32Depth * stage_floats;  // [cap][64][16]
+
+  const int tid = threadIdx.x;
+  const int quad = tid & 3, row0 = tid >> 2;
+  const unsigned int nblk = gridDim.x;
+  const int n_kc = (n_h + kKc - 1) / kKc;
+  const int n_own = tiles_owned(h_pad / kCols);
+  const int n_cached = min(cap, n_own * n_kc);
+
+  // W's rows k0 .. k0 + 63 (those below h_pad) of tile jt, [64][16]
+  auto w_chunk_in = [&](float* dst_s, int k0, int jt) {
+    const int rows = min(kKc, h_pad - k0);
+    for (int e = tid; e < rows * 4; e += kThreads) {
+      const int k = e >> 2, q = e & 3;
+      cp_async16(smem_u32(dst_s + k * kCols + q * 4),
+                 w + (size_t)(k0 + k) * h_pad + jt * kCols + q * 4);
+    }
+  };
+  for (int p = 0; p < n_cached; ++p)
+    w_chunk_in(cache + (size_t)p * kKc * kCols, (p % n_kc) * kKc,
+               blockIdx.x + (p / n_kc) * nblk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int s = 0; s < n_t; ++s) {
+    const int t = reverse ? n_t - 1 - s : s;
+    const float* src = xbuf + (size_t)(s & 1) * b_pad * h_pad;
+    float* dst = xbuf + (size_t)((s + 1) & 1) * b_pad * h_pad;
+    for (int i = 0; i < n_own; ++i) {
+      const int jt = blockIdx.x + i * nblk, j0 = jt * kCols;
+      // chunk kc of the carry, and of W unless cached, into stage kc % 3
+      auto chunk_in = [&](int kc) {
+        float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
+        const int k0 = kc * kKc, q_n = (min(kKc, n_h - k0) + 3) / 4;
+        for (int e = tid; e < n_b * q_n; e += kThreads) {
+          const int b = e / q_n, q = e - b * q_n;
+          cp_async16(smem_u32(st + b * kCs + q * 4),
+                     src + (size_t)b * h_pad + k0 + q * 4);
+        }
+        if (i * n_kc + kc >= cap) w_chunk_in(st + b_pad * kCs, k0, jt);
+      };
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int kc = 0; kc < kF32Depth - 1; ++kc) {
+        if (kc < n_kc) chunk_in(kc);
+        cp_async_commit();
+      }
+      for (int kc = 0; kc < n_kc; ++kc) {
+        cp_async_wait<kF32Depth - 2>();
+        __syncthreads();  // chunk kc is in; stage (kc - 1) % 3 is free
+        if (kc + kF32Depth - 1 < n_kc) chunk_in(kc + kF32Depth - 1);
+        cp_async_commit();
+        const float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
+        const int p = i * n_kc + kc;
+        const float* wk = (p < cap ? cache + (size_t)p * kKc * kCols
+                                   : st + b_pad * kCs) + 4 * quad;
+        const float* c0row = st + row0 * kCs;
+        const float* c1row = c0row + 64 * kCs;
+        const bool row0_live = row0 < n_b, row1_live = row0 + 64 < n_b;
+        const int kc_n = min(kKc, n_h - kc * kKc);
+        for (int k = 0; k < kc_n; ++k) {
+          float wv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) wv[c] = wk[k * kCols + c];
+          if (row0_live) {
+            const float cv = c0row[k];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[0][c] += cv * wv[c];
+          }
+          if (row1_live) {
+            const float cv = c1row[k];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[1][c] += cv * wv[c];
+          }
+        }
+      }
+      cp_async_wait<0>();
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int b = row0 + 64 * r;
+        if (b >= n_b) continue;
+        const bool live = kBwd || t < lengths[b];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + 4 * quad + c;
+          if (j >= n_h) continue;
+          const size_t o = ((size_t)t * n_b + b) * n_h + j;
+          float v;
+          if (kBwd) {
+            const float h = hs[o];
+            v = (h > 0.f && h < clip) ? x[o] + acc[r][c] : 0.f;
+          } else {
+            v = live ? fminf(fmaxf(x[o] + acc[r][c], 0.f), clip) : 0.f;
+          }
+          out[o] = v;
+          __stcg(dst + (size_t)b * h_pad + j, v);
+        }
+      }
+      __syncthreads();  // the stages are free for the next tile
+    }
+    if (tid == 0) {
+      arrive(count);
+      wait_count(count, nblk * (unsigned int)(s + 1));
+    }
+    __syncthreads();
+  }
+}
+
 // Shared memory a block of each kernel takes.
 size_t smem_bf16(int n_h) {
   return (size_t)kWarps * kRingBytes +
@@ -509,15 +886,56 @@ int launch_coop(const void* kern, int grid, size_t smem, void** args,
   return (int)cudaGetLastError();
 }
 
+// The wide instances' plan on this card: plan[0] the grid, plan[1] the
+// tiles a block owns (at most), plan[2] the pieces (bf16: 16 x 16 of W a
+// warp; f32: 64 x 16 k-chunks a block) kept in shared memory, plan[3] the
+// block's shared memory in bytes.  Returns 0, or cudaErrorInvalidValue or
+// cudaErrorCooperativeLaunchTooLarge when the width does not fit.
+int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
+  int dev = 0, n_sm = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
+  const int n_tiles = h_pad / kCols;
+  const int own = (n_tiles + n_sm - 1) / n_sm;
+  if (own > kMaxOwn) return (int)cudaErrorCooperativeLaunchTooLarge;
+  long fixed, piece, want;
+  if (bf16_io) {
+    const int tile_bytes = b_pad * 32;
+    const int tps = tile_bytes < kWideStateBytes ? kWideStateBytes / tile_bytes : 1;
+    fixed = (long)kWarps * kStages * tps * (tile_bytes + kPieceBytes);
+    piece = (long)kWarps * kPieceBytes;
+    want = (long)own * ((h_pad / 16 + kWarps - 1) / kWarps);
+  } else {
+    fixed = (long)kF32Depth * (b_pad * kCs + kKc * kCols) * sizeof(float);
+    piece = (long)kKc * kCols * sizeof(float);
+    want = (long)own * ((n_h + kKc - 1) / kKc);
+  }
+  if (fixed > optin) return (int)cudaErrorInvalidValue;
+  const long fit = (optin - fixed) / piece, cap = want < fit ? want : fit;
+  plan[0] = (n_tiles + own - 1) / own;
+  plan[1] = own;
+  plan[2] = (int)cap;
+  plan[3] = (int)(fixed + cap * piece);
+  return 0;
+}
+
 template <bool kBwd>
 int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
              const void* h0, void* out, void* xbuf, unsigned int* count,
              int n_t, int n_b, int n_h, int reverse, float clip, int bf16_io,
-             void* stream) {
+             bool wide, void* stream) {
   if (n_b < 1 || n_b > kMaxB || n_h < 1 || n_t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = (n_h + kCols - 1) / kCols;
+  int grid = (n_h + kCols - 1) / kCols;
+  int plan[4] = {0, 0, 0, 0};
+  if (wide) {
+    const int err = wide_plan(n_b, n_h, bf16_io, plan);
+    if (err != 0) return err;
+    grid = plan[0];
+  }
   if (h0 != nullptr) {  // h0's rows into the zeroed first half, in order
     const size_t elem = bf16_io ? sizeof(bf16) : sizeof(float);
     const cudaError_t err = cudaMemcpy2DAsync(
@@ -525,6 +943,7 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
         cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return (int)err;
   }
+  int cap = plan[2];
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
     const bf16* wp = static_cast<const bf16*>(w);
@@ -536,7 +955,10 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
     void* args[] = {(void*)&xp, (void*)&wp, (void*)&lengths, (void*)&hp,
                     (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
                     (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
-                    (void*)&vec};
+                    (void*)&vec, (void*)&cap};
+    if (wide)
+      return launch_coop((const void*)mma_wide_kernel<kBwd>, grid, plan[3],
+                         args, st);
     return launch_coop((const void*)mma_sweep_kernel<kBwd>, grid,
                        smem_bf16(n_h), args, st);
   }
@@ -547,7 +969,11 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
   float* bp = static_cast<float*>(xbuf);
   void* args[] = {(void*)&xp, (void*)&wp, (void*)&lengths, (void*)&hp,
                   (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
-                  (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip};
+                  (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
+                  (void*)&cap};
+  if (wide)
+    return launch_coop((const void*)f32_wide_kernel<kBwd>, grid, plan[3],
+                       args, st);
   return launch_coop((const void*)f32_sweep_kernel<kBwd>, grid, smem_f32(n_h),
                      args, st);
 }
@@ -567,7 +993,7 @@ int birnn_fwd_launch(const void* z, const void* w, const int* lengths,
                      int n_t, int n_b, int n_h, int reverse, float clip,
                      int bf16, void* stream) {
   return dispatch<false>(z, w, lengths, nullptr, h0, hs, xbuf, count, n_t, n_b,
-                         n_h, reverse, clip, bf16, stream);
+                         n_h, reverse, clip, bf16, false, stream);
 }
 
 // B2.  g, hs, d_out [T, B, H] and wt = W^T [H, H] in the io type; the rest
@@ -577,7 +1003,31 @@ int birnn_bwd_launch(const void* g, const void* wt, const void* hs, void* d_out,
                      void* xbuf, unsigned int* count, int n_t, int n_b, int n_h,
                      int reverse, float clip, int bf16, void* stream) {
   return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
-                        n_b, n_h, reverse, clip, bf16, stream);
+                        n_b, n_h, reverse, clip, bf16, false, stream);
+}
+
+// The wide instances of B1 and B2: the arguments of birnn_fwd_launch and
+// birnn_bwd_launch, except that w (wt) is zero-padded to [H_pad, H_pad].
+int birnn_fwd_wide_launch(const void* z, const void* w, const int* lengths,
+                          const void* h0, void* hs, void* xbuf,
+                          unsigned int* count, int n_t, int n_b, int n_h,
+                          int reverse, float clip, int bf16, void* stream) {
+  return dispatch<false>(z, w, lengths, nullptr, h0, hs, xbuf, count, n_t, n_b,
+                         n_h, reverse, clip, bf16, true, stream);
+}
+
+int birnn_bwd_wide_launch(const void* g, const void* wt, const void* hs,
+                          void* d_out, void* xbuf, unsigned int* count,
+                          int n_t, int n_b, int n_h, int reverse, float clip,
+                          int bf16, void* stream) {
+  return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
+                        n_b, n_h, reverse, clip, bf16, true, stream);
+}
+
+// The wide instances' plan (grid, tiles a block, cached pieces, shared
+// memory bytes) on the current card; 0 or a CUDA error code.
+int birnn_wide_plan(int n_b, int n_h, int bf16, int* plan) {
+  return wide_plan(n_b, n_h, bf16, plan);
 }
 
 }  // extern "C"

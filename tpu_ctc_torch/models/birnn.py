@@ -28,7 +28,7 @@ bit-equal with and without it.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -37,6 +37,7 @@ from torch import nn
 from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import ModelConfig
 from tpu_ctc_torch.ops import birnn_cuda
+from tpu_ctc_torch.parallel.mesh import AXIS_MODEL
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -197,6 +198,36 @@ def forward(model: BiRNN, cfg: ModelConfig, feats: torch.Tensor,
 def log_posteriors(model: BiRNN, cfg: ModelConfig, feats, frame_mask=None):
     """Log-softmax over the vocabulary of :func:`forward`."""
     return torch.log_softmax(forward(model, cfg, feats, frame_mask), dim=-1)
+
+
+def param_partition_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """For each parameter name, the mesh axis each of its dimensions is
+    split over (``AXIS_MODEL``) or None, as the JAX function's
+    ``PartitionSpec`` tree (``tpu_ctc.models.birnn.param_partition_specs``):
+    the layout of tensor parallelism (``parallel.tensor_parallel``), which
+    keeps the activations split over H between layers.
+
+      * ``pre.0``: column-parallel, w [D, H/n] and b [H/n];
+      * the other dense layers: row-parallel, w [H/n, H] and b [H/n];
+      * ``bi.l.w``: row-parallel, its partials reduce-scattered over the
+        batch, so b is whole, and ``wf``/``wb`` are whole (replicated): the
+        recurrence runs on a rank's rows at full H;
+      * ``out.w``: row-parallel, ``out.b`` replicated.
+    """
+    col = {"w": (None, AXIS_MODEL), "b": (AXIS_MODEL,)}
+    row = {"w": (AXIS_MODEL, None), "b": (AXIS_MODEL,)}
+    specs: Dict[str, tuple] = {}
+    for i in range(cfg.num_pre_layers):
+        for k, v in (col if i == 0 else row).items():
+            specs[f"pre.{i}.{k}"] = v
+    for i in range(cfg.num_bi_layers):
+        specs.update({f"bi.{i}.w": (AXIS_MODEL, None), f"bi.{i}.b": (None,),
+                      f"bi.{i}.wf": (None, None), f"bi.{i}.wb": (None, None)})
+    for i in range(cfg.num_post_layers):
+        for k, v in row.items():
+            specs[f"post.{i}.{k}"] = v
+    specs.update({"out.w": (AXIS_MODEL, None), "out.b": (None,)})
+    return specs
 
 
 def count_params(model: BiRNN) -> int:

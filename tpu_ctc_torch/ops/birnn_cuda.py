@@ -26,7 +26,14 @@ kernels, as the JAX package leaves them to XLA.
 Layout is time-major [T, B, H].  :func:`fwd_recurrence` and
 :func:`bwd_recurrence` launch the kernels (one source, ``csrc/birnn.cu``)
 for CUDA tensors and run the plain loops for CPU tensors; for a CUDA tensor
-they never fall back: what a kernel cannot take raises.
+they never fall back: what a kernel cannot take raises.  The kernels take
+every width the JAX kernel takes (:func:`check_supported`): up to 16
+columns a block on every SM at once (H <= 2112 on an H100 SXM) the narrow
+instances, above it the wide ones (:func:`instance`), which deal the
+16-column tiles over at most one block a SM and stream the part of W that
+does not fit their shared memory; both compute the same values in the same
+order, and a wide launch is counted on its own kernel (``WIDE_KERNEL``,
+``WIDE_BWD_KERNEL``).
 
 The dense products outside the kernels have an f32 result.  On a card, a
 product of two bf16 operands (the dense forward at a bf16 compute dtype, dW
@@ -40,6 +47,7 @@ On the CPU every product is the f32 product of the same values.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -47,6 +55,11 @@ from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
 KERNEL = CudaKernel("birnn_fwd", source="birnn")
 BWD_KERNEL = CudaKernel("birnn_bwd", source="birnn")
+# The wide instances (H above 16 columns a resident block): kernels of their
+# own in the same library, counted apart from the narrow ones.
+WIDE_KERNEL = CudaKernel("birnn_fwd_wide", source="birnn")
+WIDE_BWD_KERNEL = CudaKernel("birnn_bwd_wide", source="birnn")
+_WIDE = {KERNEL.name: WIDE_KERNEL, BWD_KERNEL.name: WIDE_BWD_KERNEL}
 # The kernels' limits.  A block is 256 threads; the bf16 kernel keeps 8
 # m-tiles x 2 n-tiles of f32 accumulators a warp (B <= 128) and takes 172
 # registers a thread (ptxas, 0 spill bytes), within an SM's 64 K; its shared
@@ -55,12 +68,29 @@ MAX_BATCH = 128                    # kMaxB of the kernels
 _COLS, _PAD, _KC = 16, 16, 64      # kCols, kPad, kKc of the kernels
 _RING_BYTES = 8 * 4 * 4096         # bf16: kWarps rings of kStages x 4 KB
 _SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+_MAX_OWN = 4                       # kMaxOwn: column tiles a wide block owns
 H100_SMS = 132                     # SMs of an H100 SXM: one block each
 _COOP_TOO_LARGE = 720              # cudaErrorCooperativeLaunchTooLarge
+# The JAX kernel's VMEM budget (tpu_ctc/ops/birnn_pallas.py:_VMEM_BUDGET):
+# the widths it admits are the widths the port takes.
+_JAX_VMEM_BUDGET = 80 * 1024 * 1024
+_JAX_LANE = 128
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def jax_admits(n_h: int, dtype: torch.dtype) -> bool:
+    """Whether the JAX package's fused kernel takes width ``n_h`` at this
+    compute (and io) dtype: ``birnn_pallas.supported``'s formula, W plus
+    one minimal stream chunk within its VMEM budget (bf16: H <= 6016,
+    f32: H <= 4096).  Above it the JAX package runs the XLA scan."""
+    h_pad = _round_up(n_h, _JAX_LANE)
+    item = torch.tensor([], dtype=dtype).element_size()
+    min_stream = 3 * 2 * 8 * 16 * h_pad * item
+    return h_pad * h_pad * item + min_stream + 4 * h_pad * 16 \
+        <= _JAX_VMEM_BUDGET
 
 
 def exchange_shape(n_b: int, n_h: int) -> tuple:
@@ -71,17 +101,37 @@ def exchange_shape(n_b: int, n_h: int) -> tuple:
 
 
 def grid_size(n_h: int) -> int:
-    """Blocks of a launch: one per 16 columns of W, all co-resident."""
+    """Blocks of a narrow launch: one per 16 columns of W, all
+    co-resident."""
     return -(-n_h // _COLS)
 
 
+def wide_grid(n_h: int, n_sm: int = H100_SMS) -> tuple:
+    """(blocks, column tiles a block owns) of a wide launch: the H_pad / 16
+    tiles dealt round-robin over at most one block a SM."""
+    tiles = grid_size(n_h)
+    own = -(-tiles // n_sm)
+    return -(-tiles // own), own
+
+
 def smem_bytes(n_h: int, dtype: torch.dtype) -> int:
-    """Shared memory one block takes: for bf16 the warps' copy rings and W's
-    16 columns (a row padded by 16 bytes); for f32 W's columns and the
-    staged carry of up to 128 rows in k-chunks of 64."""
+    """Shared memory one narrow block takes: for bf16 the warps' copy rings
+    and W's 16 columns (a row padded by 16 bytes); for f32 W's columns and
+    the staged carry of up to 128 rows in k-chunks of 64.  A wide block
+    takes what the card allows (``birnn_wide_plan``): its rings, and W's
+    pieces cached as far as they fit."""
     if dtype == torch.bfloat16:
         return _RING_BYTES + _COLS * (_round_up(n_h, _PAD) + 8) * 2
     return (n_h * _COLS + MAX_BATCH * (_KC + 1)) * 4
+
+
+def instance(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS) -> str:
+    """Which instance a launch of width ``n_h`` takes on a card of ``n_sm``
+    SMs: "narrow" while its 16-column blocks are co-resident (one a SM) and
+    a block's shared memory fits, else "wide"."""
+    if grid_size(n_h) <= n_sm and smem_bytes(n_h, dtype) <= _SMEM_LIMIT:
+        return "narrow"
+    return "wide"
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -176,35 +226,53 @@ def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
 def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
                     what: str = "birnn_fwd", n_sm: int = H100_SMS) -> None:
     """Raise if the kernels (B1 and B2 share their limits) cannot take
-    this shape or dtype on a card of ``n_sm`` SMs: B <= 128, one block per
-    16 columns of W with all blocks resident at once (a block takes more
-    than half an SM's shared memory, so one a SM: H <= 16 n_sm, 2112 on an
-    H100 SXM), and the block's shared memory within the SM's."""
+    this shape or dtype on a card of ``n_sm`` SMs: B <= 128 and every
+    width that the JAX package's fused kernel takes at this dtype
+    (:func:`jax_admits`: bf16 H <= 6016, f32 H <= 4096), the narrow
+    instance up to 16 n_sm columns (2112 on an H100 SXM), the wide one
+    above, whose blocks own at most 4 column tiles each."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{what} kernel: io dtype {dtype} "
                                   "(bfloat16 or float32 only)")
     if not 1 <= n_b <= MAX_BATCH:
         raise NotImplementedError(
             f"{what} kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
-    if grid_size(n_h) > n_sm:
+    if not jax_admits(n_h, dtype):
         raise NotImplementedError(
-            f"{what} kernel: H={n_h} needs {grid_size(n_h)} co-resident "
-            f"blocks of {_COLS} columns of W, and the card holds {n_sm} "
-            f"(one a SM); a wider recurrence needs W split over cards "
-            f"(tensor parallelism)")
-    smem = smem_bytes(n_h, dtype)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"{what} kernel: H={n_h} needs {smem} B of shared memory "
-            f"per block (limit {_SMEM_LIMIT})")
+            f"{what} kernel: H={n_h} at {dtype} is above the widths the "
+            f"JAX package's fused kernel takes (its W must fit "
+            f"{_JAX_VMEM_BUDGET >> 20} MiB of VMEM; the JAX package runs "
+            "the XLA scan there)")
+    if instance(n_h, dtype, n_sm) == "wide":
+        grid, own = wide_grid(n_h, n_sm)
+        if own > _MAX_OWN:
+            raise NotImplementedError(
+                f"{what} kernel: H={n_h} needs {own} column tiles of 16 a "
+                f"block over the {n_sm} SMs the card holds (at most "
+                f"{_MAX_OWN})")
+
+
+def wide_plan(n_b: int, n_h: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The wide instance's launch on the current card: grid, tiles a
+    block, pieces of W kept in shared memory (bf16: 16 x 16 a warp; f32:
+    64 x 16 k-chunks a block) and a block's shared memory in bytes."""
+    plan = (ctypes.c_int * 4)()
+    fn = WIDE_KERNEL.lib().birnn_wide_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    check(fn(n_b, n_h, int(dtype == torch.bfloat16), plan), "birnn_wide_plan")
+    return dict(zip(("grid", "own", "cached", "smem"), plan))
 
 
 def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
                 third: torch.Tensor, *, reverse: bool, clip: float,
-                h0: torch.Tensor = None) -> torch.Tensor:
+                h0: torch.Tensor = None, wide: bool = None) -> torch.Tensor:
     """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
     ``third`` the lengths (B1) or the stored states (B2), ``h0`` B1's
-    initial carry [B, H] in x's dtype or None -> [T, B, H]."""
+    initial carry [B, H] in x's dtype or None -> [T, B, H].  The instance
+    is :func:`instance`'s unless ``wide`` names it (the card tests hold
+    the wide one against the narrow one at narrow widths); a wide launch
+    is counted on the wide kernel (``WIDE_KERNEL``, ``WIDE_BWD_KERNEL``)."""
     what = kernel.name
     if not (x.is_cuda and w.is_cuda and third.is_cuda
             and (h0 is None or h0.is_cuda)):
@@ -220,10 +288,17 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
             f"{what} kernel: io dtype {x.dtype} with compute dtype "
             f"{w.dtype} (the kernel takes one dtype for both)")
     n_t, n_b, n_h = x.shape
-    check_supported(n_b, n_h, x.dtype, what, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    check_supported(n_b, n_h, x.dtype, what, n_sm)
+    if wide is None:
+        wide = instance(n_h, x.dtype, n_sm) == "wide"
     x = x.contiguous()
     w = w.contiguous()
+    if wide:                    # W zero-padded to [H_pad, H_pad]
+        kernel = _WIDE[kernel.name]
+        pad = exchange_shape(n_b, n_h)[2] - n_h
+        if pad:
+            w = torch.nn.functional.pad(w, (0, pad, 0, pad))
     out = torch.empty_like(x)
     xbuf = torch.zeros(exchange_shape(n_b, n_h), dtype=x.dtype,
                        device=x.device)
@@ -231,7 +306,7 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
     fn = getattr(kernel.lib(), kernel.name + "_launch")
     fn.restype = ctypes.c_int
     carry = []                  # B1 takes h0 (null: a zero carry)
-    if kernel.name == KERNEL.name:
+    if kernel.name in (KERNEL.name, WIDE_KERNEL.name):
         h0 = None if h0 is None else h0.contiguous()
         carry = [ctypes.c_void_p(None) if h0 is None else ptr(h0)]
     fn.argtypes = [ctypes.c_void_p] * (6 + len(carry)) + [ctypes.c_int] * 4 + [
@@ -242,8 +317,8 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
              stream_of(what, x, w, third, h0, out, xbuf, count))
     if err == _COOP_TOO_LARGE:
         raise NotImplementedError(
-            f"{what} kernel: H={n_h} needs {grid_size(n_h)} co-resident "
-            "blocks, more than the card holds at once")
+            f"{what} kernel: H={n_h} needs more co-resident blocks than "
+            "the card holds at once")
     check(err, what)
     kernel.launches += 1
     return out

@@ -8,8 +8,9 @@ ranks, and the collectives are explicit calls on a process group for each
 line of an axis:
 
   * ``data``: utterance-batch data parallelism; gradients all-reduce here;
-  * ``model``: tensor (or pipeline) parallelism, not ported yet: a mesh
-    with ``model > 1`` raises;
+  * ``model``: tensor parallelism (``parallel.tensor_parallel``) or, with
+    ``mesh.pipeline``, the stages of pipeline parallelism
+    (``parallel.pipeline``);
   * ``seq``: time-axis sequence parallelism (the BiRNN carry rings).
 
 Ranks fill the grid data-major, as ``np.asarray(devices).reshape(shape)``
@@ -92,33 +93,21 @@ class Mesh:
         return self.groups.get(axis)
 
 
-def not_ported(model: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"mesh model axis {model}: tensor and pipeline parallelism are not "
-        "ported to tpu_ctc_torch yet (ROADMAP queue A item 9, the next "
-        "slice); use data and seq")
-
-
 def make_mesh(cfg: MeshConfig = MeshConfig()) -> Mesh:
     """The mesh of ``cfg`` over the default process group (one rank without
     one).  Every rank must call it, in the same order as its other group
     constructions: it makes one ``dist.new_group`` per line of each axis
-    of size > 1."""
-    if cfg.model > 1:
-        raise not_ported(cfg.model)
+    of size > 1, axis by axis in the order data, model, seq."""
     n, rank = world()
     shape = resolve_mesh_shape(cfg, n)
-    if shape[1] > 1:
-        raise not_ported(shape[1])
     grid = np.arange(n).reshape(shape)
     mesh = Mesh(dict(zip(MESH_AXES, shape)), rank)
-    d, m, s = (int(c[0]) for c in np.nonzero(grid == rank))
-    for axis, lines in ((AXIS_DATA, [grid[:, mi, si] for mi in range(shape[1])
-                                     for si in range(shape[2])]),
-                        (AXIS_SEQ, [grid[di, mi, :] for di in range(shape[0])
-                                    for mi in range(shape[1])])):
-        mine = tuple(int(r) for r in (grid[:, m, s] if axis == AXIS_DATA
-                                      else grid[d, m, :]))
+    coord = tuple(int(c[0]) for c in np.nonzero(grid == rank))
+    for a, axis in enumerate(MESH_AXES):
+        # every line along the axis: the grid with that axis moved last
+        lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
+        mine = tuple(int(r) for r in grid[coord[:a] + (slice(None),)
+                                          + coord[a + 1:]])
         mesh.lines[axis] = mine
         if len(mine) == 1:
             continue
@@ -170,6 +159,38 @@ def gather_blocks(mesh: Mesh, x, axis: str, dim: int):
     full.narrow(dim, i * t, t).copy_(x)
     dist.all_reduce(full, group=mesh.group(axis))
     return full
+
+
+def shift(x: torch.Tensor, mesh: Mesh, axis: str, forward: bool = True,
+          ring: bool = False) -> torch.Tensor:
+    """Every rank of this rank's ``axis`` line hands ``x`` to the next rank
+    (``forward``) or the previous one and gets what its neighbour handed
+    it: around the line's ring when ``ring``, else zeros at its end (JAX's
+    ``ppermute`` over the pairs (i, i + 1)).  Every rank of the line calls
+    it.  NCCL's ``batch_isend_irecv`` between cards; on gloo (the CPU, or
+    ranks sharing one card) an all-reduce of an [n, ...] buffer in which
+    each rank fills its own row (a sum with zeros is exact)."""
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    group, line = mesh.group(axis), mesh.lines[axis]
+    step = 1 if forward else -1
+    src, dst = i - step, i + step
+    if ring:
+        src, dst = src % n, dst % n
+    if dist.get_backend(group) == "nccl":
+        got = torch.zeros_like(x)
+        ops = []
+        if 0 <= dst < n:
+            ops.append(dist.P2POp(dist.isend, x.contiguous(), line[dst],
+                                  group))
+        if 0 <= src < n:
+            ops.append(dist.P2POp(dist.irecv, got, line[src], group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return got
+    buf = x.new_zeros((n,) + tuple(x.shape))
+    buf[i] = x
+    dist.all_reduce(buf, group=group)
+    return buf[src] if 0 <= src < n else torch.zeros_like(x)
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -18,8 +18,11 @@ On a mesh of ranks (``cfg.mesh``, the process group of
 batch from the same loader and keeps its block (rows over 'data', frames
 over 'seq'), as the JAX loop shards one global batch; the prefetch thread
 copies only that block to the rank's card.  Metrics, ``metrics.jsonl`` and
-checkpoints are written by rank 0 while the others wait at a barrier; the
-state is replicated, so a checkpoint restores under any world size.  The
+checkpoints are written by rank 0 while the others wait at a barrier; a
+state split over 'model' (TP, PP) is gathered first
+(``train.step.full_state``), so the file is the one-card file and a
+checkpoint restores under any world size and mesh (PP's holds the stacked
+layers).  The
 ranks agree on a preemption request every step (one all-reduce of a flag,
 read on the host), so all of them checkpoint and stop at the same step.
 """
@@ -48,8 +51,8 @@ from tpu_ctc_torch.parallel.mesh import make_mesh
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
                                       create_train_state, eval_step,
-                                      local_batch, make_eval_step,
-                                      make_train_step)
+                                      full_state, local_batch,
+                                      make_eval_step, make_train_step)
 
 
 class MetricsLogger:
@@ -195,8 +198,9 @@ def train(cfg: Config,
     keep = cfg.train.keep_checkpoints
 
     def save(state, epoch, cursor):
+        whole = full_state(state)       # shards gathered on every rank
         if lead:
-            checkpoint.save(ckpt_dir, state, epoch, cursor, keep)
+            checkpoint.save(ckpt_dir, whole, epoch, cursor, keep)
         barrier()
 
     state = create_train_state(cfg, device=device)

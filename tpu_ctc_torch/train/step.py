@@ -13,12 +13,20 @@ The mesh half (``make_train_step``, ``make_eval_step`` and the sharding
 functions) runs the step on a ``parallel.mesh.Mesh`` of ranks: data
 parallelism (DP) splits the batch's rows over 'data' and sums the loss's
 sums over it; sequence parallelism (SP, ``parallel.seq_parallel``) also
-splits the frames over 'seq'.  Each rank takes its block of the global
-batch (:func:`batch_shardings`, :func:`local_batch`), the parameters and
-the optimizer state are replicated, and the parameter gradients are summed
-over all ranks before ``grad_norm`` and the clip, so the clip sees the
-global gradient as in JAX and every rank applies the same update.  A
-one-rank mesh runs :func:`train_step` as it is.
+splits the frames over 'seq'; tensor parallelism (TP,
+``parallel.tensor_parallel``) splits the parameters over 'model' as
+``birnn.param_partition_specs`` says, and pipeline parallelism (PP,
+``parallel.pipeline``, ``mesh.pipeline``) the stacked bidirectional layers
+over 'model' as stages.  Each rank takes its block of the global batch
+(:func:`batch_shardings`, :func:`local_batch`).  The state is broadcast
+from rank 0 and each rank keeps its shard of a parameter split over
+'model' and of its trace (:func:`state_shardings`); the rest is
+replicated.  Before ``grad_norm`` and the clip the gradients are summed:
+a replicated parameter's over all ranks, a split one's over 'data' only,
+and the global norm counts each parameter once (a split one's squares
+summed over 'model'), so the clip sees the global gradient as in JAX and
+every rank applies the same update to what it holds.  A one-rank mesh runs
+:func:`train_step` as it is.
 """
 from __future__ import annotations
 
@@ -48,13 +56,23 @@ class TrainState:
     step: int                       # updates made so far (host-side)
     model: birnn.BiRNN              # the parameters
     opt_state: optim.OptState
+    # On a mesh that splits parameters over 'model' (TP, PP): each
+    # parameter's spec (:func:`state_shardings`) and the mesh; the model
+    # and the trace then hold this rank's shards.
+    specs: Optional[Dict[str, tuple]] = None
+    mesh: Optional[mesh_lib.Mesh] = None
 
 
 def create_train_state(cfg: Config, device=None) -> TrainState:
     """Seeded random weights (``cfg.seed``) on ``device`` (default
-    ``cuda``) and a zero optimizer state."""
+    ``cuda``) and a zero optimizer state; with ``mesh.pipeline`` the
+    bidirectional layers are stacked (``pipeline.stack_model``), as the
+    JAX function stacks them."""
     model = birnn.init_params(cfg.model, seed=cfg.seed,
                               device=resolve_device(device))
+    if cfg.mesh.pipeline:
+        from tpu_ctc_torch.parallel.pipeline import stack_model
+        stack_model(model)
     return TrainState(0, model, optim.init_opt_state(
         dict(model.named_parameters())))
 
@@ -102,11 +120,13 @@ def _check_finite(step: int, loss: torch.Tensor,
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                cfg: Config, loss_closure: Optional[Callable] = None,
-               reduce_grads: Optional[Callable] = None
+               reduce_grads: Optional[Callable] = None,
+               norm_fn: Optional[Callable] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One update: value and gradient of :func:`loss_fn` (or of
     ``loss_closure(model, batch)``), the gradients passed through
-    ``reduce_grads`` (a sum over ranks) when given, then the optimizer
+    ``reduce_grads`` (a sum over ranks) when given, their global norm
+    (``norm_fn``, default ``optim.global_norm``), then the optimizer
     chain in place on the parameters.  With ``cfg.train.debug_nans`` a
     non-finite loss or gradient norm raises ``FloatingPointError`` before
     the update, leaving the parameters and the optimizer state as they
@@ -121,14 +141,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if reduce_grads is not None:
         grads = reduce_grads(list(grads))
     grads = dict(zip(params, grads))
-    g_norm = optim.global_norm(list(grads.values()))
+    g_norm = (norm_fn or optim.global_norm)(list(grads.values()))
     if cfg.train.debug_nans:
         _check_finite(state.step, loss, g_norm)
     opt_state = optim.apply_updates(params, grads, state.opt_state,
                                     cfg.optim, g_norm=g_norm)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
-    return TrainState(state.step + 1, state.model, opt_state), metrics
+    return dataclasses.replace(state, step=state.step + 1,
+                               opt_state=opt_state), metrics
 
 
 @torch.no_grad()
@@ -136,8 +157,14 @@ def eval_step(model: birnn.BiRNN, cfg: Config,
               batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Forward, greedy best path and per-utterance NLL: {"hyp" [B, T],
     "hyp_len" [B], "nll" [B]}."""
-    logits = birnn.forward(model, cfg.model, batch["feats"],
-                           batch["frame_mask"])
+    return eval_outputs(cfg, birnn.forward(model, cfg.model, batch["feats"],
+                                           batch["frame_mask"]), batch)
+
+
+@torch.no_grad()
+def eval_outputs(cfg: Config, logits: torch.Tensor,
+                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """:func:`eval_step`'s outputs from the batch's logits [B, T, V]."""
     log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ids = torch.argmax(log_probs, dim=-1).to(torch.int32)
     hyp, hyp_len = collapse_ids(ids, batch["frame_mask"])
@@ -148,7 +175,7 @@ def eval_step(model: birnn.BiRNN, cfg: Config,
 
 
 # ---------------------------------------------------------------------------
-# The mesh half: DP, SP and DP x SP over torch.distributed
+# The mesh half: DP, SP, TP and PP over torch.distributed
 # ---------------------------------------------------------------------------
 
 def _uses_sp(mesh: mesh_lib.Mesh) -> bool:
@@ -185,40 +212,154 @@ def local_batch(arrays: Dict[str, np.ndarray],
 
 
 def state_shardings(mesh: mesh_lib.Mesh, cfg: Config, state: TrainState):
-    """Specs of the train state: every parameter and every trace
-    replicated (``()``), as JAX's state without a 'model' axis."""
-    return {"params": {k: () for k, _ in state.model.named_parameters()},
-            "trace": {k: () for k in state.opt_state.trace}}
+    """Specs of the train state: for each parameter and its trace, the
+    mesh axis each dimension is split over.  Under TP (``model > 1``) the
+    parameters follow ``birnn.param_partition_specs``, under PP
+    ``pipeline.pp_param_specs`` (the stacked layers over 'model'), and each
+    trace its parameter, as JAX's ``state_shardings``; otherwise every
+    tensor is replicated (``()``)."""
+    if cfg.mesh.pipeline:
+        from tpu_ctc_torch.parallel.pipeline import pp_param_specs
+        specs = pp_param_specs(cfg.model)
+    elif mesh.shape.get(AXIS_MODEL, 1) > 1:
+        specs = birnn.param_partition_specs(cfg.model)
+    else:
+        specs = {}
+    names = [k for k, _ in state.model.named_parameters()]
+    params = {k: specs.get(k, ()) for k in names}
+    return {"params": params,
+            "trace": {k: params[k] for k in state.opt_state.trace}}
 
 
-def _place_state(state: TrainState, specs) -> None:
-    """Lay the state out by its :func:`state_shardings`: a replicated
-    tensor (``()``) is broadcast from rank 0 in place, so every rank starts
-    from the same bits."""
-    tensors = {**{("params", k): p for k, p in state.model.named_parameters()},
-               **{("trace", k): t for k, t in state.opt_state.trace.items()}}
+def sharded_dim(spec: tuple) -> Optional[int]:
+    """The dimension of a spec that is split over 'model', or None."""
+    return spec.index(AXIS_MODEL) if AXIS_MODEL in spec else None
+
+
+def _set_param(model: torch.nn.Module, name: str, value: torch.Tensor):
+    """Replace the parameter ``name`` ("pre.0.w") of ``model`` by a new
+    parameter holding ``value``."""
+    *path, leaf = name.split(".")
+    module = model
+    for part in path:
+        module = getattr(module, part)
+    setattr(module, leaf, torch.nn.Parameter(value))
+
+
+def _place_state(state: TrainState, specs, mesh: mesh_lib.Mesh) -> None:
+    """Lay the state out by its :func:`state_shardings`: every tensor is
+    broadcast from rank 0 in place, so every rank starts from the same
+    bits; then a tensor split over 'model' is replaced by this rank's
+    block of it (the parameter, and its trace)."""
+    n, i = mesh.axis_size(AXIS_MODEL), mesh.axis_index(AXIS_MODEL)
     with torch.no_grad():
-        for (kind, k), t in tensors.items():
-            if specs[kind][k] == ():
-                dist.broadcast(t, src=0)
+        for k, p in list(state.model.named_parameters()):
+            dist.broadcast(p, src=0)
+            d = sharded_dim(specs["params"][k])
+            if d is not None:
+                per = p.shape[d] // n
+                _set_param(state.model, k,
+                           p.narrow(d, i * per, per).contiguous())
+        for k, t in list(state.opt_state.trace.items()):
+            dist.broadcast(t, src=0)
+            d = sharded_dim(specs["trace"][k])
+            if d is not None:
+                per = t.shape[d] // n
+                state.opt_state.trace[k] = t.narrow(d, i * per,
+                                                    per).contiguous()
+
+
+def _flat_all_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each gradient summed over ``group`` (None: all ranks): one
+    all-reduce of the flattened gradients."""
+    if not grads:
+        return []
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    return [t.view_as(g) for t, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def _all_reduce_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Each gradient summed over all ranks: one all-reduce of the
-    flattened gradients."""
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    return [t.view_as(g) for t, g in
-            zip(flat.split([g.numel() for g in grads]), grads)]
+    """Each gradient summed over all ranks (parameters replicated)."""
+    return _flat_all_reduce(grads, None)
+
+
+def _split_grad_reduction(mesh: mesh_lib.Mesh, sharded: List[bool]):
+    """(reduce_grads, norm_fn) of a mesh whose parameters are split over
+    'model' (``sharded[j]`` for the j-th parameter): a sharded parameter's
+    gradient sums over 'data' only and a replicated one's over every rank,
+    as shard_map's transpose sums the cotangents in JAX; the global norm
+    sums the sharded squares over 'model' and counts each replicated
+    parameter once."""
+    data, model = mesh.group(AXIS_DATA), mesh.group(AXIS_MODEL)
+
+    def reduce_grads(grads):
+        out = list(grads)
+        shard = [j for j, s in enumerate(sharded) if s]
+        repl = [j for j, s in enumerate(sharded) if not s]
+        if data is not None:
+            for j, g in zip(shard, _flat_all_reduce(
+                    [grads[j] for j in shard], data)):
+                out[j] = g
+        for j, g in zip(repl, _flat_all_reduce([grads[j] for j in repl],
+                                               None)):
+            out[j] = g
+        return out
+
+    def norm_fn(grads):
+        sq = [torch.sum(g.to(torch.float32) ** 2) for g in grads]
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        sq_shard = sum((q for q, s in zip(sq, sharded) if s), zero)
+        sq_repl = sum((q for q, s in zip(sq, sharded) if not s), zero)
+        sq_shard = sq_shard.reshape(1).clone()
+        dist.all_reduce(sq_shard, group=model)
+        return torch.sqrt(sq_shard[0] + sq_repl)
+
+    return reduce_grads, norm_fn
+
+
+def full_state(state: TrainState) -> TrainState:
+    """The whole state on every rank: a state split over 'model' has its
+    shards gathered (a collective: every rank calls it) into a new model
+    and trace on the CPU; any other state is returned as it is.  A
+    checkpoint of it is the one-card file."""
+    if not state.specs:
+        return state
+    mesh = state.mesh
+    whole = {}
+    with torch.no_grad():
+        for kind, tensors in (("params", dict(state.model.named_parameters())),
+                              ("trace", state.opt_state.trace)):
+            for k, t in tensors.items():
+                d = sharded_dim(state.specs[k])
+                t = t.detach()
+                if d is not None:
+                    t = mesh_lib.gather_blocks(mesh, t.contiguous(),
+                                               AXIS_MODEL, d)
+                whole[kind, k] = t.to("cpu", copy=True)
+    model = birnn.BiRNN(state.model.cfg, device="cpu")
+    if not isinstance(state.model.bi, torch.nn.ModuleList):   # PP: stacked
+        from tpu_ctc_torch.parallel.pipeline import stack_model
+        stack_model(model)
+    for k, _ in list(model.named_parameters()):
+        _set_param(model, k, whole["params", k])
+    trace = {k: whole["trace", k] for k in state.opt_state.trace}
+    return TrainState(state.step, model,
+                      optim.OptState(trace, state.opt_state.count))
 
 
 def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
     """The train step of ``mesh``, with the JAX function's dispatch and
     checks: returns (step_fn, state), step_fn(state, batch) taking this
     rank's block of the batch as tensors (:func:`local_batch`).  The state
-    is replicated from rank 0.  TP and PP (``model > 1``) are not ported
-    and raise ``NotImplementedError`` before anything runs."""
+    is replicated from rank 0, then split over 'model' where its specs say
+    so (:func:`state_shardings`): TP (``model > 1``) runs
+    ``parallel.tensor_parallel``'s loss, PP (``mesh.pipeline``)
+    ``parallel.pipeline``'s, SP ``parallel.seq_parallel``'s, DP
+    :func:`make_dp_loss_fn`."""
     shape = mesh.shape
+    tp = shape.get(AXIS_MODEL, 1) > 1 and not cfg.mesh.pipeline
     loss_closure = None
     if cfg.mesh.pipeline:
         if shape.get(AXIS_SEQ, 1) > 1:
@@ -231,8 +372,9 @@ def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
                 "PARITY.md)")
         if shape.get(AXIS_MODEL, 1) < 2:
             raise ValueError("mesh.pipeline requires model axis >= 2 stages")
-        raise mesh_lib.not_ported(shape[AXIS_MODEL])
-    if _uses_sp(mesh):
+        from tpu_ctc_torch.parallel.pipeline import make_pp_loss_fn
+        loss_closure, _, _ = make_pp_loss_fn(cfg, mesh)
+    elif _uses_sp(mesh):
         if shape.get(AXIS_MODEL, 1) > 1:
             raise ValueError(
                 "mesh config invalid: seq>1 with model>1 is unsupported "
@@ -241,16 +383,26 @@ def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
                 "PARITY.md)")
         from tpu_ctc_torch.parallel.seq_parallel import make_sp_loss_fn
         loss_closure, _ = make_sp_loss_fn(cfg, mesh)
-    elif shape.get(AXIS_MODEL, 1) > 1:
-        raise mesh_lib.not_ported(shape[AXIS_MODEL])
+    elif tp:
+        from tpu_ctc_torch.parallel.tensor_parallel import make_tp_loss_fn
+        loss_closure = make_tp_loss_fn(cfg, mesh)
     elif shape.get(AXIS_DATA, 1) > 1:
         loss_closure = make_dp_loss_fn(cfg, mesh)
-    reduce_grads = None
+    reduce_grads = norm_fn = None
     if mesh.size > 1:
-        _place_state(state, state_shardings(mesh, cfg, state))
-        reduce_grads = _all_reduce_grads
+        specs = state_shardings(mesh, cfg, state)
+        _place_state(state, specs, mesh)
+        sharded = [sharded_dim(specs["params"][k]) is not None
+                   for k, _ in state.model.named_parameters()]
+        if any(sharded):
+            state.specs = specs["params"]    # a trace shares its name
+            state.mesh = mesh
+            reduce_grads, norm_fn = _split_grad_reduction(mesh, sharded)
+        else:
+            reduce_grads = _all_reduce_grads
     return functools.partial(train_step, cfg=cfg, loss_closure=loss_closure,
-                             reduce_grads=reduce_grads), state
+                             reduce_grads=reduce_grads,
+                             norm_fn=norm_fn), state
 
 
 def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
@@ -264,10 +416,34 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
     """eval_fn(model, batch) on the global batch's tensors -> the whole
     batch's {"hyp", "hyp_len", "nll"} on every rank.  Under pure DP each
     rank evaluates its rows and the outputs are gathered over 'data';
-    otherwise every rank evaluates the whole batch."""
+    under TP and PP each rank runs the split forward on its block (rows
+    over 'data') with its shards, the logits are gathered over 'model'
+    and 'data', and every rank decodes the whole batch; otherwise every
+    rank evaluates the whole batch."""
+    specs = batch_shardings(mesh)
+    if cfg.mesh.pipeline or mesh.shape.get(AXIS_MODEL, 1) > 1:
+        if cfg.mesh.pipeline:
+            from tpu_ctc_torch.parallel.pipeline import pp_logits
+        else:
+            pp_logits = None
+
+        @torch.no_grad()
+        def split_eval(model, batch):
+            local = mesh_lib.shard_batch(mesh, batch, specs)
+            if pp_logits is not None:
+                logits = pp_logits(model, cfg, local["feats"],
+                                   local["frame_mask"], mesh)
+            else:
+                from tpu_ctc_torch.parallel.tensor_parallel import tp_forward
+                logits, _, _ = tp_forward(model, cfg.model, local["feats"],
+                                          local["frame_mask"], mesh)
+                logits = mesh_lib.gather_blocks(mesh, logits.contiguous(),
+                                                AXIS_MODEL, 0)
+            logits = mesh_lib.gather_blocks(mesh, logits, AXIS_DATA, 0)
+            return eval_outputs(cfg, logits, batch)
+        return split_eval
     if not _pure_dp(mesh, cfg):
         return lambda model, batch: eval_step(model, cfg, batch)
-    specs = batch_shardings(mesh)
 
     def dp_eval(model, batch):
         local = mesh_lib.shard_batch(mesh, batch, specs)
