@@ -39,7 +39,9 @@ against its plain PyTorch version on the same inputs:
      Nesterov SGD with clipping at 5) on 64 synthetic utterances (two
      800-frame batches of 32), ``train_step`` as ``train`` calls it from
      seeded random weights; its loss and gradients against the plain path
-     and against the f32 GEMMs that the bf16 GEMMs replaced;
+     and against the f32 GEMMs that the bf16 GEMMs replaced; two steps from
+     the same seeded state on the same batch, outside PyTorch's
+     deterministic mode, bit-equal in loss and parameters;
   8. kernel B5's GRU char-LM branch at B = 64, T = 800, A = 29, K = 128,
      a seeded GRU at E = 64, H = 128, and the trigram;
   9. kernel B6 (K in (128, 256], the same source) at K = 256 with the
@@ -60,7 +62,8 @@ against its plain PyTorch version on the same inputs:
      the walk), the loss on one batch from the seeded weights and from the
      checkpoint; the audio path's step (manifest, loader, prefetch,
      ``train_step``) timed and profiled beside phase 7's; ``model.remat``
-     bit-equal with B1 launched twice as often and both peaks printed;
+     bit-equal (outside deterministic mode) with B1 launched twice as
+     often and both peaks printed;
      ``cli decode --checkpoint --split valid --beam``, ``score``,
      ``export-weights`` and ``decode --weights`` (the same hypotheses, the
      manifest's ids); ``batched_edit_distance`` on the card equal to the
@@ -108,7 +111,8 @@ against its plain PyTorch version on the same inputs:
      above 16 columns a resident block) at H = 4096, B = 16 (a rank's rows
      of preset 5 under model = 4), T = 1600, bf16 and f32, against the
      plain loops (B1 from zero and from h0 both ways, B2 on B1's states),
-     two launches bit-equal, timed with its bound and launch plan, and B1
+     two launches bit-equal, timed with its bound and launch plan (the f32
+     sweeps faster than the plain f32 loops timed beside them), and B1
      at H = 1824 still on the narrow instance; preset 5 (H = 4096, 2 dense
      + 5 bidirectional layers) under tensor parallelism, model = 2 at a
      global B = 8, T = 200 (two gloo ranks sharing the card, or NCCL ranks
@@ -986,6 +990,23 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
             or max(g_worst, f32_worst) > GRAD_REL_TOL):
         raise AssertionError("the training step's kernel path disagrees "
                              "with its plain path or with its f32 GEMMs")
+    # two steps from the same seeded state, outside deterministic mode
+    assert not torch.are_deterministic_algorithms_enabled()
+    bt1 = step.batch_to_tensors(batch_to_device_dict(batches[1]), dev)
+    twins = []
+    for _ in range(2):
+        s0 = step.create_train_state(cfg, device=dev)
+        s1, m = step.train_step(s0, bt1, cfg)
+        twins.append((m["loss"], list(s1.model.parameters())))
+    same = torch.equal(twins[0][0], twins[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(twins[0][1], twins[1][1]))
+    log(f"phase 7: two train_steps from the same state outside "
+        f"deterministic mode: loss and parameters bit-equal {same}; the "
+        f"step {wall / steps * 1e3:.1f} ms (60.8 ms with the atomic "
+        f"gather backward, NVIDIA H100 80GB HBM3, 700 W)")
+    if not same:
+        raise AssertionError("two runs of one training step differ")
+    del twins, s0, s1
     torch.cuda.reset_peak_memory_stats()
     bd = device_breakdown(lambda: train_once(1), "phase 7")
     log(f"phase 7: peak device memory of one step "
@@ -1348,19 +1369,6 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
     return all_launches, rates
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """PyTorch's deterministic mode for the block (warnings only where an
-    op has no deterministic version), then the previous mode."""
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-
-
 def oracle_frontend(x, lens, fe):
     """The frontend in float64 numpy, written out from its definition:
     power [B, T, bins], mel energies [B, T, M], features [B, T, F] and the
@@ -1631,9 +1639,8 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
         f"audio-s/s, idle share <= {phase7['idle']}")
 
     # remat: one preset-2 step's loss and gradients, same batch, weights,
-    # in PyTorch's deterministic mode: without it the CTC glue's gather
-    # accumulates its gradient with atomics, so two runs of one step differ
-    # in the last bits with remat or without
+    # outside PyTorch's deterministic mode (the CTC glue's gather sums its
+    # gradient in a fixed order: ops/ctc_cuda.EmitGather)
     def loss_grads(remat):
         c = cfg2.override(**{"model.remat": remat})
         params = dict(state.model.named_parameters())
@@ -1649,17 +1656,15 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
         return bool(torch.equal(a[0], b[0])) and all(
             torch.equal(x, y) for x, y in zip(a[1], b[1]))
     loss_grads(False)
-    atomics = bit_equal(loss_grads(False), loss_grads(False))
-    with deterministic_algorithms():
-        l0, g0, n0, peak0 = loss_grads(False)
-        l1, g1, n1, peak1 = loss_grads(True)
+    twice = bit_equal(loss_grads(False), loss_grads(False))
+    l0, g0, n0, peak0 = loss_grads(False)
+    l1, g1, n1, peak1 = loss_grads(True)
     same = bit_equal((l0, g0), (l1, g1))
-    log(f"phase 11: remat (deterministic mode): loss and gradients "
-        f"bit-equal {same}; B1 launches {n0} without, {n1} with; peak device "
-        f"memory of the step {peak0:.3f} GiB without, {peak1:.3f} GiB with; "
-        f"two runs without remat outside deterministic mode bit-equal: "
-        f"{atomics}")
-    if not same or (n0, n1) != (2 * n_bi, 4 * n_bi):
+    log(f"phase 11: remat: loss and gradients bit-equal {same}; B1 launches "
+        f"{n0} without, {n1} with; peak device memory of the step "
+        f"{peak0:.3f} GiB without, {peak1:.3f} GiB with; two runs without "
+        f"remat bit-equal: {twice}")
+    if not (same and twice) or (n0, n1) != (2 * n_bi, 4 * n_bi):
         raise AssertionError("remat changed the loss, the gradients or the "
                              "launch count")
 
@@ -1894,9 +1899,9 @@ def preset3_batches(n_steps: int):
 def phase_mesh_one(steps=3, dev="cuda"):
     """Phase 12, part 3: preset 3 at B = 64 through ``make_mesh`` and
     ``make_train_step`` with a one-rank NCCL group, against ``train_step``
-    from the same seed on the same batches: loss and parameters bit-equal
-    (both in deterministic mode: the CTC glue's gather otherwise sums its
-    gradient with atomics)."""
+    from the same seed on the same batches: loss and parameters
+    bit-equal (outside deterministic mode: the CTC glue's gather sums its
+    gradient in a fixed order)."""
     import torch.distributed as dist
     from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
     from tpu_ctc_torch.train import step
@@ -1911,28 +1916,27 @@ def phase_mesh_one(steps=3, dev="cuda"):
             f"{[b.feats.shape for b in batches]}")
         tensors = [step.batch_to_tensors(batch_to_device_dict(b), dev)
                    for b in batches]
-        with deterministic_algorithms():
-            state = step.create_train_state(cfg, device=dev)
-            step_fn, state = step.make_train_step(cfg, mesh, state)
+        state = step.create_train_state(cfg, device=dev)
+        step_fn, state = step.make_train_step(cfg, mesh, state)
 
-            walls = []
+        walls = []
 
-            def run():
-                nonlocal state
-                out = []
-                for bt in tensors:
-                    torch.cuda.synchronize()
-                    t0 = time.time()
-                    state, m = step_fn(state, bt)
-                    out.append(float(m["loss"]))
-                    walls.append(time.time() - t0)
-                return out
-            losses, launches = run_main_path(run)
-            ref = step.create_train_state(cfg, device=dev)
-            ref_losses = []
+        def run():
+            nonlocal state
+            out = []
             for bt in tensors:
-                ref, m = step.train_step(ref, bt, cfg)
-                ref_losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                t0 = time.time()
+                state, m = step_fn(state, bt)
+                out.append(float(m["loss"]))
+                walls.append(time.time() - t0)
+            return out
+        losses, launches = run_main_path(run)
+        ref = step.create_train_state(cfg, device=dev)
+        ref_losses = []
+        for bt in tensors:
+            ref, m = step.train_step(ref, bt, cfg)
+            ref_losses.append(float(m["loss"]))
         same = losses == ref_losses and all(
             torch.equal(a, b) for a, b in zip(state.model.parameters(),
                                               ref.model.parameters()))
@@ -1940,7 +1944,7 @@ def phase_mesh_one(steps=3, dev="cuda"):
         audio = float(np.mean([int(b.frame_lengths.sum()) / 100
                                for b in batches[1:]]))
         log(f"phase 12: mesh path, {steps} steps: step {step_s * 1e3:.1f} "
-            f"ms (median of steps 2-3, deterministic mode) = "
+            f"ms (median of steps 2-3) = "
             f"{audio / step_s:.1f} audio-s/s; losses "
             f"{[round(x, 4) for x in losses]}; loss and parameters bit-equal "
             f"to train_step: {same}; launches on the path {launches}")
@@ -2369,6 +2373,10 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
             f"bound {bf[0]:.4f} ms ({bf[1]}); B2 one direction {ms_b:.3f} "
             f"ms ({ms_b * 1e3 / n_t:.2f} us a step), plain {plain_b:.3f} "
             f"ms, bound {bb[0]:.4f} ms ({bb[1]}); library: none")
+        if dtype == torch.float32 and not (ms_f < plain_f and
+                                           ms_b < plain_b):
+            raise AssertionError("the f32 wide sweeps are slower than the "
+                                 "plain f32 loops")
         if dtype == torch.bfloat16:
             out["birnn_fwd_wide"] = dict(
                 name="birnn_fwd_wide", route="cuda", source=BIRNN_SOURCE,

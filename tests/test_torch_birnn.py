@@ -474,6 +474,8 @@ class TestKernelGuards:
             src = f.read()
         assert [src.count(anchor) for anchor, _ in tool.STAMPS] == [1] * len(
             tool.STAMPS)
+        wide = tool.WIDE_DESIGNS[tool.wide_design(src)]["stamps"]
+        assert [src.count(anchor) for anchor, _ in wide] == [1] * len(wide)
 
     def test_refusal_counts_the_card_s_sms(self):
         """The instance follows the card's SMs: H = 1824 is narrow on 114

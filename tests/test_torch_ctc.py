@@ -260,6 +260,52 @@ class TestSweeps:
             ctc_cuda.beta_cuda(emit, skip2, final, lengths)
 
 
+class TestEmitGather:
+    @pytest.mark.parametrize("seed,b,t,a,s", [(5, 4, 12, 29, 21),
+                                              (6, 3, 40, 7, 81)])
+    def test_forward_is_gather_backward_in_fixed_order(self, seed, b, t, a,
+                                                       s):
+        """``EmitGather``'s forward is ``torch.gather``'s bit for bit; its
+        backward (one f32 product with the one-hot of ext) equals
+        ``gather``'s scatter-add up to the order of each character's sum.
+        A sum of n values in two orders differs by at most 2 (n - 1)
+        2^-24 of the sum of their magnitudes; every other column (the
+        blank, on every even lattice column) sums several."""
+        r = np.random.RandomState(seed)
+        lp = torch.from_numpy(r.randn(b, t, a).astype(np.float32))
+        ext = torch.from_numpy(r.randint(1, a, (b, s)))
+        ext[:, ::2] = 0                                 # the blanks
+        g = torch.from_numpy(r.randn(b, t, s).astype(np.float32))
+        x = lp.clone().requires_grad_()
+        got = ctc_cuda.EmitGather.apply(x, ext)
+        want = torch.gather(x, 2, ext[:, None, :].expand(b, t, s))
+        assert torch.equal(got, want)
+        d_got, = torch.autograd.grad(got, x, g)
+        d_want, = torch.autograd.grad(want, x, g)
+        onehot = F.one_hot(ext, a).to(torch.float32)          # [B, S, A]
+        n = onehot.sum(1)[:, None, :]                           # [B, 1, A]
+        bound = 2 * torch.clamp_min(n - 1, 0) * 2.0 ** -24 * (
+            g.abs() @ onehot)
+        assert torch.all((d_got - d_want).abs() <= bound)
+        assert int(n.max()) > 1
+        assert torch.equal(d_got == 0, n.expand_as(d_got) == 0)
+
+    def test_the_loss_takes_it(self):
+        """The lattice's emission gather is ``EmitGather``: the loss's
+        gradient flows through it."""
+        logits, labels, tl, ll = (torch.from_numpy(x) for x in
+                                  _case(7, 3, 30, 9, 6))
+        lp = torch.log_softmax(logits, -1).requires_grad_()
+        emit = ctc_cuda.lattice(lp, labels, tl, ll)[0]
+        names, todo = set(), [emit.grad_fn]
+        while todo:
+            fn = todo.pop()
+            names.add(fn.name())
+            todo += [f for f, _ in fn.next_functions if f is not None]
+        assert "EmitGatherBackward" in names
+        assert not any(n.startswith("Gather") for n in names)
+
+
 class TestOracles:
     @pytest.mark.parametrize("impl", IMPLS)
     def test_torch_oracle_fixture(self, impl):

@@ -22,7 +22,8 @@ expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
 (f32 output) equals the f32 product of the same values up to the order of
 its f32 sums.  The audio path: the frontend on the card within PERF.md
 section 2's limits of the CPU's, prefetched batches bit-equal, and
-``model.remat`` bit-equal (in deterministic mode) with B1 launched twice.
+``model.remat`` bit-equal (outside deterministic mode) with B1 launched
+twice; two training steps from one state bit-equal.
 The benches and tools: ``utils.devtime.device_time_ms`` of B3 within 20%
 of its CUDA-event time, the C++ host decoder against B5 under the rule of
 ``torch_tools/cpp_b5.py`` (phase 13's) and
@@ -151,10 +152,13 @@ def test_wide_birnn_kernels_match_plain(dev, t, b, h, dtype, reverse):
 
 @pytest.mark.parametrize("t,b,h,dtype", [
     (30, 32, 1024, torch.bfloat16), (25, 17, 100, torch.bfloat16),
-    (20, 64, 512, torch.float32), (16, 5, 2000, torch.bfloat16)])
+    (20, 64, 512, torch.float32), (16, 5, 2000, torch.bfloat16),
+    (24, 16, 2048, torch.bfloat16), (18, 16, 2048, torch.float32),
+    (20, 16, 100, torch.float32), (12, 128, 1024, torch.bfloat16)])
 def test_wide_instance_is_bit_equal_to_the_narrow_one(dev, t, b, h, dtype):
     """At a width both instances take, the wide one (forced) sums in the
-    narrow one's order: B1 from h0 and B2 bit-equal to the narrow launch."""
+    narrow one's order: B1 from h0 and B2 bit-equal to the narrow launch;
+    B = 16 is a TP rank's rows under model = 4 at preset 5."""
     z, w, lens = _recurrence_inputs(h + b, t, b, h)
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
     h0 = torch.rand((b, h), generator=torch.Generator().manual_seed(b)).to(
@@ -407,6 +411,36 @@ def test_train_step_kernel_path_matches_plain(dev):
                                    atol=0)
     for name, p in out[0][1].items():
         torch.testing.assert_close(p, out[1][1][name], rtol=1e-4, atol=1e-6)
+
+
+def test_train_step_is_bit_reproducible(dev):
+    """Two ``train_step`` calls from the same state on the same batch,
+    outside PyTorch's deterministic mode, give bit-equal losses, gradient
+    norms and parameters: the CTC glue's emission gather sums its gradient
+    in a fixed order (``ctc_cuda.EmitGather``), not with atomics."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = get_config("2", **{"model.hidden_dim": 256,
+                             "model.num_bi_layers": 2, "data.batch_size": 8})
+    r = np.random.RandomState(6)
+    lens = np.array([80, 77, 64, 80, 51, 70, 80, 33], np.int32)
+    batch = {"feats": r.randn(8, 80, 120).astype(np.float32),
+             "frame_lengths": lens,
+             "frame_mask": (np.arange(80)[None] < lens[:, None]).astype(
+                 np.float32),
+             "labels": r.randint(1, 29, (8, 20)).astype(np.int32),
+             "label_lengths": np.array([20, 15, 9, 20, 1, 12, 18, 6],
+                                       np.int32),
+             "weights": np.ones(8, np.float32)}
+    bt = step.batch_to_tensors(batch, dev)
+    out = []
+    for _ in range(2):
+        state = step.create_train_state(cfg, device=dev)
+        state, m = step.train_step(state, bt, cfg)
+        out.append((m, dict(state.model.named_parameters())))
+    for key in ("loss", "grad_norm"):
+        assert torch.equal(out[0][0][key], out[1][0][key])
+    for name, p in out[0][1].items():
+        assert torch.equal(p, out[1][1][name]), name
 
 
 def _posteriors(seed, b, t, a, scale=2.0):
@@ -788,11 +822,11 @@ def test_prefetch_on_a_side_stream(dev):
 @pytest.mark.parametrize("io", ["float32", "bfloat16"])
 def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
     """``model.remat``: loss and gradients bit-equal to the run without it
-    (in deterministic mode), B1 launched twice as often.  Remat keeps each layer's f32 projection in
-    place of its two sweeps' states (the kernels take one dtype for the
-    states and the products): with f32 states (8 bytes an element against
-    4) the peak is lower; with bf16 states (4 against 4) it is not
-    asserted."""
+    (outside deterministic mode), B1 launched twice as often.  Remat keeps
+    each layer's f32 projection in place of its two sweeps' states (the
+    kernels take one dtype for the states and the products): with f32
+    states (8 bytes an element against 4) the peak is lower; with bf16
+    states (4 against 4) it is not asserted."""
     from tpu_ctc_torch.data.bucketing import BucketedLoader
     from tpu_ctc_torch.data.synthetic import SyntheticCorpus
     from tpu_ctc_torch.train.loop import batch_to_device_dict
@@ -817,16 +851,11 @@ def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
         return (loss, grads, birnn_cuda.KERNEL.launches - before,
                 torch.cuda.max_memory_allocated())
     run(False)                                     # warm-up
-    # deterministic mode: the CTC glue's gather otherwise accumulates its
-    # gradient with atomics, and two runs of one step differ in the last bits
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        loss0, g0, n0, peak0 = run(False)
-        loss1, g1, n1, peak1 = run(True)
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    # outside deterministic mode: the CTC glue's gather sums its gradient
+    # in a fixed order (ctc_cuda.EmitGather)
+    assert not torch.are_deterministic_algorithms_enabled()
+    loss0, g0, n0, peak0 = run(False)
+    loss1, g1, n1, peak1 = run(True)
     assert torch.equal(loss0, loss1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
     assert (n0, n1) == (6, 12)

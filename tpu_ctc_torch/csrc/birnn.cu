@@ -488,30 +488,57 @@ f32_sweep_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // chip either: at H = 4096 it is 32 MiB in bf16, over the 30.7 MB of all
 // SMs' shared memory together, and 64 MiB in f32, over the 50 MB L2.  The
 // wide instances compute exactly what the narrow ones compute, in the same
-// order, on a grid of at most n_SM co-resident blocks:
-// - the H_pad / 16 column tiles are dealt round-robin: block j owns tiles
-//   j, j + grid, ... (at most kMaxOwn a block) and runs a narrow step for
-//   each in turn, the previous value fetched again for each tile;
-// - W arrives in 16 x 16 pieces (k rows of 16 columns) from a copy of W
-//   zero-padded to [H_pad, H_pad].  Each warp keeps the first pieces of its
-//   k-range of its tiles, as many as fit, in a shared-memory cache filled
-//   once a sweep; the rest it streams every step through its copy ring
-//   beside the state (from L2 for bf16, from HBM for f32 at H = 4096);
-// - every warp of a tile sums its k-range as in the narrow instance and
-//   the partials are summed in warp order, so a wide launch is bit-equal
-//   to a narrow one on the same inputs (and two wide launches are too);
-// - a block arrives at the grid barrier once a step, after it has stored
-//   all of its tiles: the exchange buffer and the barrier are the narrow
-//   instances'.
-// The f32 instance keeps the narrow one's scalar loop, its carry and W
-// staged in k-chunks of 64 through a 3-deep ring of cp.async stages.
-// Not made fast: no TMA, no clusters, no multicast of the state.
+// order, on a grid of at most n_SM co-resident blocks: the H_pad / 16
+// column tiles are dealt round-robin (block j owns tiles j, j + grid, ...,
+// at most kMaxOwn), W arrives from a copy laid out by column tiles, [H_pad
+// / 16][H_pad][16] zero-padded (a tile's rows are contiguous, so a block's
+// streamed k-range of a tile is one run of memory, not rows of 32 or 64
+// bytes 2 H_pad or 4 H_pad bytes apart), and a block arrives at the grid
+// barrier once a step, after it has stored all of its tiles (the exchange
+// buffer and the barrier are the narrow instances').
+//
+// What bounds a step at preset 5's rank shape (H = 4096, B = 16: 2 tiles a
+// block): every block reads the whole previous state (128 KiB bf16, 256
+// KiB f32) from L2, and W's block share (256 KiB bf16, 512 KiB f32) is
+// more than its shared memory, so part of it is read again every step (from
+// L2 in bf16; in f32, W is larger than L2).  The design spends shared memory
+// on W and reads the state once a step for all of a block's tiles:
+// - bf16 (mma_wide_kernel): each warp owns the narrow instance's k-range
+//   and sweeps it once a step with the k-tile as the outer loop and the
+//   block's tiles inside it, an mma accumulator for each (tile, m-tile) of
+//   a pass (kSlots of them; at large B the m-tiles go in passes).  A ring
+//   stage is one k-tile: the state's [16 rows x 16 k] pieces and, for the
+//   first k-tiles of the range, W's pieces of every owned tile; the last
+//   k-tiles' pieces stay in shared memory for the whole sweep.  W's streamed
+//   pieces of the first stages do not depend on the state, so they are
+//   issued before the grid barrier's wait.  The epilogue sums the 8 warps'
+//   partials in warp order over all 256 threads, two outputs each.
+// - f32 (f32_wide_kernel): a thread owns 4 columns of a 32-column group
+//   and kR rows (2 at B = 16: 2 of the 8 warps compute), each output one
+//   sequential k-sum in straight-line code unrolled over 16 k; W's chunks
+//   are staged [64 k][own x 16 columns] so that a warp reads 8 columns'
+//   float4 and 4 rows' state float4 a k-quad without bank conflicts.  The
+//   block's ring has kF32Depth stages of a 64-k chunk of the state and, for
+//   the first chunks, of W; the last chunks stay in shared memory; W's
+//   first streamed chunks are issued before the barrier's wait.
+// - each output is summed as in the narrow instance (bf16: every warp's
+//   k-range in mma order, the partials in warp order; f32: one sequential
+//   k-sum), so a wide launch is bit-equal to a narrow one on the same
+//   inputs, and two wide launches are too.
+// Not done: TMA.  The state's multicast over a cluster of 2 blocks (one
+// cp.async.bulk a k-tile stage for both, an empty mbarrier per slot that
+// both blocks' warps arrive at) halved the state's L2 reads but measured
+// more than twice as slow at H = 4096, B = 16: a cross-block handshake for
+// every 512-byte stage costs more than it saves.
 
 constexpr int kMaxOwn = 4;              // column tiles a wide block owns
-constexpr int kPieceBytes = 16 * 16 * 2;    // a bf16 piece of W
-constexpr int kWideStateBytes = 2048;   // state bytes of a wide ring stage
-constexpr int kF32Depth = 3;            // stages of the f32 wide ring
-constexpr int kCs = kKc + 4;            // f32: a staged carry row, floats
+constexpr int kPieceBytes = 16 * 16 * 2;    // a bf16 piece: 16 x 16
+constexpr int kWideStages = 4;          // bf16: stages of a warp's ring
+constexpr int kSlots = 8;               // bf16: accumulator tiles a warp
+constexpr int kSlotPart = 16 * 16 * 4;  // bf16: a slot's f32 partial
+constexpr int kUnits = kSlots * 128 / kThreads;  // bf16: epilogue pairs a thread
+constexpr int kF32Depth = 4;            // f32: stages of the block's ring
+constexpr int kCs = kKc + 4;            // f32: a staged state row, floats
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   uint32_t addr) {
@@ -523,12 +550,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
 __device__ __forceinline__ int tiles_owned(int n_tiles) {
   return (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 }
 
-// One 512-byte piece of W (rows 16 kt .. + 15, columns 16 jt .. + 15 of
-// the padded [h_pad, h_pad] matrix) into shared memory at dst, a row of
+// The bf16 wide block's layout, the same on the host (wide_plan) and the
+// card: m-tiles a pass (mg), a ring stage's bytes (mg state pieces and
+// own pieces of W), a warp's region (its ring, and its partials after the
+// k loop).
+struct WideLayout {
+  int mg, stage, region;
+};
+
+__host__ __device__ __forceinline__ WideLayout wide_layout(int n_mt, int own) {
+  WideLayout l;
+  l.mg = n_mt < kSlots / own ? n_mt : kSlots / own;
+  l.stage = (l.mg + own) * kPieceBytes;
+  const int part = l.mg * own * kSlotPart;
+  l.region = kWideStages * l.stage > part ? kWideStages * l.stage : part;
+  return l;
+}
+
+// One 512-byte piece of W (rows 16 kt .. + 15 of column tile jt of the
+// tiled [h_pad / 16][h_pad][16] copy) into shared memory at dst, a row of
 // 32 bytes, its two 16-byte chunks swizzled by bit 2 of the row: one
 // chunk a lane.
 __device__ __forceinline__ void copy_piece(uint32_t dst, const bf16* w,
@@ -536,41 +584,56 @@ __device__ __forceinline__ void copy_piece(uint32_t dst, const bf16* w,
                                            int lane) {
   const int r = lane >> 1, c = lane & 1;
   cp_async16(dst + r * 32 + ((c ^ ((r >> 2) & 1)) * 16),
-             w + (size_t)(kt * 16 + r) * h_pad + jt * 16 + c * 8);
+             w + ((size_t)jt * h_pad + kt * 16 + r) * kCols + c * 8);
 }
 
-// cap: pieces of W a warp keeps in shared memory for the whole sweep.
+// Two bf16 values packed in 32 bits (the first in the low half), as f32.
+__device__ __forceinline__ float lo_f(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v);
+}
+
+// Two bf16 values at p (n of them, zeros after), one 4-byte access if vec.
+__device__ __forceinline__ uint32_t load2(const bf16* p, int n, bool vec) {
+  if (vec && n == 2) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  return (n > 0 ? bits(p[0]) : 0u) | (n > 1 ? bits(p[1]) << 16 : 0u);
+}
+
+// ck: k-tiles at the end of each warp's range whose W pieces (of every
+// owned tile) stay in shared memory for the whole sweep.
 template <bool kBwd>
 __global__ void __launch_bounds__(kThreads, 1)
 mma_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const int* __restrict__ lengths, const bf16* __restrict__ hs,
                 bf16* __restrict__ out, bf16* xbuf, unsigned int* count,
                 int n_t, int n_b, int n_h, int reverse, float clip, bool vec,
-                int cap) {
+                int ck) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
   const int n_mt = b_pad / 16;
-  const int tile_bytes = b_pad * 32;
-  const int tps = max(1, kWideStateBytes / tile_bytes);
-  const int stage_bytes = tps * (tile_bytes + kPieceBytes);
-  const int ring_bytes = kStages * stage_bytes;
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_tiles = h_pad / kCols, n_own = tiles_owned(n_tiles);
+  const int own_max = ceil_div(n_tiles, (int)gridDim.x);
+  const WideLayout L = wide_layout(n_mt, own_max);
+  const int n_pass = ceil_div(n_mt, L.mg);
   const int n_kt = h_pad / 16;
   const int kt0 = warp * n_kt / kWarps, kt1 = (warp + 1) * n_kt / kWarps;
   const int nk = kt1 - kt0;
-  unsigned char* ring = smem + warp * ring_bytes;
-  const uint32_t ring_sa = smem_u32(ring);
-  const uint32_t cache_sa =
-      smem_u32(smem + kWarps * ring_bytes) + warp * cap * kPieceBytes;
-  const int n_cached = min(cap, n_own * nk);
+  const int ns = nk > ck ? nk - ck : 0;   // streamed: the first ns k-tiles
+  const uint32_t ring_sa = smem_u32(smem + warp * L.region);
+  const uint32_t cache_sa = smem_u32(smem + kWarps * L.region) +
+                            warp * ck * own_max * kPieceBytes;
 
-  // this warp's resident pieces, once: piece p is (tile p / nk, k-tile
-  // kt0 + p % nk)
-  for (int p = 0; p < n_cached; ++p)
-    copy_piece(cache_sa + p * kPieceBytes, w, h_pad, kt0 + p % nk,
-               blockIdx.x + (p / nk) * gridDim.x, lane);
+  // the resident pieces, once: k-tile kt0 + ns + c of tile i at c own_max + i
+  for (int c = 0; c < nk - ns; ++c)
+    for (int i = 0; i < n_own; ++i)
+      copy_piece(cache_sa + (c * own_max + i) * kPieceBytes, w, h_pad,
+                 kt0 + ns + c, blockIdx.x + i * gridDim.x, lane);
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
@@ -579,282 +642,389 @@ mma_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const uint32_t a_off =
       a_row * 32 + (((lane >> 4) ^ ((a_row >> 2) & 1)) * 16);
   const int b_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const uint32_t b_off = b_row * 32 + ((((lane >> 4) & 1) ^ ((b_row >> 2) & 1)) * 16);
+  const uint32_t b_off =
+      b_row * 32 + ((((lane >> 4) & 1) ^ ((b_row >> 2) & 1)) * 16);
 
-  const bool epi = tid < 2 * b_pad;
-  const int eb = tid >> 1, c0 = (tid & 1) * 8;
-  const bool row_live = epi && eb < n_b;
-  const int len_b = (!kBwd && row_live) ? lengths[eb] : 0;
-  const unsigned int per_step = gridDim.x * (unsigned int)n_mt;
-  Pack8 xv[kMaxOwn], hv[kMaxOwn];  // each tile's next-frame inputs
-  for (int i = 0; i < n_own; ++i) {
-    xv[i].u = hv[i].u = make_uint4(0, 0, 0, 0);
-    const int j0 = (blockIdx.x + i * gridDim.x) * kCols;
-    const int n_val = min(max(n_h - (j0 + c0), 0), 8);
-    if (row_live) {
-      const int t = reverse ? n_t - 1 : 0;
-      const size_t o = ((size_t)t * n_b + eb) * n_h + j0 + c0;
-      xv[i].u = load8(x + o, n_val, vec);
-      if (kBwd) hv[i].u = load8(hs + o, n_val, vec);
+  // Epilogue unit u (thread tid owns u = tid + 256 e): slot u >> 7 (m-tile
+  // slot / n_own of the pass, tile slot % n_own), row (u >> 3) & 15,
+  // columns 2 (u & 7) and 2 (u & 7) + 1 of the tile.
+  uint32_t xv[kUnits], hv[kUnits];   // the units' inputs of the next pass
+  auto unit_at = [&](int u, int m0, int& row, int& j) {
+    const int q = u >> 7, m = q / n_own, i = q - m * n_own;
+    row = (m0 + m) * 16 + ((u >> 3) & 15);
+    j = (blockIdx.x + i * gridDim.x) * kCols + 2 * (u & 7);
+  };
+  auto load_units = [&](int t, int pass) {
+    const int m0 = pass * L.mg, n_u = min(L.mg, n_mt - m0) * n_own * 128;
+#pragma unroll
+    for (int e = 0; e < kUnits; ++e) {
+      xv[e] = hv[e] = 0u;
+      const int u = tid + kThreads * e;
+      if (u < n_u) {
+        int row, j;
+        unit_at(u, m0, row, j);
+        if (row < n_b) {
+          const int n_val = min(max(n_h - j, 0), 2);
+          const size_t o = ((size_t)t * n_b + row) * n_h + j;
+          xv[e] = load2(x + o, n_val, vec);
+          if (kBwd) hv[e] = load2(hs + o, n_val, vec);
+        }
+      }
     }
-  }
+  };
+  load_units(reverse ? n_t - 1 : 0, 0);
 
   for (int s = 0; s < n_t; ++s) {
     const int t = reverse ? n_t - 1 - s : s;
     const bf16* src = xbuf + (size_t)(s & 1) * b_pad * h_pad;
     bf16* dst = xbuf + (size_t)((s + 1) & 1) * b_pad * h_pad;
-    if (s > 0) {  // the grid's values of step s - 1 are all in src
-      if (lane == 0) wait_count(count, per_step * s);
-      __syncwarp();
-    }
-    for (int i = 0; i < n_own; ++i) {
-      const int jt = blockIdx.x + i * gridDim.x, j0 = jt * kCols;
-      const int n_st = (nk + tps - 1) / tps;
-      // stage st: the state's k-tiles and the uncached pieces of W
-      auto stage_in = [&](int st) {
-        const int k_first = kt0 + st * tps;
-        const int n_in = min(tps, kt1 - k_first);
-        const uint32_t slot = ring_sa + (st % kStages) * stage_bytes;
-        for (int e = lane; e < n_in * b_pad * 2; e += 32) {
-          const int c = e & 1, rk = e >> 1;
-          const int r = rk / n_in, kk = rk - r * n_in;
-          cp_async16(slot + kk * tile_bytes + r * 32 + ((c ^ ((r >> 2) & 1)) * 16),
-                     src + (size_t)r * h_pad + (k_first + kk) * 16 + c * 8);
-        }
-        for (int kk = 0; kk < n_in; ++kk)
-          if (i * nk + (k_first + kk - kt0) >= cap)
-            copy_piece(slot + tps * tile_bytes + kk * kPieceBytes, w, h_pad,
-                       k_first + kk, jt, lane);
-      };
-
-      float acc[kMaxB / 16][2][4];
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int m0 = pass * L.mg, mgp = min(L.mg, n_mt - m0);
+      const int slots = mgp * n_own;
+      int a_of[kSlots], w_of[kSlots];   // each slot's m-tile and tile offsets
 #pragma unroll
-      for (int mt = 0; mt < kMaxB / 16; ++mt)
+      for (int q = 0; q < kSlots; ++q) {
+        const int m = q / n_own;
+        a_of[q] = m * kPieceBytes;
+        w_of[q] = q - m * n_own;
+      }
+      // stage st: k-tile kt0 + st, its state pieces, and W's unless resident
+      auto stage_w = [&](int st) {
+        const uint32_t slot = ring_sa + (st % kWideStages) * L.stage;
+        if (st < ns)
+          for (int i = 0; i < n_own; ++i)
+            copy_piece(slot + (L.mg + i) * kPieceBytes, w, h_pad, kt0 + st,
+                       blockIdx.x + i * gridDim.x, lane);
+      };
+      auto stage_x = [&](int st) {
+        const uint32_t slot = ring_sa + (st % kWideStages) * L.stage;
+        for (int e = lane; e < mgp * 32; e += 32) {
+          const int r = e >> 1, c = e & 1;
+          cp_async16(slot + r * 32 + ((c ^ ((r >> 2) & 1)) * 16),
+                     src + (size_t)(m0 * 16 + r) * h_pad + (kt0 + st) * 16 +
+                         c * 8);
+        }
+      };
+      // W's first stages do not depend on the state: before the wait
+      for (int st = 0; st < kWideStages - 1 && st < nk; ++st) stage_w(st);
+      if (pass == 0 && s > 0) {  // the grid's values of step s - 1 are in src
+        if (lane == 0) wait_count(count, gridDim.x * (unsigned int)s);
+        __syncwarp();
+      }
+#pragma unroll
+      for (int st = 0; st < kWideStages - 1; ++st) {
+        if (st < nk) stage_x(st);
+        cp_async_commit();
+      }
+
+      float acc[kSlots][2][4];
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.f;
 
-#pragma unroll
-      for (int st = 0; st < kStages - 1; ++st) {
-        if (st < n_st) stage_in(st);
-        cp_async_commit();
-      }
-      for (int st = 0; st < n_st; ++st) {
-        cp_async_wait<kStages - 2>();
+      for (int st = 0; st < nk; ++st) {
+        cp_async_wait<kWideStages - 2>();
         __syncwarp();  // stage st is in for every lane; slot st - 1 is free
-        if (st + kStages - 1 < n_st) stage_in(st + kStages - 1);
+        if (st + kWideStages - 1 < nk) {
+          stage_w(st + kWideStages - 1);
+          stage_x(st + kWideStages - 1);
+        }
         cp_async_commit();
-        const int k_first = kt0 + st * tps;
-        const int n_in = min(tps, kt1 - k_first);
-        const uint32_t slot = ring_sa + (st % kStages) * stage_bytes;
-        for (int kk = 0; kk < n_in; ++kk) {
-          const int p = i * nk + (k_first + kk - kt0);
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, (p < cap ? cache_sa + p * kPieceBytes
-                                        : slot + tps * tile_bytes +
-                                              kk * kPieceBytes) + b_off);
+        const uint32_t slot = ring_sa + (st % kWideStages) * L.stage;
+        const uint32_t wbase =
+            st < ns ? slot + L.mg * kPieceBytes
+                    : cache_sa + (st - ns) * own_max * kPieceBytes;
+        uint32_t a[4];
 #pragma unroll
-          for (int mt = 0; mt < kMaxB / 16; ++mt) {
-            if (mt < n_mt) {
-              uint32_t a[4];
-              ldmatrix_x4(a, slot + a_off + kk * tile_bytes + mt * 512);
-              mma_bf16(acc[mt][0], a, b[0], b[1]);
-              mma_bf16(acc[mt][1], a, b[2], b[3]);
-            }
+        for (int q = 0; q < kSlots; ++q) {
+          if (q < slots) {
+            if (w_of[q] == 0) ldmatrix_x4(a, slot + a_off + a_of[q]);
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, wbase + w_of[q] * kPieceBytes + b_off);
+            mma_bf16(acc[q][0], a, b[0], b[1]);
+            mma_bf16(acc[q][1], a, b[2], b[3]);
           }
         }
       }
       cp_async_wait<0>();
-      __syncwarp();  // the ring is free for this warp's partial
+      __syncwarp();  // the ring is free for this warp's partials
 
-      float* part = reinterpret_cast<float*>(ring);
+      float* part = reinterpret_cast<float*>(smem + warp * L.region);
 #pragma unroll
-      for (int mt = 0; mt < kMaxB / 16; ++mt) {
-        if (mt < n_mt) {
+      for (int q = 0; q < kSlots; ++q) {
+        if (q < slots) {
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt) {
-            const int r = mt * 16 + (lane >> 2), c = nt * 8 + (lane & 3) * 2;
-            *reinterpret_cast<float2*>(part + r * 16 + c) =
-                make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-            *reinterpret_cast<float2*>(part + (r + 8) * 16 + c) =
-                make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+            const int r = lane >> 2, c = nt * 8 + (lane & 3) * 2;
+            *reinterpret_cast<float2*>(part + q * 256 + r * 16 + c) =
+                make_float2(acc[q][nt][0], acc[q][nt][1]);
+            *reinterpret_cast<float2*>(part + q * 256 + (r + 8) * 16 + c) =
+                make_float2(acc[q][nt][2], acc[q][nt][3]);
           }
         }
       }
-      __syncthreads();  // every warp's partial of tile i is in its ring
+      __syncthreads();  // every warp's partials of the pass are in
 
-      if (epi) {
-        float v[8];
+      uint32_t ov[kUnits];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      for (int e = 0; e < kUnits; ++e) {
+        ov[e] = 0u;
+        const int u = tid + kThreads * e;
+        if (u >= slots * 128) continue;
+        int row, j;
+        unit_at(u, m0, row, j);
+        float v0 = 0.f, v1 = 0.f;
 #pragma unroll
         for (int wi = 0; wi < kWarps; ++wi) {  // warp order, as narrow
-          const float4* p = reinterpret_cast<const float4*>(
-              smem + wi * ring_bytes + (eb * 16 + c0) * 4);
-          const float4 lo = p[0], hi = p[1];
-          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
-          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+          const float2 p = *reinterpret_cast<const float2*>(
+              smem + wi * L.region + (u >> 7) * kSlotPart +
+              (((u >> 3) & 15) * 16 + 2 * (u & 7)) * 4);
+          v0 += p.x;
+          v1 += p.y;
         }
-        const int n_val = min(max(n_h - (j0 + c0), 0), 8);
-        const bool live = kBwd || t < len_b;
-        Pack8 o;
+        if (row >= n_b) continue;             // rows past B stay zero
+        const int n_val = min(max(n_h - j, 0), 2);
+        const bool live = kBwd || t < __ldg(lengths + row);
+        float r0 = 0.f, r1 = 0.f;
+        if (kBwd) {
+          const float h0v = lo_f(hv[e]), h1v = hi_f(hv[e]);
+          if (n_val > 0 && h0v > 0.f && h0v < clip) r0 = lo_f(xv[e]) + v0;
+          if (n_val > 1 && h1v > 0.f && h1v < clip) r1 = hi_f(xv[e]) + v1;
+        } else if (live) {
+          if (n_val > 0) r0 = fminf(fmaxf(lo_f(xv[e]) + v0, 0.f), clip);
+          if (n_val > 1) r1 = fminf(fmaxf(hi_f(xv[e]) + v1, 0.f), clip);
+        }
+        // round to nearest even, as XLA
+        ov[e] = bits(__float2bfloat16(r0)) | bits(__float2bfloat16(r1)) << 16;
+        __stcg(reinterpret_cast<unsigned int*>(dst + (size_t)row * h_pad + j),
+               ov[e]);
+      }
+      __syncthreads();  // the stores are in; the partials are read
+      if (pass == n_pass - 1 && tid == 0) arrive(count);
+      // off the critical path: the HBM stores and the next pass's inputs
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float r = 0.f;
-          if (row_live && e < n_val) {
-            const float xi = __bfloat162float(xv[i].h[e]);
-            if (kBwd) {
-              const float h = __bfloat162float(hv[i].h[e]);
-              r = (h > 0.f && h < clip) ? xi + v[e] : 0.f;
-            } else {
-              r = live ? fminf(fmaxf(xi + v[e], 0.f), clip) : 0.f;
-            }
-          }
-          o.h[e] = __float2bfloat16(r);
-        }
-        if (eb < n_b)
-          __stcg(reinterpret_cast<uint4*>(dst + (size_t)eb * h_pad + j0 + c0),
-                 o.u);
-        if (row_live) {
-          store8(out + ((size_t)t * n_b + eb) * n_h + j0 + c0, o, n_val, vec);
-          if (s + 1 < n_t) {
-            const int tn = reverse ? t - 1 : t + 1;
-            const size_t on = ((size_t)tn * n_b + eb) * n_h + j0 + c0;
-            xv[i].u = load8(x + on, n_val, vec);
-            if (kBwd) hv[i].u = load8(hs + on, n_val, vec);
-          }
+      for (int e = 0; e < kUnits; ++e) {
+        const int u = tid + kThreads * e;
+        if (u >= slots * 128) continue;
+        int row, j;
+        unit_at(u, m0, row, j);
+        if (row >= n_b) continue;
+        const int n_val = min(max(n_h - j, 0), 2);
+        bf16* po = out + ((size_t)t * n_b + row) * n_h + j;
+        if (vec && n_val == 2) {
+          *reinterpret_cast<unsigned int*>(po) = ov[e];
+        } else {
+          if (n_val > 0) po[0] = __ushort_as_bfloat16((unsigned short)ov[e]);
+          if (n_val > 1)
+            po[1] = __ushort_as_bfloat16((unsigned short)(ov[e] >> 16));
         }
       }
-      // the partials are read before any warp stages the next tile
-      if (i + 1 < n_own) __syncthreads();
-    }
-    if (epi) {  // all of this block's tiles are stored: arrive
-      __syncwarp();
-      if (!lane) arrive(count);
+      if (pass + 1 < n_pass)
+        load_units(t, pass + 1);
+      else if (s + 1 < n_t)
+        load_units(reverse ? t - 1 : t + 1, 0);
     }
   }
 }
 
-// The f32 wide sweep: the narrow f32 loop over each owned tile; cap: k-chunks
-// of W ([64][16] floats each) the block keeps in shared memory.
-template <bool kBwd>
-__global__ void __launch_bounds__(kThreads)
+// The f32 wide sweep; cap: 64-k chunks of W (all owned tiles' columns) at
+// the end of the k range that stay in shared memory for the whole sweep.
+// vec: H % 4 == 0 and x, hs, out 16-byte aligned.  A thread owns kR
+// (group, row) pairs of one 32-column group: rows rl kR .. rl kR + kR - 1
+// (rl = tid / 8), columns 4 (tid % 8) .. + 3; kR is a template argument so
+// that the k loop is straight-line code, unrolled so that the shared loads
+// of the next k-quads are in flight while the FMAs of this one run.
+template <bool kBwd, int kR>
+__global__ void __launch_bounds__(kThreads, 1)
 f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const int* __restrict__ lengths, const float* __restrict__ hs,
                 float* __restrict__ out, float* xbuf, unsigned int* count,
-                int n_t, int n_b, int n_h, int reverse, float clip, int cap) {
+                int n_t, int n_b, int n_h, int reverse, float clip, bool vec,
+                int cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
-  const int stage_floats = b_pad * kCs + kKc * kCols;
+  const int n_tiles = h_pad / kCols, n_own = tiles_owned(n_tiles);
+  const int own_max = ceil_div(n_tiles, (int)gridDim.x);
+  const int n_cols = own_max * kCols;      // a staged W chunk's row, floats
+  const int stage_floats = b_pad * kCs + kKc * n_cols;
   float* stages = reinterpret_cast<float*>(smem_raw);
-  float* cache = stages + (size_t)kF32Depth * stage_floats;  // [cap][64][16]
+  float* cache = stages + (size_t)kF32Depth * stage_floats;  // [cap][64][n_cols]
+  const int n_kc = ceil_div(h_pad, kKc);
+  const int n_sc = n_kc > cap ? n_kc - cap : 0;   // streamed: the first n_sc
 
   const int tid = threadIdx.x;
-  const int quad = tid & 3, row0 = tid >> 2;
   const unsigned int nblk = gridDim.x;
-  const int n_kc = (n_h + kKc - 1) / kKc;
-  const int n_own = tiles_owned(h_pad / kCols);
-  const int n_cached = min(cap, n_own * n_kc);
+  const int quad = tid & 7, rl = tid >> 3;
+  const int n_groups = ceil_div(n_own * kCols, 32);
+  // this thread's pairs rl kR .. + kR - 1 share their group (kR | b_pad)
+  const int p0 = rl * kR, g = p0 / b_pad, b0 = p0 - g * b_pad;
+  const int col = g * 32 + quad * 4;       // in a staged W chunk's row
+  const bool busy = g < n_groups && b0 < n_b && col < n_own * kCols;
+  const int j = (blockIdx.x + (col >> 4) * nblk) * kCols + (col & 15);
 
-  // W's rows k0 .. k0 + 63 (those below h_pad) of tile jt, [64][16]
-  auto w_chunk_in = [&](float* dst_s, int k0, int jt) {
-    const int rows = min(kKc, h_pad - k0);
-    for (int e = tid; e < rows * 4; e += kThreads) {
-      const int k = e >> 2, q = e & 3;
-      cp_async16(smem_u32(dst_s + k * kCols + q * 4),
-                 w + (size_t)(k0 + k) * h_pad + jt * kCols + q * 4);
+  // W's rows k0 .. k0 + 63 (those below h_pad) of every owned tile, from
+  // the tiled copy: 4 KB of each tile in one run
+  auto w_chunk_in = [&](float* dst_s, int k0) {
+    const int rows = min(kKc, h_pad - k0), per = rows * 4;
+    for (int e = tid; e < n_own * per; e += kThreads) {
+      const int i = e / per, r = e - i * per, k = r >> 2, q = r & 3;
+      cp_async16(smem_u32(dst_s + k * n_cols + i * kCols + q * 4),
+                 w + ((size_t)(blockIdx.x + i * nblk) * h_pad + k0 + k) *
+                         kCols + q * 4);
     }
   };
-  for (int p = 0; p < n_cached; ++p)
-    w_chunk_in(cache + (size_t)p * kKc * kCols, (p % n_kc) * kKc,
-               blockIdx.x + (p / n_kc) * nblk);
+  for (int c = n_sc; c < n_kc; ++c)
+    w_chunk_in(cache + (size_t)(c - n_sc) * kKc * n_cols, c * kKc);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+
+  float4 xv[kR], hv[kR];    // each row's inputs of the next step
+  auto load4 = [&](const float* base, int row, int t) {
+    const size_t o = ((size_t)t * n_b + row) * n_h + j;
+    if (vec && j + 4 <= n_h)
+      return __ldg(reinterpret_cast<const float4*>(base + o));
+    float v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = j + c < n_h ? base[o + c] : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  };
+  auto load_rows = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (!busy || b0 + r >= n_b) continue;
+      xv[r] = load4(x, b0 + r, t);
+      if (kBwd) hv[r] = load4(hs, b0 + r, t);
+    }
+  };
+  load_rows(reverse ? n_t - 1 : 0);
 
   for (int s = 0; s < n_t; ++s) {
     const int t = reverse ? n_t - 1 - s : s;
     const float* src = xbuf + (size_t)(s & 1) * b_pad * h_pad;
     float* dst = xbuf + (size_t)((s + 1) & 1) * b_pad * h_pad;
-    for (int i = 0; i < n_own; ++i) {
-      const int jt = blockIdx.x + i * nblk, j0 = jt * kCols;
-      // chunk kc of the carry, and of W unless cached, into stage kc % 3
-      auto chunk_in = [&](int kc) {
-        float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
-        const int k0 = kc * kKc, q_n = (min(kKc, n_h - k0) + 3) / 4;
-        for (int e = tid; e < n_b * q_n; e += kThreads) {
-          const int b = e / q_n, q = e - b * q_n;
-          cp_async16(smem_u32(st + b * kCs + q * 4),
-                     src + (size_t)b * h_pad + k0 + q * 4);
-        }
-        if (i * n_kc + kc >= cap) w_chunk_in(st + b_pad * kCs, k0, jt);
-      };
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int kc = 0; kc < kF32Depth - 1; ++kc) {
-        if (kc < n_kc) chunk_in(kc);
-        cp_async_commit();
+    // chunk kc: the state's [b_pad][64] and, unless resident, W's [64][cols]
+    auto stage_w = [&](int kc) {
+      if (kc < n_sc)
+        w_chunk_in(stages + (size_t)(kc % kF32Depth) * stage_floats +
+                       b_pad * kCs, kc * kKc);
+    };
+    auto stage_x = [&](int kc) {
+      float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
+      const int k0 = kc * kKc, q_n = min(kKc, h_pad - k0) / 4;
+      for (int e = tid; e < n_b * q_n; e += kThreads) {
+        const int b = e / q_n, q = e - b * q_n;
+        cp_async16(smem_u32(st + b * kCs + q * 4),
+                   src + (size_t)b * h_pad + k0 + q * 4);
       }
-      for (int kc = 0; kc < n_kc; ++kc) {
-        cp_async_wait<kF32Depth - 2>();
-        __syncthreads();  // chunk kc is in; stage (kc - 1) % 3 is free
-        if (kc + kF32Depth - 1 < n_kc) chunk_in(kc + kF32Depth - 1);
-        cp_async_commit();
-        const float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
-        const int p = i * n_kc + kc;
-        const float* wk = (p < cap ? cache + (size_t)p * kKc * kCols
-                                   : st + b_pad * kCs) + 4 * quad;
-        const float* c0row = st + row0 * kCs;
-        const float* c1row = c0row + 64 * kCs;
-        const bool row0_live = row0 < n_b, row1_live = row0 + 64 < n_b;
-        const int kc_n = min(kKc, n_h - kc * kKc);
-        for (int k = 0; k < kc_n; ++k) {
-          float wv[4];
+    };
+    // W's first chunks do not depend on the state: before the wait
+    for (int kc = 0; kc < kF32Depth - 1 && kc < n_kc; ++kc) stage_w(kc);
+    if (s > 0) {  // the grid's values of step s - 1 are in src
+      if (tid == 0) wait_count(count, nblk * (unsigned int)s);
+      __syncthreads();
+    }
+    for (int kc = 0; kc < kF32Depth - 1; ++kc) {
+      if (kc < n_kc) stage_x(kc);
+      cp_async_commit();
+    }
+    float acc[kR][4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) wv[c] = wk[k * kCols + c];
-          if (row0_live) {
-            const float cv = c0row[k];
+    for (int r = 0; r < kR; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[0][c] += cv * wv[c];
-          }
-          if (row1_live) {
-            const float cv = c1row[k];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[1][c] += cv * wv[c];
-          }
-        }
-      }
-      cp_async_wait<0>();
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
+    for (int kc = 0; kc < n_kc; ++kc) {
+      cp_async_wait<kF32Depth - 2>();
+      __syncthreads();  // chunk kc is in; stage (kc - 1) % depth is free
+      if (kc + kF32Depth - 1 < n_kc) {
+        stage_w(kc + kF32Depth - 1);
+        stage_x(kc + kF32Depth - 1);
+      }
+      cp_async_commit();
+      if (!busy) continue;
+      const float* st = stages + (size_t)(kc % kF32Depth) * stage_floats;
+      const float* wc = (kc < n_sc ? st + b_pad * kCs
+                                   : cache + (size_t)(kc - n_sc) * kKc * n_cols)
+                        + col;
+      const float* cs = st + b0 * kCs;
+      const int kc_n = min(kKc, h_pad - kc * kKc);   // a multiple of 16
+#pragma unroll 4
+      for (int k = 0; k < kc_n; k += 4) {
+        float4 w4[4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int b = row0 + 64 * r;
-        if (b >= n_b) continue;
-        const bool live = kBwd || t < lengths[b];
+        for (int kk = 0; kk < 4; ++kk)
+          w4[kk] = *reinterpret_cast<const float4*>(wc + (k + kk) * n_cols);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = j0 + 4 * quad + c;
-          if (j >= n_h) continue;
-          const size_t o = ((size_t)t * n_b + b) * n_h + j;
-          float v;
-          if (kBwd) {
-            const float h = hs[o];
-            v = (h > 0.f && h < clip) ? x[o] + acc[r][c] : 0.f;
-          } else {
-            v = live ? fminf(fmaxf(x[o] + acc[r][c], 0.f), clip) : 0.f;
+        for (int r = 0; r < kR; ++r) {
+          const float4 cv = *reinterpret_cast<const float4*>(cs + r * kCs + k);
+          const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {  // k ascending, as narrow
+            acc[r][0] += c4[kk] * w4[kk].x;
+            acc[r][1] += c4[kk] * w4[kk].y;
+            acc[r][2] += c4[kk] * w4[kk].z;
+            acc[r][3] += c4[kk] * w4[kk].w;
           }
-          out[o] = v;
-          __stcg(dst + (size_t)b * h_pad + j, v);
         }
       }
-      __syncthreads();  // the stages are free for the next tile
     }
-    if (tid == 0) {
-      arrive(count);
-      wait_count(count, nblk * (unsigned int)(s + 1));
+    cp_async_wait<0>();
+
+    float4 ov[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int b = b0 + r;
+      if (!busy || b >= n_b) continue;
+      const bool live = kBwd || t < __ldg(lengths + b);
+      const float xs[4] = {xv[r].x, xv[r].y, xv[r].z, xv[r].w};
+      const float hh[4] = {hv[r].x, hv[r].y, hv[r].z, hv[r].w};
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (j + c >= n_h) {
+          v[c] = 0.f;
+        } else if (kBwd) {
+          v[c] = (hh[c] > 0.f && hh[c] < clip) ? xs[c] + acc[r][c] : 0.f;
+        } else {
+          v[c] = live ? fminf(fmaxf(xs[c] + acc[r][c], 0.f), clip) : 0.f;
+        }
+      }
+      ov[r] = make_float4(v[0], v[1], v[2], v[3]);
+      __stcg(reinterpret_cast<float4*>(dst + (size_t)b * h_pad + j), ov[r]);
     }
-    __syncthreads();
+    __syncthreads();  // the block's stores are in; the stages are free
+    if (tid == 0) arrive(count);
+    // off the critical path: the HBM stores and the next frame's inputs
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int b = b0 + r;
+      if (!busy || b >= n_b) continue;
+      float* po = out + ((size_t)t * n_b + b) * n_h + j;
+      if (vec && j + 4 <= n_h) {
+        *reinterpret_cast<float4*>(po) = ov[r];
+      } else {
+        const float o4[4] = {ov[r].x, ov[r].y, ov[r].z, ov[r].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j + c < n_h) po[c] = o4[c];
+      }
+    }
+    if (s + 1 < n_t) load_rows(reverse ? t - 1 : t + 1);
   }
+}
+
+// Rows a thread of the f32 wide kernel owns: the fewest that cover the
+// (group, row) pairs with 32 row lanes, times kF32Reuse (2: fewer shared
+// loads of W per FMA; faster than 1 and 4 at H = 4096, B = 16).
+constexpr int kF32Reuse = 2;
+int f32_wide_rows(int n_b, int own) {
+  const int pairs = ceil_div(own * kCols, 32) * round_up(n_b, kPad);
+  const int r = ceil_div(pairs, 32) * kF32Reuse;
+  return r <= 1 ? 1 : r <= 2 ? 2 : r <= 4 ? 4 : 8;
 }
 
 // Shared memory a block of each kernel takes.
@@ -887,8 +1057,9 @@ int launch_coop(const void* kern, int grid, size_t smem, void** args,
 }
 
 // The wide instances' plan on this card: plan[0] the grid, plan[1] the
-// tiles a block owns (at most), plan[2] the pieces (bf16: 16 x 16 of W a
-// warp; f32: 64 x 16 k-chunks a block) kept in shared memory, plan[3] the
+// tiles a block owns (at most), plan[2] the pieces of W kept in shared
+// memory (bf16: 16 x 16 pieces a warp, ck k-tiles of every owned tile;
+// f32: 64-k chunks of all owned tiles' columns a block), plan[3] the
 // block's shared memory in bytes.  Returns 0, or cudaErrorInvalidValue or
 // cudaErrorCooperativeLaunchTooLarge when the width does not fit.
 int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
@@ -898,26 +1069,28 @@ int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
   const int n_tiles = h_pad / kCols;
-  const int own = (n_tiles + n_sm - 1) / n_sm;
+  const int own = ceil_div(n_tiles, n_sm);
   if (own > kMaxOwn) return (int)cudaErrorCooperativeLaunchTooLarge;
-  long fixed, piece, want;
+  long fixed, unit, want;   // unit: shared memory of one cached k-range step
+  int pieces;               // pieces of W a unit holds
   if (bf16_io) {
-    const int tile_bytes = b_pad * 32;
-    const int tps = tile_bytes < kWideStateBytes ? kWideStateBytes / tile_bytes : 1;
-    fixed = (long)kWarps * kStages * tps * (tile_bytes + kPieceBytes);
-    piece = (long)kWarps * kPieceBytes;
-    want = (long)own * ((h_pad / 16 + kWarps - 1) / kWarps);
+    fixed = (long)kWarps * wide_layout(b_pad / 16, own).region;
+    unit = (long)kWarps * own * kPieceBytes;   // one k-tile of every warp
+    pieces = own;
+    want = ceil_div(h_pad / 16, kWarps);
   } else {
-    fixed = (long)kF32Depth * (b_pad * kCs + kKc * kCols) * sizeof(float);
-    piece = (long)kKc * kCols * sizeof(float);
-    want = (long)own * ((n_h + kKc - 1) / kKc);
+    const int n_cols = own * kCols;
+    fixed = (long)kF32Depth * (b_pad * kCs + kKc * n_cols) * sizeof(float);
+    unit = (long)kKc * n_cols * sizeof(float);
+    pieces = 1;
+    want = ceil_div(h_pad, kKc);
   }
   if (fixed > optin) return (int)cudaErrorInvalidValue;
-  const long fit = (optin - fixed) / piece, cap = want < fit ? want : fit;
-  plan[0] = (n_tiles + own - 1) / own;
+  const long fit = (optin - fixed) / unit, cap = want < fit ? want : fit;
+  plan[0] = ceil_div(n_tiles, own);
   plan[1] = own;
-  plan[2] = (int)cap;
-  plan[3] = (int)(fixed + cap * piece);
+  plan[2] = (int)cap * pieces;
+  plan[3] = (int)(fixed + cap * unit);
   return 0;
 }
 
@@ -943,7 +1116,8 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
         cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return (int)err;
   }
-  int cap = plan[2];
+  // the wide kernels take their cached k-tiles (bf16) or chunks (f32)
+  int cap = bf16_io && wide ? plan[2] / plan[1] : plan[2];
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
     const bf16* wp = static_cast<const bf16*>(w);
@@ -967,13 +1141,24 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
   const float* hp = static_cast<const float*>(hs);
   float* op = static_cast<float*>(out);
   float* bp = static_cast<float*>(xbuf);
+  if (wide) {
+    const uintptr_t addr = (uintptr_t)xp | (uintptr_t)hp | (uintptr_t)op;
+    bool vec = n_h % 4 == 0 && addr % 16 == 0;
+    void* args[] = {(void*)&xp, (void*)&wp, (void*)&lengths, (void*)&hp,
+                    (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
+                    (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
+                    (void*)&vec, (void*)&cap};
+    const int rows = f32_wide_rows(n_b, plan[1]);
+    const void* kern =
+        rows == 1   ? (const void*)f32_wide_kernel<kBwd, 1>
+        : rows == 2 ? (const void*)f32_wide_kernel<kBwd, 2>
+        : rows == 4 ? (const void*)f32_wide_kernel<kBwd, 4>
+                    : (const void*)f32_wide_kernel<kBwd, 8>;
+    return launch_coop(kern, grid, plan[3], args, st);
+  }
   void* args[] = {(void*)&xp, (void*)&wp, (void*)&lengths, (void*)&hp,
                   (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
-                  (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
-                  (void*)&cap};
-  if (wide)
-    return launch_coop((const void*)f32_wide_kernel<kBwd>, grid, plan[3],
-                       args, st);
+                  (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip};
   return launch_coop((const void*)f32_sweep_kernel<kBwd>, grid, smem_f32(n_h),
                      args, st);
 }
@@ -1007,7 +1192,9 @@ int birnn_bwd_launch(const void* g, const void* wt, const void* hs, void* d_out,
 }
 
 // The wide instances of B1 and B2: the arguments of birnn_fwd_launch and
-// birnn_bwd_launch, except that w (wt) is zero-padded to [H_pad, H_pad].
+// birnn_bwd_launch, except that w (wt) is zero-padded to [H_pad, H_pad] and
+// laid out by column tiles, [H_pad / 16][H_pad][16]: element (k, j) at
+// ((j / 16) H_pad + k) 16 + j % 16.
 int birnn_fwd_wide_launch(const void* z, const void* w, const int* lengths,
                           const void* h0, void* hs, void* xbuf,
                           unsigned int* count, int n_t, int n_b, int n_h,

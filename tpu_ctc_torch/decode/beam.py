@@ -394,7 +394,10 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     or B6 on CUDA, the plain search on the CPU; what the kernels do not
     take raises on CUDA and warns on the CPU, before anything touches the
     device), with ``max_len`` = min(2 L + 16, T).  The model runs on
-    ``device`` (default ``cuda``).
+    ``device`` (default ``cuda``).  ``decode(model, batch, log_probs=lp)``
+    searches the batch's log posteriors ``lp`` [B, T, A] that the caller
+    already has (a mesh's split eval gathers them) and does not run the
+    model.
     """
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.models import birnn
@@ -402,12 +405,14 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     search = make_beam_search(cfg, lm, nlm_params, device)
     dev = resolve_device(device)
 
-    def decode(model, batch):
+    def decode(model, batch, log_probs=None):
         feats = torch.as_tensor(batch["feats"], device=dev)
-        mask = torch.as_tensor(batch["frame_mask"], device=dev)
         lengths = torch.as_tensor(batch["frame_lengths"], device=dev)
-        with torch.no_grad():
-            log_probs = birnn.log_posteriors(model, cfg.model, feats, mask)
+        if log_probs is None:
+            mask = torch.as_tensor(batch["frame_mask"], device=dev)
+            with torch.no_grad():
+                log_probs = birnn.log_posteriors(model, cfg.model, feats,
+                                                 mask)
         max_len = min(int(batch["labels"].shape[1]) * 2 + 16,
                       int(feats.shape[1]))
         hyps, lens, _ = search(log_probs, lengths, max_len)

@@ -30,9 +30,10 @@ they never fall back: what a kernel cannot take raises.  The kernels take
 every width the JAX kernel takes (:func:`check_supported`): up to 16
 columns a block on every SM at once (H <= 2112 on an H100 SXM) the narrow
 instances, above it the wide ones (:func:`instance`), which deal the
-16-column tiles over at most one block a SM and stream the part of W that
-does not fit their shared memory; both compute the same values in the same
-order, and a wide launch is counted on its own kernel (``WIDE_KERNEL``,
+16-column tiles over at most one block a SM, read the previous state once a
+step for all of a block's tiles and stream the part of W that does not fit
+their shared memory; both compute the same values in the same order, and a
+wide launch is counted on its own kernel (``WIDE_KERNEL``,
 ``WIDE_BWD_KERNEL``).
 
 The dense products outside the kernels have an f32 result.  On a card, a
@@ -118,7 +119,8 @@ def smem_bytes(n_h: int, dtype: torch.dtype) -> int:
     """Shared memory one narrow block takes: for bf16 the warps' copy rings
     and W's 16 columns (a row padded by 16 bytes); for f32 W's columns and
     the staged carry of up to 128 rows in k-chunks of 64.  A wide block
-    takes what the card allows (``birnn_wide_plan``): its rings, and W's
+    takes what the card allows (``birnn_wide_plan``): its rings (bf16: a
+    ring of 4 k-tiles a warp; f32: 4 chunks of 64 k a block), and W's
     pieces cached as far as they fit."""
     if dtype == torch.bfloat16:
         return _RING_BYTES + _COLS * (_round_up(n_h, _PAD) + 8) * 2
@@ -254,14 +256,27 @@ def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
 
 def wide_plan(n_b: int, n_h: int, dtype: torch.dtype) -> Dict[str, int]:
     """The wide instance's launch on the current card: grid, tiles a
-    block, pieces of W kept in shared memory (bf16: 16 x 16 a warp; f32:
-    64 x 16 k-chunks a block) and a block's shared memory in bytes."""
+    block, pieces of W kept in shared memory (bf16: 16 x 16 pieces a warp,
+    the last k-tiles of its range for every owned tile; f32: 64-k chunks
+    of every owned tile's columns a block, the last chunks of the k range)
+    and a block's shared memory in bytes."""
     plan = (ctypes.c_int * 4)()
     fn = WIDE_KERNEL.lib().birnn_wide_plan
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     check(fn(n_b, n_h, int(dtype == torch.bfloat16), plan), "birnn_wide_plan")
     return dict(zip(("grid", "own", "cached", "smem"), plan))
+
+
+def wide_weights(w: torch.Tensor) -> torch.Tensor:
+    """W [H, H] as the wide instances take it: zero-padded to [H_pad,
+    H_pad] and laid out by 16-column tiles, [H_pad / 16, H_pad, 16], so
+    that a tile's rows are one run of memory."""
+    h_pad = _round_up(w.shape[0], _PAD)
+    pad = h_pad - w.shape[0]
+    w = torch.nn.functional.pad(w, (0, pad, 0, pad)) if pad else w
+    return w.reshape(h_pad, h_pad // _COLS, _COLS).transpose(0, 1) \
+        .contiguous()
 
 
 def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
@@ -294,11 +309,9 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
         wide = instance(n_h, x.dtype, n_sm) == "wide"
     x = x.contiguous()
     w = w.contiguous()
-    if wide:                    # W zero-padded to [H_pad, H_pad]
+    if wide:
         kernel = _WIDE[kernel.name]
-        pad = exchange_shape(n_b, n_h)[2] - n_h
-        if pad:
-            w = torch.nn.functional.pad(w, (0, pad, 0, pad))
+        w = wide_weights(w)
     out = torch.empty_like(x)
     xbuf = torch.zeros(exchange_shape(n_b, n_h), dtype=x.dtype,
                        device=x.device)

@@ -12,7 +12,9 @@ sequential sweeps over T on the emission lattice emit [B, T, S] f32:
 
 Everything parallel around them is plain PyTorch, as the JAX package leaves
 it to XLA: the emission gather emit[b,t,s] = lp[b,t,ext[b,s]] with the
-dead-state mask folded in (its gradient is the scatter-add transpose), the
+dead-state mask folded in (:class:`EmitGather`: its gradient sums each
+character's lattice columns in a fixed order, not with ``torch.gather``'s
+atomic scatter-add, so a training step is bit-reproducible), the
 ``skip``/``skip2``/``init``/``final`` masks, the final log-sum-exp, and
 gamma = exp(alpha + beta + nll) in the backward.  The TPU's lane packing
 (``_pack_plan``) is a layout trick for its 128 lanes and is not ported.
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from tpu_ctc_torch.losses.ctc_ref import (INFEASIBLE, NEG_INF, _LOG_FLOOR,
                                           _logaddexp3, extend_labels)
 from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
+from tpu_ctc_torch.ops.birnn_cuda import matmul_f32
 
 ALPHA = CudaKernel("ctc_alpha", source="ctc_dp")
 BETA = CudaKernel("ctc_beta", source="ctc_dp")
@@ -187,6 +190,31 @@ class CtcDp(torch.autograd.Function):
         return demit, None, None, None, None, None
 
 
+class EmitGather(torch.autograd.Function):
+    """emit[b, t, s] = lp[b, t, ext[b, s]]: ``torch.gather``'s forward,
+    and a backward of fixed order.  ``gather``'s backward scatter-adds with
+    atomics on a card, so two runs of one step differ in the last bits
+    (the blank's gradient sums several lattice columns).  Here the
+    gradient is one product g [B, T, S] x onehot(ext) [B, S, A] in full
+    f32 (TF32 off): each character's gradient sums its columns' values
+    (the products by 0 and 1 are exact) in the GEMM's fixed order, equal
+    to the scatter-add's up to the order of the f32 sums."""
+
+    @staticmethod
+    def forward(ctx, lp, ext):
+        n_b, n_t, n_a = lp.shape
+        ctx.save_for_backward(ext)
+        ctx.n_a = n_a
+        return torch.gather(lp, 2, ext[:, None, :].expand(n_b, n_t,
+                                                           ext.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        ext, = ctx.saved_tensors
+        onehot = F.one_hot(ext, ctx.n_a).to(g.dtype)           # [B, S, A]
+        return matmul_f32(g.contiguous(), onehot), None
+
+
 def lattice(log_probs: torch.Tensor, labels: torch.Tensor,
             logit_lengths: torch.Tensor, label_lengths: torch.Tensor,
             blank: int = 0):
@@ -207,7 +235,7 @@ def lattice(log_probs: torch.Tensor, labels: torch.Tensor,
     # Finitize first: -inf log probs become the NEG_INF sentinel, which
     # the log-sum-exps already treat as dead.
     finite_lp = torch.clamp_min(log_probs.to(torch.float32), NEG_INF)
-    emit = torch.gather(finite_lp, 2, ext[:, None, :].expand(n_b, n_t, n_s))
+    emit = EmitGather.apply(finite_lp, ext)
     s_idx = torch.arange(n_s, device=dev)[None, :]
     zero = torch.zeros((n_b, n_s), dtype=torch.float32, device=dev)
     dead = torch.full_like(zero, NEG_INF)

@@ -7,7 +7,9 @@ Counterpart of ``tpu_ctc.train.loop``: a plain loop over
 cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
 (:class:`PreemptionGuard`), and greedy-CER/NLL evaluation, with the beam
 search's corpus WER/CER too when ``train.eval_beam`` is set (the decoder's
-n-gram LM trains on the train split's transcripts).  Batches reach the card
+n-gram LM trains on the train split's transcripts; on a TP or PP mesh it
+decodes the log posteriors that the split eval gathers, so every mesh
+decodes the whole model).  Batches reach the card
 through ``data.prefetch.prefetch_to_device``: a thread runs the loader (and
 the lazy manifest's frontend) and copies ahead of the step.  The step's
 metrics stay on the card; they are read (one synchronisation) every
@@ -110,14 +112,18 @@ def batch_to_device_dict(batch: Batch) -> Dict[str, np.ndarray]:
 
 
 def evaluate(model, cfg: Config, loader: BucketedLoader, device,
-             alphabet=None, beam_decode_fn=None,
-             eval_fn=None) -> Dict[str, float]:
+             alphabet=None, max_batches: Optional[int] = None,
+             beam_decode_fn=None, eval_fn=None) -> Dict[str, float]:
     """Greedy-decode CER (host edit distance) and mean NLL over an eval
-    set.  With ``beam_decode_fn`` (``train.eval_beam``, a
+    set, or over its first ``max_batches`` batches.  With
+    ``beam_decode_fn`` (``train.eval_beam``, a
     ``decode.beam.make_beam_decoder`` function) it also beam-decodes each
     batch and reports the corpus WER/CER of the decoded text.
     ``eval_fn(model, batch)`` (``train.step.make_eval_step``) replaces
-    ``train.step.eval_step`` when given."""
+    ``train.step.eval_step`` when given; where its outputs hold the whole
+    batch's ``log_probs`` (the split eval of a TP or PP mesh, whose
+    ``model`` holds only this rank's shards or stage), the beam search
+    decodes those instead of running ``model``."""
     alphabet = alphabet or DEFAULT_ALPHABET
     if eval_fn is None:
         def eval_fn(model, batch):
@@ -125,14 +131,16 @@ def evaluate(model, cfg: Config, loader: BucketedLoader, device,
     refs, hyps, nlls = [], [], []
     ref_texts, beam_texts = {}, {}
     for i, (_, batch) in enumerate(loader.epoch(0)):
+        if max_batches is not None and i >= max_batches:
+            break
         bd = batch_to_device_dict(batch)
         out = eval_fn(model, batch_to_tensors(bd, device))
         hyp = out["hyp"].cpu().numpy()
         hyp_len = out["hyp_len"].cpu().numpy()
         nll = out["nll"].cpu().numpy()
         if beam_decode_fn is not None:
-            b_hyp, b_len = (t.cpu().numpy()
-                            for t in beam_decode_fn(model, bd))
+            b_hyp, b_len = (t.cpu().numpy() for t in beam_decode_fn(
+                model, bd, log_probs=out.get("log_probs")))
         for b in range(len(hyp)):
             if batch.weights[b] > 0:
                 ref_ids = batch.labels[b][: batch.label_lengths[b]]

@@ -163,15 +163,20 @@ def eval_step(model: birnn.BiRNN, cfg: Config,
 
 @torch.no_grad()
 def eval_outputs(cfg: Config, logits: torch.Tensor,
-                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """:func:`eval_step`'s outputs from the batch's logits [B, T, V]."""
+                 batch: Dict[str, torch.Tensor],
+                 keep_log_probs: bool = False) -> Dict[str, torch.Tensor]:
+    """:func:`eval_step`'s outputs from the batch's logits [B, T, V], and
+    with ``keep_log_probs`` the log posteriors too (``"log_probs"``)."""
     log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ids = torch.argmax(log_probs, dim=-1).to(torch.int32)
     hyp, hyp_len = collapse_ids(ids, batch["frame_mask"])
     nll = ctc.ctc_loss(log_probs, batch["labels"], batch["frame_lengths"],
                        batch["label_lengths"], impl=cfg.ctc_impl,
                        from_log_probs=True)
-    return {"hyp": hyp, "hyp_len": hyp_len, "nll": nll}
+    out = {"hyp": hyp, "hyp_len": hyp_len, "nll": nll}
+    if keep_log_probs:
+        out["log_probs"] = log_probs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -418,8 +423,10 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
     rank evaluates its rows and the outputs are gathered over 'data';
     under TP and PP each rank runs the split forward on its block (rows
     over 'data') with its shards, the logits are gathered over 'model'
-    and 'data', and every rank decodes the whole batch; otherwise every
-    rank evaluates the whole batch."""
+    and 'data', and every rank decodes the whole batch, whose log
+    posteriors it also returns (``"log_probs"``: ``loop.evaluate``'s beam
+    search decodes them, since the rank's model is not the whole model);
+    otherwise every rank evaluates the whole batch."""
     specs = batch_shardings(mesh)
     if cfg.mesh.pipeline or mesh.shape.get(AXIS_MODEL, 1) > 1:
         if cfg.mesh.pipeline:
@@ -440,7 +447,7 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
                 logits = mesh_lib.gather_blocks(mesh, logits.contiguous(),
                                                 AXIS_MODEL, 0)
             logits = mesh_lib.gather_blocks(mesh, logits, AXIS_DATA, 0)
-            return eval_outputs(cfg, logits, batch)
+            return eval_outputs(cfg, logits, batch, keep_log_probs=True)
         return split_eval
     if not _pure_dp(mesh, cfg):
         return lambda model, batch: eval_step(model, cfg, batch)
