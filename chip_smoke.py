@@ -125,10 +125,28 @@ against its plain PyTorch version on the same inputs:
      wide instance's records (``birnn_fwd_wide``, ``birnn_bwd_wide``) are
      kernels of their own in the JSON line, and B1's and B2's records
      carry their ``wide_launches`` and ``wide_ms``.
+ 15. the accuracy chain of ``docs/EVAL.md`` at a cut size.  First each
+     of its kernels at the shapes the chain gives them against its plain
+     version, at its own phase's limits: B1/B2 bf16 at H = 512, B = 16,
+     T = 320; B3/B4 at B = 16, T = 320, S <= 129; B5 at K = 64 with the
+     trigram, the GRU and both, the walk; B6 at K = 200 with the trigram.
+     Then ``torch_tools/eval_chain.py`` (each step a subprocess of the
+     port's tools and CLI) on 120 synthesized SPHERE utterances, preset 2
+     at H = 512 with 3 bidirectional layers trained 60 + 15 + 5 epochs in
+     three runs at 0.02, 0.005 and 0.0015 (the later two resumed), 2 x 2
+     dev sweeps of the trigram, the GRU char LM (50 Adam steps) and both,
+     the valid split decoded greedy, by each system at its dev-best point
+     and by the trigram at K = 200, and scored with CIs and paired
+     bootstraps, every pair scored; the losses finite and falling, the
+     steps the loader's plan, B1-B4 launched in training, B5's n-gram and
+     GRU instances, B6 and the walk in the decodes; the ladder's WERs
+     printed (a cut model: not the accuracy result) and whether two GRU
+     trainings are bit-equal.
 
 Each main path (phases 4, 7, both widths of 10, phase 11's training and
-its decodes, phase 12's two mesh runs and phase 14's TP, PP and
-collective-decode runs, the ranks' launches summed) is
+its decodes, phase 12's two mesh runs, phase 14's TP, PP and
+collective-decode runs, the ranks' launches summed, and phase 15's
+chain, its subprocesses' launches summed) is
 run with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is the sum over the
 paths that run it.  The profile of each
@@ -148,7 +166,7 @@ single calls after a warm-up call.  The last two lines are the per-kernel
 JSON record (B1's with ``h0_launches``, its launches from a carry on the
 sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py                 # all fourteen phases, one card
+    python3 chip_smoke.py                 # all fifteen phases, one card
 """
 from __future__ import annotations
 
@@ -267,11 +285,8 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 def all_kernels():
-    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
-    return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL,
-            birnn_cuda.WIDE_KERNEL, birnn_cuda.WIDE_BWD_KERNEL,
-            ctc_cuda.ALPHA, ctc_cuda.BETA, beam_cuda.KERNEL,
-            beam_cuda.WIDE_KERNEL, beam_cuda.RECONSTRUCT)
+    from tpu_ctc_torch.ops import kernels
+    return kernels()
 
 
 @contextlib.contextmanager
@@ -404,7 +419,8 @@ def run_main_path(run):
     return out, {k.name: k.launches for k in all_kernels()}
 
 
-def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
+def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda",
+                phase="phase 2"):
     """B1 against its plain loop: H = 1824, B = 64, T = 800, bf16."""
     from tpu_ctc_torch.ops import birnn_cuda
     r = np.random.RandomState(1)
@@ -430,7 +446,8 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
         tol = 2 ** -6 * want.abs() + 2e-2
         bad = int((diff > tol).sum())
         err = max(err, float(diff.max()))
-        log(f"phase 2: B1 {'reversed' if reverse else 'forward'} max abs "
+        log(f"{phase}: B1 H={n_h} B={n_b} T={n_t} "
+            f"{'reversed' if reverse else 'forward'} max abs "
             f"err {float(diff.max()):.3e}, {bad} beyond tolerance, "
             f"max |h| {float(want.abs().max()):.2f}")
         if bad:
@@ -451,7 +468,7 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda"):
                + n_b * 4)
     n_ops = 2 * n_h * int((prev_nnz * live_tb).sum())
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
-    log(f"phase 2: B1 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
+    log(f"{phase}: B1 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
         f"step), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"library: none (no PyTorch call computes a clipped-ReLU "
         f"recurrence)")
@@ -524,11 +541,12 @@ def check_walk(phase: str, lp, lens, kw, reps: int = REPS):
     return ms_walk, ms_plain
 
 
-def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
+def phase_beam(reps: int, n_b=64, n_t=800, k=128, max_len=216, dev="cuda",
+               phase="phase 3"):
     """B5 against the plain search: B = 64, T = 800, A = 29, K = 128."""
     from tpu_ctc_torch.decode import beam
     from tpu_ctc_torch.ops import beam_cuda
-    a, k, max_len = 29, 128, 216
+    a = 29
     lp, lens = peaked_posteriors(2, n_b, n_t, a)
     lp, lens = lp.to(dev), lens.to(dev)
     lm = seeded_trigram(3, a).tables(dev)
@@ -540,7 +558,7 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     same = bool(torch.equal(got[1], want[1]) and torch.equal(
         got[0] * (torch.arange(max_len, device=dev) < got[1][:, None]),
         want[0] * (torch.arange(max_len, device=dev) < want[1][:, None])))
-    log(f"phase 3: B5 hyps equal: {same}, max score err {err:.3e}, "
+    log(f"{phase}: B5 K={k} B={n_b} T={n_t} hyps equal: {same}, max score err {err:.3e}, "
         f"mean hyp length {float(got[1].float().mean()):.1f}")
     if not same or err > 1e-3:
         raise AssertionError("B5 disagrees with the plain search")
@@ -549,7 +567,7 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     ms = time_ms(lambda: beam_cuda.launch(
         lp_k, lens_k, k, max_len, lm=lm_k, lm_order=3, lm_alpha=1.25,
         lm_beta=1.5, prune_logp=-12.0), reps)
-    walk_ms, walk_plain_ms = check_walk("phase 3", lp, lens, kw, reps)
+    walk_ms, walk_plain_ms = check_walk(phase, lp, lens, kw, reps)
     plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
     live = int(lens.sum())
@@ -564,7 +582,7 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     # lookups and exp/log (slower units) do not reach: a lower bound.
     n_ops = live * (5 * a * k + 5 * k)
     b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
-    log(f"phase 3: B5 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+    log(f"{phase}: B5 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call computes "
         f"a prefix beam search)")
     # The walk needs the T backpointers on the best slot's path (one word
@@ -572,18 +590,18 @@ def phase_beam(reps: int, n_b=64, n_t=800, dev="cuda"):
     # frame.
     w_bytes = n_b * n_t * 4 + n_b * 8 + n_b * max_len * 4
     w_ms, w_by = bound_ms(w_bytes, 4 * n_b * n_t, SCALAR_INSTR_PER_S)
-    log(f"phase 3: walk kernel {walk_ms:.4f} ms, plain walk "
+    log(f"{phase}: walk kernel {walk_ms:.4f} ms, plain walk "
         f"{walk_plain_ms:.3f} ms, bound {w_ms:.6f} ms ({w_by}); library: "
         f"none (no PyTorch call follows backpointers)")
     return [dict(name="beam_search", variant="trigram",
                  paths=("decode", "audio_train", "audio_decode",
-                        "collective"),
+                        "collective", "chain_ngram"),
                  route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None),
             dict(name="beam_reconstruct",
                  paths=("decode", "gru", "audio_train", "audio_decode",
-                        "collective"),
+                        "collective", "chain"),
                  route="cuda", source=B5_SOURCE, replaces=WALK_REPLACES,
                  max_abs_err=0.0, ms=walk_ms, plain_ms=walk_plain_ms,
                  bound_ms=w_ms, bound_by=w_by, library_ms=None)]
@@ -702,7 +720,8 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
                           1 - bd[1] / bd[0], 3)}
 
 
-def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
+def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
+                    phase="phase 5"):
     """B2 against its plain loop: H = 1024, B = 32, T = 800, bf16, both
     directions, on states that B1 computed from random projections."""
     from tpu_ctc_torch.ops import birnn_cuda
@@ -725,7 +744,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
             z, w, lens, reverse=not reverse, clip=20.0).float()
         bad_h = int(((hs.float() - hs_want).abs()
                      > 2 ** -6 * hs_want.abs() + 2e-2).sum())
-        log(f"phase 5: B1 at preset 2's shape "
+        log(f"{phase}: B1 at H={n_h} B={n_b} T={n_t} "
             f"{'forward' if reverse else 'reversed'}: max abs err "
             f"{float((hs.float() - hs_want).abs().max()):.3e}, {bad_h} "
             f"beyond tolerance")
@@ -743,7 +762,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
         tol = 2 ** -6 * want.abs() + 2e-2
         bad = int((diff > tol).sum())
         err = max(err, float(diff.max()))
-        log(f"phase 5: B2 {'right to left' if reverse else 'left to right'}"
+        log(f"{phase}: B2 {'right to left' if reverse else 'left to right'}"
             f" max abs err {float(diff.max()):.3e}, {bad} beyond tolerance,"
             f" max |d| {float(want.abs().max()):.2f}, active share "
             f"{float(((hs.float() > 0) & (hs.float() < 20)).float().mean()):.3f}")
@@ -768,11 +787,11 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
     fwd_ms = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
         z, w, lens, reverse=False, clip=20.0), reps)
-    log(f"phase 5: B2 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
+    log(f"{phase}: B2 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
         f"step), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"library: none (no PyTorch call computes a clipped-ReLU delta "
         f"sweep)")
-    log(f"phase 5: B1 one direction at preset 2's shape (H={n_h}, B={n_b}, "
+    log(f"{phase}: B1 one direction at this shape (H={n_h}, B={n_b}, "
         f"T={n_t}) {fwd_ms:.3f} ms ({fwd_ms * 1e3 / n_t:.2f} us a step)")
     return dict(name="birnn_bwd", route="cuda", source=BIRNN_SOURCE,
                 replaces=B2_REPLACES, max_abs_err=err, ms=ms,
@@ -780,7 +799,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda"):
                 library_ms=None)
 
 
-def dp_close(got, want, what):
+def dp_close(got, want, what, phase="phase 6"):
     """Max abs error over live states; raises unless the kernel's output
     is bit-equal to the plain sweep's, dead states (<= NEG_INF / 2) and
     their sentinel values included."""
@@ -789,7 +808,7 @@ def dp_close(got, want, what):
     diff = (got - want).abs()[~dead]
     err = float(diff.max()) if diff.numel() else 0.0
     same = torch.equal(got, want)
-    log(f"phase 6: {what} max abs err {err:.3e} on {diff.numel()} live "
+    log(f"{phase}: {what} max abs err {err:.3e} on {diff.numel()} live "
         f"states (max |value| {float(want.abs()[~dead].max()):.1f}), "
         f"{int(dead.sum())} dead states; bit-equal to the plain sweep: "
         f"{same}")
@@ -813,7 +832,7 @@ def ctc_inputs(n_b=32, n_t=800, a=29, chars=(50, 100), dev="cuda"):
 
 
 def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
-              dev="cuda"):
+              dev="cuda", phase="phase 6"):
     """B3 and B4 against their plain sweeps: B = 32, T = 800, A = 29,
     labels of 50-100 characters (S <= 201)."""
     import torch.nn.functional as F
@@ -824,10 +843,10 @@ def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
     n_s = emit.shape[2]
     err_a = dp_close(ctc_cuda.alpha_cuda(emit, skip, init, lengths),
                      ctc_cuda.alpha_plain(emit, skip, init, lengths),
-                     f"B3 alpha (S={n_s})")
+                     f"B3 alpha (B={n_b}, T={n_t}, S={n_s})", phase)
     err_b = dp_close(ctc_cuda.beta_cuda(emit, skip2, final, lengths),
                      ctc_cuda.beta_plain(emit, skip2, final, lengths),
-                     f"B4 beta (S={n_s})")
+                     f"B4 beta (B={n_b}, T={n_t}, S={n_s})", phase)
     ms_a = time_ms(lambda: ctc_cuda.alpha_cuda(emit, skip, init, lengths),
                    reps)
     ms_b = time_ms(lambda: ctc_cuda.beta_cuda(emit, skip2, final, lengths),
@@ -866,11 +885,11 @@ def phase_ctc(reps: int, n_b=32, n_t=800, a=29, chars=(50, 100),
                + 2 * n_b * n_s * 4 + n_b * 4)
     n_ops = 13 * live_states      # 2 max, 3 sub, 3 exp, 3 add, log, add
     b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
-    log(f"phase 6: B3 {ms_a:.4f} ms ({ms_a * 1e6 / n_t:.0f} ns a frame), "
+    log(f"{phase}: B3 {ms_a:.4f} ms ({ms_a * 1e6 / n_t:.0f} ns a frame), "
         f"plain {plain_a:.1f} ms; B4 {ms_b:.4f} ms ({ms_b * 1e6 / n_t:.0f} ns "
         f"a frame), plain {plain_b:.1f} ms; bound each {b_ms:.4f} ms "
         f"({b_by})")
-    log(f"phase 6: library F.ctc_loss forward {lib_ms:.3f} ms, forward + "
+    log(f"{phase}: library F.ctc_loss forward {lib_ms:.3f} ms, forward + "
         f"backward {lib_total:.3f} ms (NLL vs the port's max abs err "
         f"{lib_err:.3e}); the port's loss with gradient {port_total:.3f} ms")
     common = dict(route="cuda", source=B34_SOURCE, bound_ms=b_ms,
@@ -1158,18 +1177,21 @@ def check_gru_search(phase, what, lp, lens, kw, got, want_beams):
 
 
 def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
-                   dev="cuda"):
+                   max_len=216, lm_order=3, dev="cuda"):
     """B5 (K <= 128) or B6 with the GRU char LM (E = 64, H = 128, seeded)
-    and the trigram against the plain search: B = 64, T = 800, A = 29."""
+    and the trigram (none with ``lm_order=0``) against the plain search:
+    B = 64, T = 800, A = 29."""
     from tpu_ctc_torch.decode import beam
     from tpu_ctc_torch.ops import beam_cuda
-    a, max_len, n_e, n_h = 29, 216, 64, 128
+    a, n_e, n_h = 29, 64, 128
     lp, lens = peaked_posteriors(8, n_b, n_t, a)
     lp, lens = lp.to(dev), lens.to(dev)
-    lm = seeded_trigram(3, a).tables(dev)
+    lm = seeded_trigram(3, a).tables(dev) if lm_order else None
     gru = seeded_gru(9, a, n_e, n_h, dev)
-    kw = dict(beam_width=k, max_len=max_len, lm_table=lm, lm_order=3,
+    kw = dict(beam_width=k, max_len=max_len, lm_table=lm, lm_order=lm_order,
               lm_alpha=1.25, lm_beta=1.5, prune_logp=-12.0, nlm_params=gru)
+    what, variant = (("GRU + trigram", "gru+trigram") if lm_order
+                     else ("GRU", "gru"))
     kern = beam_cuda.kernel_for(k)
     before = kern.launches
     got = beam_cuda.beam_search_cuda(lp, lens, **kw)
@@ -1177,15 +1199,15 @@ def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
     if kern.launches != before + 1:
         raise AssertionError(f"{kern.name} was not launched")
     want = beam.prefix_beam_search(lp, lens, return_beams=True, **kw)
-    err = check_gru_search(phase, f"{kern.name} K={k} GRU + trigram", lp,
-                           lens, kw, got, want)
-    prep = beam_cuda.prepare(lp, lens, k, lm_table=lm, lm_order=3,
+    err = check_gru_search(phase, f"{kern.name} K={k} B={n_b} T={n_t} "
+                           f"{what}", lp, lens, kw, got, want)
+    prep = beam_cuda.prepare(lp, lens, k, lm_table=lm, lm_order=lm_order,
                              nlm_params=gru)
 
     def run_kernel():
         return beam_cuda.launch(prep[0], prep[1], k, max_len, lm=prep[2],
-                                lm_order=3, lm_alpha=1.25, lm_beta=1.5,
-                                prune_logp=-12.0, gru=prep[4])
+                                lm_order=lm_order, lm_alpha=1.25,
+                                lm_beta=1.5, prune_logp=-12.0, gru=prep[4])
 
     bp, fin = run_kernel()
     bp2, fin2 = run_kernel()
@@ -1200,26 +1222,29 @@ def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
                                                          n_e, n_h)
     b_ms, b_by = gru_bound_ms(n_bytes, n_ops, n_fma)
     scalar_ms, _ = bound_ms(n_bytes, n_ops + n_fma, SCALAR_INSTR_PER_S)
-    log(f"{phase}: {kern.name} K={k} GRU + trigram {ms:.3f} ms, plain "
+    log(f"{phase}: {kern.name} K={k} {what} {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: {ext} GRU steps "
         f"of extending survivors, LM rows of {beams} live beams over "
         f"{int(lens.sum())} live frames; {n_fma:.4g} product FMAs at the "
         f"f32-accurate tensor rate; {scalar_ms:.4f} ms with every FMA at "
         f"the scalar rate); library: none (no PyTorch call computes a "
         f"prefix beam search)")
-    return dict(name=kern.name, variant="gru+trigram", paths=("gru",),
+    # phase 15 launches B5's GRU instance and B6 (K = 200, trigram)
+    return dict(name=kern.name, variant=variant,
+                paths=("gru", "chain_gru" if k <= 128 else "chain"),
                 route="cuda", source=B5_SOURCE,
                 replaces=B5_REPLACES if k <= 128 else B6_REPLACES,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
 
-def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, dev="cuda"):
+def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, max_len=216,
+                     dev="cuda", phase="phase 9"):
     """B6 with the trigram against the plain search at K = 256: hypotheses,
     lengths and every slot's final score and length equal."""
     from tpu_ctc_torch.decode import beam
     from tpu_ctc_torch.ops import beam_cuda
-    a, max_len = 29, 216
+    a = 29
     lp, lens = peaked_posteriors(4, n_b, n_t, a)
     lp, lens = lp.to(dev), lens.to(dev)
     lm = seeded_trigram(3, a).tables(dev)
@@ -1244,7 +1269,7 @@ def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, dev="cuda"):
         and torch.equal(slots, want[3]) and torch.equal(
             fin[:, 2].to(torch.int32)[live], want[4][live]))
     err = float((got[2] - want[2]).abs().max())
-    log(f"phase 9: beam_search_wide K={k} trigram: hyps and all {k} slots' "
+    log(f"{phase}: beam_search_wide K={k} B={n_b} T={n_t} trigram: hyps and all {k} slots' "
         f"scores and lengths equal: {same}, max score err {err:.3e}, "
         f"{int(live.sum())} live slots")
     if not same or err != 0.0:
@@ -1258,7 +1283,7 @@ def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, dev="cuda"):
                + n_b * 3 * k * 4)
     n_ops = live_f * (5 * a * k + 5 * k)
     b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_INSTR_PER_S)
-    log(f"phase 9: beam_search_wide K={k} trigram {ms:.3f} ms, plain "
+    log(f"{phase}: beam_search_wide K={k} trigram {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
@@ -2767,6 +2792,158 @@ def phase_dryrun(world=2):
         raise AssertionError("the dry run failed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the accuracy chain of docs/EVAL.md at a cut size
+# ---------------------------------------------------------------------------
+
+# torch_tools/eval_chain.py at its full widths (H = 512, 3 bidirectional
+# layers, B = 16, buckets (80, 160, 320)) on a cut corpus, epochs and GRU
+# training, with 2 x 2 grids, its independent stages six at a time; the
+# full chain is its defaults.  300 steps at the first rate take the model
+# out of its blank phase (the full chain's eval CER is 0.45 at step 200),
+# so that every system decodes text and every pair is scored.
+CHAIN_CUT = ["--n", "120", "--jobs", "6", "--epochs", "60,75,80", "--lrs",
+             "0.02,0.005,0.0015", "--nlm-steps", "50", "--trigram-grid",
+             "1.0,1.75/0.5,1.5", "--gru-grid", "1.0,1.5/0.5,1.5",
+             "--both-grid", "0.75,1.0/0.0,0.5"]
+
+
+def phase_chain_kernels(records, reps: int, dev="cuda"):
+    """Phase 15's kernels at the shapes the chain gives them, each held
+    against its plain version at its own phase's limits: B1 and B2 in bf16
+    at H = 512, B = 16, T = 320 (the longest bucket); B3 and B4 at B = 16,
+    T = 320, labels of 32-64 characters (S <= 129); B5 at K = 64 and
+    max_len 144 with the trigram, the GRU alone and both, the walk; B6 at
+    K = 200 with the trigram.  A record's ``max_abs_err`` becomes the
+    larger of its phase's and this one's."""
+    shape = dict(n_b=16, n_t=320, dev=dev)
+    beam = dict(shape, k=64, max_len=144)
+    checked = [
+        phase_birnn(reps, n_h=512, phase="phase 15", **shape),
+        phase_birnn_bwd(reps, n_h=512, phase="phase 15", **shape),
+        *phase_ctc(reps, chars=(32, 64), phase="phase 15", **shape),
+        *phase_beam(reps, phase="phase 15", **beam),
+        phase_beam_gru(reps, "phase 15", lm_order=0, **beam),
+        phase_beam_gru(reps, "phase 15", **beam)]
+    phase_wide_ngram(reps, k=200, max_len=144, phase="phase 15", **shape)
+    for got in checked:     # the GRU alone is the GRU instance's record
+        for rec in records:
+            if rec["name"] == got["name"] and rec.get("variant", "")[:3] \
+                    == got.get("variant", "")[:3]:
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         got["max_abs_err"])
+
+
+def phase_chain(timeout=600):
+    """Phase 15: ``torch_tools/eval_chain.py`` on the card at
+    :data:`CHAIN_CUT` under ``build/chip_smoke_chain`` (removed at the
+    end): SPHERE corpus, manifests, three training runs (the later two
+    resumed at another learning rate), three dev sweeps, four valid
+    decodes and the trigram again at K = 200, the scoring tool.  Asserts
+    finite losses that fall, the step count of the loader's plan, each
+    resume at the previous run's end, every paired bootstrap scored (no
+    system decodes an utterance to empty text where another does not),
+    and launches of B1-B4 in training,
+    of B5's n-gram and GRU instances in the sweeps and decodes, of B6 at
+    K = 200 and of the walk; prints the ladder's WERs (a cut model: not the
+    accuracy result) and whether two GRU char-LM trainings are bit-equal.
+    Returns the chain's launches, summed over its subprocesses (each
+    starts at 0), as paths: ``chain`` all but B5's, ``chain_ngram`` and
+    ``chain_gru`` B5's n-gram and GRU instances."""
+    import shutil
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_chain")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.time()
+    # its own process group: a timeout stops the chain's subprocesses too
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join("torch_tools", "eval_chain.py"),
+         "--out", out, *CHAIN_CUT],
+        cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    for line in err.splitlines():
+        if line.startswith("[chain]") and ("done in" in line or
+                                           "failed" in line):
+            log(f"phase 15: {line}")
+    if proc.returncode != 0:
+        for line in err.splitlines()[-40:]:
+            log(f"phase 15: {line}")
+        raise AssertionError(f"eval_chain.py returned {proc.returncode}")
+    with open(os.path.join(out, "eval_chain.json")) as f:
+        res = json.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    runs, plan = res["train"], res["plan"]
+    log(f"phase 15: splits {res['splits']}; plan {plan['batches_epoch0']} "
+        f"batches in epoch 0, {plan['batches_per_epoch']} after, "
+        f"{plan['dropped']} dropped; frontend over the held-in train split "
+        f"{res['frontend_once']['reads_and_frontend_s']:.2f} s "
+        f"(reads {res['frontend_once']['reads_s']:.2f} s)")
+    for i, r in enumerate(runs):
+        log(f"phase 15: run {i} (lr {r['learning_rate']}, to epoch "
+            f"{r['to_epoch']}): steps {r['steps']}, loss {r['first_loss']:.3f}"
+            f" -> {r['last_loss']:.3f}, a frame {r['first_loss_per_frame']:.4f}"
+            f" -> {r['last_loss_per_frame']:.4f}, {r['wall_s']:.1f} s, "
+            f"epoch {r['median_epoch_wall_s']} s, resumed {r['resumed']}")
+    # per frame: the logged batches come from buckets of other lengths
+    losses = [x for r in runs for x in (r["first_loss_per_frame"],
+                                        r["last_loss_per_frame"])]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the chain's losses do not fall: {losses}")
+    if [r["steps"] for r in runs] != plan["steps_at_run_end"] or \
+            not res["steps_equal_plan"]:
+        raise AssertionError(f"steps {[r['steps'] for r in runs]}, final "
+                             f"{res['final_step']}, the loader's plan "
+                             f"{plan['steps_at_run_end']}")
+    epochs = [r["to_epoch"] for r in runs]
+    for i in range(1, len(runs)):
+        want = [[str(epochs[i - 1]), "0", str(plan["steps_at_run_end"][i - 1])]]
+        if runs[i]["resumed"] != want:
+            raise AssertionError(f"run {i} resumed at {runs[i]['resumed']}, "
+                                 f"not {want}")
+    for name, sw in res["sweeps"].items():
+        log(f"phase 15: dev sweep {name}: best {sw['best']} of "
+            f"{len(sw['grid'])} points")
+    wers = ", ".join(f"{k} {100 * v['WER']['rate']:.2f}% "
+                     f"[{100 * v['WER']['ci95'][0]:.2f}, "
+                     f"{100 * v['WER']['ci95'][1]:.2f}]"
+                     for k, v in res["valid"].items())
+    log(f"phase 15: valid WER (cut; not the accuracy result): {wers}")
+    log(f"phase 15: paired {res['paired']}; K=200 against K=64: "
+        f"{res['k200']['differ']} of {res['k200']['utts']} hypotheses differ")
+    refused = [k for k, v in res["paired"].items() if "ci95" not in v]
+    if refused:
+        raise AssertionError(f"paired bootstraps refused: {refused}")
+    gru = res["gru_twice"]
+    log(f"phase 15: two GRU char-LM trainings ({gru['steps']} steps, "
+        f"{gru['train_s'][0]:.1f} s and {gru['train_s'][1]:.1f} s): "
+        f"bit-equal {gru['bit_equal']} (largest difference "
+        f"{max(gru['max_abs_diff'].values()):.3g})")
+    by = res["launches_by_stage"]
+    trained = {k: sum(by[s][k] for s in by if s.startswith("train"))
+               for k in ("birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta")}
+    decoded = {"beam_search (n-gram)": res["beam_search_by_lm"]["ngram"],
+               "beam_search (GRU)": res["beam_search_by_lm"]["gru"],
+               "beam_search_wide (K=200)":
+                   by["decode_trigram_k200"]["beam_search_wide"],
+               "beam_reconstruct": res["launches"]["beam_reconstruct"]}
+    log(f"phase 15: launches in training {trained}; in the sweeps and "
+        f"decodes {decoded}; all {res['launches']}")
+    if not all(trained.values()) or not all(decoded.values()):
+        raise AssertionError("a kernel of the chain was not launched")
+    log(f"phase 15: chain passed in {time.time() - t0:.1f} s "
+        f"(stages: {', '.join(f'{k} {v:.1f}' for k, v in res['wall_s'].items())})")
+    return {"chain": dict(res["launches"], beam_search=0),
+            "chain_ngram": {"beam_search": res["beam_search_by_lm"]["ngram"]},
+            "chain_gru": {"beam_search": res["beam_search_by_lm"]["gru"]}}
+
+
 def device_breakdown(run, phase: str):
     """One more pass of ``run`` under torch.profiler: device time by
     kernel name and the device's idle share of the pass (the profiler's
@@ -2835,6 +3012,8 @@ def main() -> int:
     paths["pp"] = phase_pp_preset2()
     paths["collective"] = phase_collective_decode()
     phase_dryrun()
+    phase_chain_kernels(records, REPS)
+    paths.update(phase_chain())
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))

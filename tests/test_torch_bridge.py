@@ -181,7 +181,7 @@ class TestImportHygiene:
             assert "tpu_ctc_torch." + name in modules
         for name in ("score", "make_manifest", "make_sample_corpus",
                      "sweep_decode", "preset_fit", "smoke_cuda_decode",
-                     "mesh_steps"):
+                     "mesh_steps", "eval_chain"):
             assert "torch_tools." + name in modules
 
     def test_sources_never_name_jax(self):

@@ -443,6 +443,25 @@ def test_train_step_is_bit_reproducible(dev):
         assert torch.equal(p, out[1][1][name]), name
 
 
+def test_gru_lm_training_is_bit_reproducible(dev):
+    """Two trainings of the GRU char LM on the same transcripts, as every
+    GRU sweep and decode trains it (``train_char_rnn_lm``: Adam on the
+    batches of one seed), outside PyTorch's deterministic mode, give
+    bit-equal parameters: the decode of the valid split meets the LM that
+    its (alpha, beta) was tuned for on dev."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    r = np.random.RandomState(7)
+    seqs = [r.randint(1, 29, r.randint(5, 60)).astype(np.int32)
+            for _ in range(200)]
+    cfg = neural_lm.CharRNNLMConfig(vocab_size=29, embed_dim=64,
+                                    hidden_dim=128)
+    runs = [dict(neural_lm.train_char_rnn_lm(seqs, cfg, steps=30,
+                                             device=dev)[0]
+                 .named_parameters()) for _ in range(2)]
+    for name, p in runs[0].items():
+        assert torch.equal(p, runs[1][name]), name
+
+
 def _posteriors(seed, b, t, a, scale=2.0):
     r = np.random.RandomState(seed)
     lp = torch.log_softmax(
