@@ -57,19 +57,26 @@ against its plain PyTorch version on the same inputs:
      as a manifest corpus (WAV files) under ``build/chip_smoke_audio``; the
      frontend (``frontend/features.py``, preset 2's 40 mels and context 1)
      on 64 of them on the card and on the CPU against a float64 numpy
-     oracle, with its times and the CPU rate of ``ManifestDataset``; ``cli
+     oracle, with its times and the CPU rate of ``ManifestDataset``; the
+     frontend pool (``ManifestDataset(workers=host_workers())``: spawned
+     processes) bit-equal to the in-process dataset on every utterance;
+     ``torch_tools/audio_path_breakdown.py`` at preset 2's shape and the
+     accuracy chain's (reads, the frontend's operators and the rest,
+     ``make_batch``, pin and copy, the consumer's wait, the step's host
+     time, the device's idle share, ``ManifestDataset`` alone and beside
+     the step), in process and with the pool, each path's ms a step and
+     audio-s/s beside the same batches in memory and phase 7's; ``cli
      train --config 2 --data`` (two epochs, ``train.eval_beam``: B1-B5 and
      the walk), the loss on one batch from the seeded weights and from the
-     checkpoint; the audio path's step (manifest, loader, prefetch,
-     ``train_step``) timed and profiled beside phase 7's; ``model.remat``
-     bit-equal (outside deterministic mode) with B1 launched twice as
-     often and both peaks printed;
+     checkpoint; ``model.remat`` bit-equal (outside deterministic mode)
+     with B1 launched twice as often and both peaks printed;
      ``cli decode --checkpoint --split valid --beam``, ``score``,
      ``export-weights`` and ``decode --weights`` (the same hypotheses, the
      manifest's ids); ``batched_edit_distance`` on the card equal to the
      host's; ``cli decode --config 4 --data --beam`` and its loop timed and
-     profiled with the frontend in the wall, beside phase 4's; prefetched
-     batches bit-equal to the loader's own.
+     profiled with the frontend in the wall, in process and with the pool,
+     beside phase 4's; prefetched batches bit-equal to the loader's own,
+     in process and through the pool.
 
  12. B1 from a nonzero carry and the distributed step: B1 from h0 at
      preset 3's width (H = 1824, B = 64, bf16) over T = 1600 as 4 chunks
@@ -84,7 +91,13 @@ against its plain PyTorch version on the same inputs:
      ranks (``nvidia-smi -L``: 2 NCCL ranks on 2 or 3 cards, 4 with
      data = 2 on 4 or more; two gloo ranks on one card), the loss within
      1e-3 of one card's, the parameters bit-equal across ranks, with the
-     step time and audio-s/s.
+     step time and audio-s/s; then preset 2 from audio (96 WAV files)
+     under DP2 (two gloo ranks sharing one card, or NCCL ranks on two),
+     each rank's loader featurizing only its rows in its own frontend
+     pool: each rank's payload reads per epoch (about half of one
+     rank's), its blocks bit-equal to ``local_batch`` of one card's global
+     batches, the parameters bit-equal across ranks, the job's audio-s/s
+     beside one rank's from audio.
  13. the benchmarks and the tools: ``tpu_ctc_torch.bench.bench`` at its
      defaults (the CPU reference on one utterance) with its JSON line and
      the step's MFU; ``bench_ctc`` at its defaults, its spot check and B3 +
@@ -1460,33 +1473,6 @@ def check_frontend_limits(what, power, feats, mask, want_power, want_mel,
     return p_err, f_err
 
 
-def audio_corpus(root, fe, seed):
-    """A manifest corpus of synthetic tone waveforms (50-100 characters of
-    1280 samples, 4-8 s: 400-800 frames) in ``root``: train (96) and valid
-    (32) splits of WAV files.  Returns {split: (waveforms, sample lengths)}."""
-    from tpu_ctc_torch.data import audio_io
-    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
-    from tpu_ctc_torch.data.manifest import write_manifest
-    from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
-    os.makedirs(root, exist_ok=True)
-    out = {}
-    for split, n, s in (("train", 96, seed), ("valid", 32, seed + 1)):
-        audio, sl, labels, ll = synthetic_audio_batch(
-            n, 8 * fe.sample_rate, sample_rate=fe.sample_rate, min_chars=50,
-            max_chars=100, seed=s, samples_per_char=1280)
-        recs = []
-        for i in range(n):
-            name = f"{split}_{i:03d}.wav"
-            audio_io.write_wav(os.path.join(root, name), audio[i, :sl[i]],
-                               fe.sample_rate)
-            recs.append({"id": f"{split}-{i:03d}", "audio": name,
-                         "text": DEFAULT_ALPHABET.decode(labels[i, :ll[i]]),
-                         "samples": int(sl[i]), "rate": fe.sample_rate})
-        write_manifest(root, split, recs)
-        out[split] = (audio, sl)
-    return out
-
-
 def check_batched_cer(what, hyp_dir, dev="cuda"):
     """``batched_edit_distance`` and ``batched_cer`` on the card against the
     host's ``edit_distance`` and ``cer`` on a decode's trn files: equal
@@ -1521,16 +1507,21 @@ def check_batched_cer(what, hyp_dir, dev="cuda"):
 def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
                 dev="cuda"):
     """Audio in, text out on the card: the frontend, a manifest corpus,
-    ``cli train --data`` (preset 2, with ``train.eval_beam``), remat, the
-    checkpoint's decode and score, ``export-weights``, preset 4 from audio,
-    ``batched_cer`` and the prefetch.  The trained checkpoint is copied to
-    ``keep_checkpoint`` (phase 13 sweeps it).  Returns {path: launches}."""
+    the frontend pool's bits, ``torch_tools/audio_path_breakdown.py`` at
+    preset 2's and the chain's shapes in process and with the pool, ``cli
+    train --data`` (preset 2, with ``train.eval_beam``), remat, the
+    checkpoint's decode and score, ``export-weights``, preset 4 from audio
+    in process and with the pool, ``batched_cer`` and the prefetch.  The
+    trained checkpoint is copied to ``keep_checkpoint`` (phase 13 sweeps
+    it).  Returns ({path: launches}, {"workers=N": preset 2's audio-s/s
+    from audio})."""
     import shutil
 
+    from torch_tools import audio_path_breakdown as apb
     from tpu_ctc_torch import cli
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.data.bucketing import BucketedLoader
-    from tpu_ctc_torch.data.manifest import ManifestDataset
+    from tpu_ctc_torch.data.manifest import ManifestDataset, host_workers
     from tpu_ctc_torch.data.prefetch import prefetch_to_device
     from tpu_ctc_torch.decode import wer
     from tpu_ctc_torch.frontend import features as F
@@ -1544,7 +1535,7 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
                         "chip_smoke_audio")
     shutil.rmtree(root, ignore_errors=True)
     data_dir, work = os.path.join(root, "corpus"), os.path.join(root, "run")
-    waves = audio_corpus(data_dir, fe, seed)
+    waves = apb.tone_corpus(data_dir, fe, seed)
 
     # the frontend: card, CPU and the float64 oracle on 64 waveforms
     x_np, sl_np = waves["train"][0][:64], waves["train"][1][:64]
@@ -1580,6 +1571,56 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
         f"audio-s/s, {torch.get_num_threads()} threads); ManifestDataset one "
         f"utterance at a time (WAV read included) {ds_audio_s:.1f} audio s "
         f"in {per_utt_s:.3f} s = {ds_audio_s / per_utt_s:.0f} audio-s/s")
+
+    # the frontend pool: every utterance of the corpus bit-equal to the
+    # in-process dataset's
+    workers = host_workers()
+    n_same = n_all = 0
+    for split in ("train", "valid"):
+        here = ManifestDataset(data_dir, cfg2, split=split)
+        pooled = ManifestDataset(data_dir, cfg2, split=split,
+                                 workers=workers)
+        try:
+            got = pooled.fetch(list(range(len(pooled))))()
+        finally:
+            pooled.close()
+        for i, (f, lab) in enumerate(got):
+            want_f, want_l = here[i]
+            n_same += bool(np.array_equal(f, want_f) and f.dtype ==
+                           want_f.dtype and np.array_equal(lab, want_l))
+            n_all += 1
+    log(f"phase 11: frontend pool of host_workers() = {workers} spawned "
+        f"processes: {n_same} of {n_all} utterances bit-equal to the "
+        f"in-process ManifestDataset")
+    if n_same != n_all or not workers:
+        raise AssertionError("the frontend pool's features differ from the "
+                             "in-process path (or the host gave no pool)")
+
+    # the audio path taken apart at preset 2's and the chain's shapes,
+    # in process and with the pool (torch_tools/audio_path_breakdown.py);
+    # preset 2 on 256 waveforms: an epoch of 4 batches would be a quarter
+    # the first batch's wait, which a real corpus's epoch spreads thin
+    import argparse
+    parts = {}
+    for shape, utts, epochs in (("preset2", 256, 2), ("chain", 304, 2)):
+        args = argparse.Namespace(
+            hidden=0, layers=0, batch=0, utts=utts, epochs=epochs,
+            seed=seed, per_batch=False,
+            out=os.path.join(root, "audio_path"))
+        parts[shape] = apb.run_shape(shape, ["0", "host"], args, dev,
+                                     log=lambda m: log("phase 11: " + m))
+    for shape, rec in parts.items():
+        for run in rec["runs"]:
+            log(f"phase 11: {shape} from audio, {run['workers']} workers: "
+                f"{run['ms']:.2f} ms a step, {run['rate']:.1f} audio-s/s "
+                f"({run['rate'] / rec['in_memory']['rate']:.3f} of the same "
+                f"batches in memory, {rec['in_memory']['rate']:.1f}), idle "
+                f"share <= {run['idle']}")
+    log(f"phase 11: phase 7 (preset 2, features in memory, 800 frames): "
+        f"{phase7['ms']:.1f} ms a step, {phase7['rate']:.1f} audio-s/s, "
+        f"idle share <= {phase7['idle']}; preset 2 from audio with the pool "
+        f"at {parts['preset2']['runs'][1]['rate'] / phase7['rate']:.3f} of "
+        f"it")
 
     # cli train --data: preset 2 from the audio files
     train_ds = ManifestDataset(data_dir, cfg2)
@@ -1640,28 +1681,7 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
     if not (np.isfinite(after) and after < before):
         raise AssertionError("training from audio did not lower the loss")
 
-    # the audio path's step, profiled: loader + frontend + prefetch + step
     state = step.create_train_state(cfg2, device=dev)
-    frames = sum(int(b.frame_lengths[b.weights > 0].sum()) for b in batches)
-
-    def audio_epoch():
-        nonlocal state
-        for _, _, tb in prefetch_to_device(loader.epoch(0), dev):
-            state, m = step.train_step(state, tb, cfg2)
-        torch.cuda.synchronize()
-
-    audio_epoch()                                   # warm-up
-    t0 = time.time()
-    audio_epoch()
-    wall = time.time() - t0
-    bd = device_breakdown(audio_epoch, "phase 11 audio epoch")
-    idle = None if bd is None else 1 - bd[1] / bd[0]
-    log(f"phase 11: audio path (ManifestDataset -> loader -> prefetch -> "
-        f"train_step), {len(batches)} steps: {wall / len(batches) * 1e3:.1f} "
-        f"ms a step, {frames / 100 / wall:.1f} audio-s/s, idle share <= "
-        f"{idle if idle is None else round(idle, 3)}; phase 7 (features in "
-        f"memory): {phase7['ms']:.1f} ms a step, {phase7['rate']:.1f} "
-        f"audio-s/s, idle share <= {phase7['idle']}")
 
     # remat: one preset-2 step's loss and gradients, same batch, weights,
     # outside PyTorch's deterministic mode (the CTC glue's gather sums its
@@ -1741,30 +1761,38 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
     from tpu_ctc_torch.decode.beam import make_beam_decoder
     from tpu_ctc_torch.decode.lm import train_char_lm_from_data
     from tpu_ctc_torch.models import birnn
-    ds4 = ManifestDataset(data_dir, cfg4)
     model4 = birnn.init_params(cfg4.model, seed=0, device=dev)
-    decode4 = make_beam_decoder(cfg4, lm=train_char_lm_from_data(ds4, cfg4),
-                                device=dev)
-    loader4 = BucketedLoader(ds4, cfg4.data)
+    decode4 = make_beam_decoder(
+        cfg4, lm=train_char_lm_from_data(ManifestDataset(data_dir, cfg4),
+                                         cfg4), device=dev)
+    for n_w in (0, workers):
+        ds4 = ManifestDataset(data_dir, cfg4, workers=n_w)
+        loader4 = BucketedLoader(ds4, cfg4.data)
 
-    def decode_pass():
-        out = [decode4(model4, batch_to_device_dict(b))
-               for _, b in loader4.epoch(0)]
-        torch.cuda.synchronize()
-        return out
-    decode_pass()
-    t0 = time.time()
-    decode_pass()
-    wall4 = time.time() - t0
-    frames4 = int(ds4.frame_lengths.sum())
-    bd4 = device_breakdown(decode_pass, "phase 11 preset 4 from audio")
-    idle4 = None if bd4 is None else round(1 - bd4[1] / bd4[0], 3)
-    log(f"phase 11: preset 4 from audio, {len(ds4)} utterances in "
-        f"{loader4.num_batches(0)} batches of {cfg4.data.batch_size} (K="
-        f"{cfg4.decode.beam_width}, trigram): {wall4:.3f} s with the "
-        f"frontend = {frames4 / 100 / wall4:.1f} audio-s/s, idle share <= "
-        f"{idle4}; phase 4 (features in memory): {phase4['rate']:.1f} "
-        f"audio-s/s, idle share <= {phase4['idle']}")
+        def decode_pass():
+            out = [decode4(model4, batch_to_device_dict(b))
+                   for _, b in loader4.epoch(0)]
+            torch.cuda.synchronize()
+            return out
+        try:
+            decode_pass()
+            t0 = time.time()
+            decode_pass()
+            wall4 = time.time() - t0
+            bd4 = device_breakdown(decode_pass,
+                                   f"phase 11 preset 4 from audio, {n_w} "
+                                   f"workers")
+        finally:
+            ds4.close()
+        frames4 = int(ds4.frame_lengths.sum())
+        idle4 = None if bd4 is None else round(1 - bd4[1] / bd4[0], 3)
+        log(f"phase 11: preset 4 from audio, {n_w} frontend workers, "
+            f"{len(ds4)} utterances in {loader4.num_batches(0)} batches of "
+            f"{cfg4.data.batch_size} (K={cfg4.decode.beam_width}, trigram): "
+            f"{wall4:.3f} s with the frontend = "
+            f"{frames4 / 100 / wall4:.1f} audio-s/s, idle share <= {idle4}; "
+            f"phase 4 (features in memory): {phase4['rate']:.1f} audio-s/s, "
+            f"idle share <= {phase4['idle']}")
 
     # prefetch: the batches bit-equal to the loader's own, moved
     n_eq = 0
@@ -1775,14 +1803,30 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
                 torch.equal(t1[k], want_t[k]) for k in want_t):
             raise AssertionError(f"prefetched batch {c1} differs")
         n_eq += 1
-    log(f"phase 11: prefetch: {n_eq} batches bit-equal to the loader's own "
-        f"moved without it")
+    pooled = ManifestDataset(data_dir, cfg2, workers=workers)
+    try:
+        for (c1, b1, t1), (c2, b2) in zip(
+                prefetch_to_device(BucketedLoader(pooled[n_eval:], cfg2.data)
+                                   .epoch(1), dev), loader.epoch(1)):
+            want_t = step.batch_to_tensors(batch_to_device_dict(b2), dev)
+            if c1 != c2 or set(t1) != set(want_t) or not all(
+                    torch.equal(t1[k], want_t[k]) for k in want_t):
+                raise AssertionError(f"batch {c1} prefetched from the pool "
+                                     f"differs")
+            n_eq += 1
+    finally:
+        pooled.close()
+    log(f"phase 11: prefetch: {n_eq} batches (one epoch in process, one "
+        f"through the pool) bit-equal to the in-process loader's own moved "
+        f"without it")
     shutil.rmtree(keep_checkpoint, ignore_errors=True)
     shutil.copytree(ckpt_dir, keep_checkpoint)
     shutil.rmtree(root, ignore_errors=True)
+    one_rank = {f"workers={run['workers']}": run["rate"]
+                for run in parts["preset2"]["runs"]}
     return {"audio_train": train_launches,
             "audio_decode": {k: dec_launches.get(k, 0) + p4_launches.get(k, 0)
-                             for k in dec_launches}}
+                             for k in dec_launches}}, one_rank
 
 
 def chunk_chain(z, w, lens, reverse, n_chunks, plain_check):
@@ -2087,6 +2131,151 @@ def phase_mesh_ranks(ref_losses):
         raise AssertionError("the SP step launched no B1 or B2")
     return launches, {"world": world, "backend": backend, "cards": count,
                       "step_ms": step_s * 1e3, "rate": audio / step_s}
+
+
+AUDIO_RANK_WORKER = r"""
+import hashlib, json, sys, time
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[6])
+import chip_smoke
+from tpu_ctc_torch.config import get_config
+from tpu_ctc_torch.data.bucketing import BucketedLoader
+from tpu_ctc_torch.data.manifest import ManifestDataset, host_workers
+from tpu_ctc_torch.data.prefetch import prefetch_to_device
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import step
+
+coord, rank, world, backend, dev, _, corpus, epochs = sys.argv[1:9]
+rank, world, epochs = int(rank), int(world), int(epochs)
+dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
+cfg = get_config("timit_full_3layer", **{"mesh.data": world})
+mesh = mesh_lib.make_mesh(cfg.mesh)
+ds = ManifestDataset(corpus, cfg, workers=host_workers())
+loader = BucketedLoader(ds, cfg.data,
+                        rows=step.local_rows(mesh, cfg.data.batch_size))
+state = step.create_train_state(cfg, device=dev)
+step_fn, state = step.make_train_step(cfg, mesh, state)
+reads, hashes, walls, audio, losses = [], {}, [], [], []
+def run():
+    global state
+    for e in range(epochs):
+        r0, a = ds.payload_reads, 0.0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for cursor, batch, tb in prefetch_to_device(
+                loader.epoch(e), dev,
+                select=lambda arrays: step.local_batch(arrays, mesh)):
+            if e == 0:
+                h = hashlib.sha256()
+                for k in sorted(tb):
+                    h.update(tb[k].cpu().numpy().tobytes())
+                hashes[cursor] = h.hexdigest()
+            state, m = step_fn(state, tb)
+            if e == 0:
+                losses.append(float(m["loss"]))
+            a += batch.audio_seconds()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        reads.append(ds.payload_reads - r0)
+        audio.append(a)
+try:
+    _, launches = chip_smoke.run_main_path(run)
+finally:
+    ds.close()
+h = hashlib.sha256()
+for p in state.model.parameters():
+    h.update(p.detach().cpu().numpy().tobytes())
+print("RANK " + json.dumps({"rank": rank, "mesh": mesh.shape,
+                            "workers": host_workers(), "reads": reads,
+                            "hashes": hashes, "walls": walls, "audio": audio,
+                            "losses": losses, "launches": launches,
+                            "params": h.hexdigest()}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def phase_mesh_audio(seed: int, one_rank, epochs: int = 3):
+    """Phase 12, part 5: preset 2 from audio under DP2 (``mesh.data=2``):
+    NCCL ranks on two cards, or two gloo ranks sharing one, each with its
+    own frontend pool (``host_workers()`` under ``LOCAL_WORLD_SIZE=2``),
+    its loader featurizing only its rows (``local_rows``), the prefetch
+    copying its block and ``make_train_step``'s step, for ``epochs``
+    epochs of phase 11's 96 training waveforms (the first a warm-up).  Each
+    rank's payload reads per epoch, about half of one rank's; its arrays of
+    the first epoch bit-equal to ``local_batch`` of one card's global
+    batches; the parameters bit-equal across ranks; the job's audio-s/s
+    beside one rank's from audio (phase 11).  Returns the launches (ranks
+    summed)."""
+    import hashlib
+    import shutil
+
+    from torch_tools import audio_path_breakdown as apb
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.manifest import ManifestDataset
+    from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_dp_audio")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("timit_full_3layer", **{"mesh.data": 2})
+    apb.tone_corpus(root, cfg.frontend, seed, splits=(("train", 96),))
+    # one card's global batches of the first epoch, each rank's block hashed
+    whole = ManifestDataset(root, cfg)
+    want = [{}, {}]
+    for cursor, batch in BucketedLoader(whole, cfg.data).epoch(0):
+        for r in range(2):
+            mesh = mesh_lib.Mesh({"data": 2, "model": 1, "seq": 1}, r,
+                                 {"data": (0, 1), "model": (r,),
+                                  "seq": (r,)})
+            block = step.local_batch(batch_to_device_dict(batch), mesh)
+            h = hashlib.sha256()
+            for k in sorted(block):
+                h.update(torch.as_tensor(block[k]).numpy().tobytes())
+            want[r][str(cursor)] = h.hexdigest()
+    one_reads = whole.payload_reads
+    count = card_count()
+    backend, devs = (("nccl", ["cuda:0", "cuda:1"]) if count >= 2 else
+                     ("gloo", ["cuda:0", "cuda:0"]))
+    here = os.path.dirname(os.path.abspath(__file__))
+    coord = f"127.0.0.1:{distributed.free_port()}"
+    recs = distributed.spawn_ranks(
+        [[sys.executable, "-c", AUDIO_RANK_WORKER, coord, str(r), "2",
+          backend, devs[r], here, root, str(epochs)] for r in range(2)],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here,
+                           LOCAL_WORLD_SIZE="2"), timeout=600)
+    same = [rec["hashes"] == want[rec["rank"]] for rec in recs]
+    params_same = len({rec["params"] for rec in recs}) == 1
+    wall = float(np.sum(recs[0]["walls"][1:]))
+    rate = float(np.sum(recs[0]["audio"][1:])) / wall
+    steps = len(recs[0]["hashes"]) * (epochs - 1)
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    log(f"phase 12: preset 2 from audio under DP2 ({backend} ranks on "
+        f"{devs}, {recs[0]['workers']} frontend workers each): payload "
+        f"reads per epoch {[rec['reads'] for rec in recs]} against one "
+        f"rank's {one_reads}; each rank's first-epoch blocks bit-equal to "
+        f"local_batch of one card's global batches: {same} "
+        f"({len(want[0])} batches); parameters bit-equal across ranks: "
+        f"{params_same}; losses {[round(x, 3) for x in recs[0]['losses']]}")
+    log(f"phase 12: DP2 from audio: the job {rate:.1f} audio-s/s (epochs "
+        f"2-{epochs}, {wall / steps * 1e3:.1f} ms a step); one rank from "
+        f"audio "
+        f"(phase 11): {one_rank}; launches on the path (both ranks) "
+        f"{launches}")
+    if not all(same) or not params_same:
+        raise AssertionError("DP2 from audio: a rank's blocks differ from "
+                             "one card's, or the ranks' parameters differ")
+    if any(r > one_reads * 0.75 for rec in recs for r in rec["reads"]):
+        raise AssertionError("DP2 from audio: a rank read more than its "
+                             "rows")
+    if not (launches.get("birnn_fwd") and launches.get("birnn_bwd")):
+        raise AssertionError("DP2 from audio launched no B1 or B2")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2999,13 +3188,14 @@ def main() -> int:
     gru_launches, _ = phase_gru_decode(seed=0)
     kept = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke_tools", "checkpoint")
+    audio_paths, one_rank = phase_audio(seed=0, phase7=phase7,
+                                        phase4=phase4, keep_checkpoint=kept)
     paths = {"decode": decode_launches, "train": train_launches,
-             "gru": gru_launches,
-             **phase_audio(seed=0, phase7=phase7, phase4=phase4,
-                           keep_checkpoint=kept)}
+             "gru": gru_launches, **audio_paths}
     carry_err, _ = phase_carry(REPS)
     paths["mesh_one"], ref_losses = phase_mesh_one()
     paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
+    paths["mesh_audio"] = phase_mesh_audio(seed=0, one_rank=one_rank)
     phase_tools(records, kept)
     records += phase_wide_birnn(REPS)
     paths["tp"] = phase_tp_preset5()

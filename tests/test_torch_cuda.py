@@ -838,6 +838,50 @@ def test_prefetch_on_a_side_stream(dev):
             assert torch.equal(g[k], ref[k].cpu()), k
 
 
+def test_frontend_pool_prefetches_the_process_bits(dev, tmp_path):
+    """One epoch of a small WAV corpus through ``prefetch_to_device``: a
+    loader over ``ManifestDataset(workers=2)`` and one over the in-process
+    dataset give bit-equal tensors on the card, and the pool's workers end
+    with ``close``."""
+    import multiprocessing
+
+    from tpu_ctc_torch.data import audio_io
+    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.manifest import ManifestDataset, write_manifest
+    from tpu_ctc_torch.data.prefetch import prefetch_to_device
+    from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
+    cfg = get_config("2", **{"data.batch_size": 8,
+                             "data.bucket_boundaries": (200, 400)})
+    audio, sl, labels, ll = synthetic_audio_batch(
+        24, 4 * 16000, min_chars=5, max_chars=25, seed=9,
+        samples_per_char=2400)
+    recs = []
+    for i in range(len(sl)):
+        audio_io.write_wav(str(tmp_path / f"u{i}.wav"), audio[i, :sl[i]],
+                           16000)
+        recs.append({"id": f"u{i}", "audio": f"u{i}.wav",
+                     "text": DEFAULT_ALPHABET.decode(labels[i, :ll[i]]),
+                     "samples": int(sl[i]), "rate": 16000})
+    write_manifest(str(tmp_path), "train", recs)
+    before = set(multiprocessing.active_children())
+    pooled = ManifestDataset(str(tmp_path), cfg, workers=2)
+    try:
+        runs = []
+        for ds in (pooled, ManifestDataset(str(tmp_path), cfg)):
+            runs.append([(c, {k: t.cpu() for k, t in ts.items()})
+                         for c, _, ts in prefetch_to_device(
+                             BucketedLoader(ds, cfg.data).epoch(1), dev)])
+    finally:
+        pooled.close()
+    assert set(multiprocessing.active_children()) == before
+    assert len(runs[0]) == len(runs[1]) > 1
+    for (c0, a), (c1, b) in zip(*runs):
+        assert c0 == c1 and set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (c0, k)
+
+
 @pytest.mark.parametrize("io", ["float32", "bfloat16"])
 def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
     """``model.remat``: loss and gradients bit-equal to the run without it

@@ -10,10 +10,11 @@ train split, and a 16-utterance synthetic eval split (two batches of 8):
   ``evaluate(..., max_batches=1)`` on the same batches and weights (greedy
   CER, NLL within 1e-5, the utterance count, the beam WER/CER), and counts
   fewer utterances than the whole split.
-* ``train.eval_beam`` on a mesh that splits the model: 2 gloo ranks under
-  TP (``mesh.model=2``) and as 2 PP stages run ``evaluate`` with the split
-  eval of ``make_eval_step`` and a beam decoder whose search records what
-  it decodes.  The beam WER/CER and every hypothesis equal the one-card
+* ``train.eval_beam`` on a mesh: 2 gloo ranks under DP (``mesh.data=2``,
+  whose eval gathers each rank's log posteriors, as a rank's loader
+  featurizes only its rows), under TP (``mesh.model=2``) and as 2 PP
+  stages run ``evaluate`` with the eval of ``make_eval_step`` and a beam
+  decoder whose search records what it decodes.  The beam WER/CER and every hypothesis equal the one-card
   ``evaluate``'s on the same weights (which under PP are the gathered
   stacked model, unstacked), the searched log posteriors are the one-card
   model's within 1e-5 (the split forward sums in another order: ~1e-6),
@@ -59,8 +60,8 @@ def corpora():
             SyntheticCorpus(num_utterances=16, seed=2, **kw).all_utterances())
 
 
-def fields(**mesh_kw):
-    f = tiny_fields(1, 1, **mesh_kw)
+def fields(data=1, **mesh_kw):
+    f = tiny_fields(data, 1, **mesh_kw)
     f["decode"] = dict(beam_width=BEAM)
     return f
 
@@ -207,7 +208,7 @@ class TestMaxBatches:
                                                       want["beam_cer"])
 
 
-MESHES = {"tp2": dict(model=2),
+MESHES = {"dp2": dict(data=2), "tp2": dict(model=2),
           "pp2": dict(model=2, pipeline=True, pipeline_microbatches=2)}
 
 

@@ -24,7 +24,7 @@ bit-equal across ranks.  Beside them: ``resolve_mesh_shape`` (the cases of
 two-process ``initialize`` with ``local_batch_slice`` and one all-reduce, a
 checkpoint written under data = 2 and restored in one process, and ``cli
 train`` under ``torch.distributed.run`` (torchrun) with DP and with SP
-against the same command in one process.
+against the same command in one process, and DP from a WAV manifest.
 """
 import json
 import os
@@ -362,29 +362,57 @@ CLI_SET = ["--set", "model.hidden_dim=16", "--set", "model.num_bi_layers=1",
            "--set", "model.compute_dtype=float32"]
 
 
-def _cli_train(work, *extra, nproc=0):
+def _cli_train(work, *extra, nproc=0, source=("--synthetic", "13")):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     run = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", str(nproc), "-m", "tpu_ctc_torch.cli"]
            if nproc else [sys.executable, "-m", "tpu_ctc_torch.cli"])
     res = subprocess.run(
         [*run, "train", "--config", "2", "--device", "cpu", *CLI_SET,
-         "--synthetic", "13", "--work-dir", str(work), *extra],
+         *source, "--work-dir", str(work), *extra],
         capture_output=True, text=True, cwd=REPO, env=env, timeout=240)
     assert res.returncode == 0, res.stdout + res.stderr[-4000:]
     return res.stdout
 
 
+def _wav_corpus(root, n=13):
+    """A manifest of ``n`` tone waveforms of 3-6 characters (<= 90
+    frames: one bucket of 100), as ``--data`` reads it."""
+    from tpu_ctc_torch.data import audio_io
+    from tpu_ctc_torch.data.alphabet import DEFAULT_ALPHABET
+    from tpu_ctc_torch.data.manifest import write_manifest
+    from tpu_ctc_torch.data.synthetic import synthetic_audio_batch
+    audio, sl, labels, ll = synthetic_audio_batch(
+        n, 16000, min_chars=3, max_chars=6, seed=5, samples_per_char=2400)
+    os.makedirs(root, exist_ok=True)
+    recs = []
+    for i in range(n):
+        audio_io.write_wav(os.path.join(root, f"u{i:02d}.wav"),
+                           audio[i, :sl[i]], 16000)
+        recs.append({"id": f"u{i:02d}", "audio": f"u{i:02d}.wav",
+                     "text": DEFAULT_ALPHABET.decode(labels[i, :ll[i]]),
+                     "samples": int(sl[i]), "rate": 16000})
+    write_manifest(root, "train", recs)
+    return root
+
+
 class TestCliUnderTorchrun:
-    @pytest.mark.parametrize("mesh", ["mesh.data=2", "mesh.seq=2",
-                                      "mesh.model=2"])
-    def test_two_ranks_match_one_process(self, tmp_path, mesh):
+    @pytest.mark.parametrize("mesh,data", [
+        pytest.param("mesh.data=2", False, id="mesh.data=2"),
+        pytest.param("mesh.seq=2", False, id="mesh.seq=2"),
+        pytest.param("mesh.model=2", False, id="mesh.model=2"),
+        pytest.param("mesh.data=2", True, id="mesh.data=2-from-audio")])
+    def test_two_ranks_match_one_process(self, tmp_path, mesh, data):
         """``cli train`` under torchrun with 2 ranks (DP, or SP or TP with
-        data = 1): rank 0 alone prints and writes the metrics (3 steps, one
-        eval) and the checkpoint, whose parameters agree with the same
-        command in one process."""
-        out = _cli_train(tmp_path / "ranks", "--set", mesh, nproc=2)
-        _cli_train(tmp_path / "one")
+        data = 1), from synthetic features or (DP) from a WAV manifest,
+        where each rank featurizes only its rows: rank 0 alone prints and
+        writes the metrics (3 steps, one eval) and the checkpoint, whose
+        parameters agree with the same command in one process."""
+        source = (("--data", _wav_corpus(str(tmp_path / "corpus"))) if data
+                  else ("--synthetic", "13"))
+        out = _cli_train(tmp_path / "ranks", "--set", mesh, nproc=2,
+                         source=source)
+        _cli_train(tmp_path / "one", source=source)
         assert out.count("final metrics:") == 1
         events = [json.loads(x) for x in open(
             tmp_path / "ranks" / "metrics.jsonl")]

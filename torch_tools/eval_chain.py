@@ -127,6 +127,8 @@ class Chain:
         if jobs > 1:    # the host's cores shared out, not oversubscribed
             self.env["OMP_NUM_THREADS"] = str(max(
                 1, len(os.sched_getaffinity(0)) // jobs))
+            # and each stage's frontend pool (manifest.host_workers())
+            self.env["LOCAL_WORLD_SIZE"] = str(jobs)
 
     def _start(self, stage: str, target: str, argv, counted: bool):
         if counted:

@@ -22,7 +22,9 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, plus:
 
 ``--data DIR`` reads a manifest directory (``data/manifest.py``, lazily:
 each batch's audio goes through the frontend on the CPU when the loader
-reaches it); ``--synthetic-audio N`` synthesizes N tone waveforms and runs
+reaches it, on a card in a pool of ``manifest.host_workers()`` spawned
+processes, one batch ahead; with ``--device cpu`` in the process, whose
+step has the cores); ``--synthetic-audio N`` synthesizes N tone waveforms and runs
 them through the frontend on the CPU in batches of 32.
 
 Usage:
@@ -91,9 +93,10 @@ def _synthetic_audio_data(cfg, n, seconds=4.0):
     return data, DEFAULT_ALPHABET
 
 
-def _dataset(cfg, args, split="train"):
+def _dataset(cfg, args, split="train", dev=None):
     """(utterances, alphabet) of the command's data flags; ``--data`` gives
-    a lazy ``ManifestDataset`` of ``split``."""
+    a lazy ``ManifestDataset`` of ``split``, whose frontend runs in a pool
+    of ``host_workers()`` processes when ``dev`` is a card."""
     if getattr(args, "synthetic_audio", 0):
         return _synthetic_audio_data(cfg, args.synthetic_audio)
     if args.synthetic:
@@ -105,8 +108,9 @@ def _dataset(cfg, args, split="train"):
     if not args.data:
         raise SystemExit("one of --data, --synthetic or --synthetic-audio "
                          "is needed")
-    from tpu_ctc_torch.data.manifest import ManifestDataset
-    data = ManifestDataset(args.data, cfg, split=split)
+    from tpu_ctc_torch.data.manifest import ManifestDataset, host_workers
+    workers = host_workers() if dev is not None and dev.type == "cuda" else 0
+    data = ManifestDataset(args.data, cfg, split=split, workers=workers)
     return data, data.alphabet
 
 
@@ -150,7 +154,7 @@ def cmd_train(args):
     else:
         dev = resolve_device(args.device)
     try:
-        data, alphabet = _dataset(cfg, args)
+        data, alphabet = _dataset(cfg, args, dev=dev)
         n_eval = max(len(data) // 10, 1)
         _, metrics = train(cfg, data[n_eval:], eval_data=data[:n_eval],
                            work_dir=args.work_dir, resume=args.resume,
@@ -164,12 +168,25 @@ def cmd_train(args):
 
 
 def cmd_decode(args):
-    """Decode -> corpus CER/WER (+ optional trn files for rescoring)."""
+    """Decode -> corpus CER/WER (+ optional trn files for rescoring); a
+    ``--data`` dataset's frontend pool is stopped at the end."""
+    from tpu_ctc_torch import resolve_device
+
+    cfg = _load_config(args)
+    dev = resolve_device(args.device)
+    data, alphabet = _dataset(cfg, args, split=args.split, dev=dev)
+    try:
+        return _decode(args, cfg, dev, data, alphabet)
+    finally:
+        if hasattr(data, "close"):
+            data.close()
+
+
+def _decode(args, cfg, dev, data, alphabet):
     import os
 
     import torch
 
-    from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.data.bucketing import BucketedLoader
     from tpu_ctc_torch.decode.greedy import greedy_decode
     from tpu_ctc_torch.decode.wer import (format_score_line, score_corpus,
@@ -178,9 +195,6 @@ def cmd_decode(args):
     from tpu_ctc_torch.train import checkpoint
     from tpu_ctc_torch.train.loop import batch_to_device_dict
 
-    cfg = _load_config(args)
-    dev = resolve_device(args.device)
-    data, alphabet = _dataset(cfg, args, split=args.split)
     if args.checkpoint:
         restored = _restore_model(cfg, args.checkpoint, dev)
         if restored is None:

@@ -10,6 +10,15 @@ pytree ready for `device_put` with a 'data'-axis sharding.
 
 Determinism/resume: the shuffle is a pure function of (seed, epoch), and the
 iterator exposes a cursor that the checkpoint can record (SURVEY.md §7.3-5).
+
+A lazy dataset (one with ``fetch``, ``ManifestDataset``) is asked for a
+batch's items at once, and for the next batch's before this one's are
+awaited, so a frontend pool works ahead of the consumer.  On a mesh a
+loader built with ``rows`` (this rank's rows of every global batch,
+``train.step.local_rows``) featurizes only the utterances of those rows:
+the other rows keep their lengths, labels and weights from the manifest
+and zero features, so the global batch's metadata is whole and the rank's
+block is bit-equal to the block of the fully featurized batch.
 """
 from __future__ import annotations
 
@@ -58,13 +67,16 @@ def _label_pad_for(bucket_frames: int, max_label_len: int) -> int:
     return int(min(max_label_len, bucket_frames))
 
 
-def make_batch(utts: List[Tuple[np.ndarray, np.ndarray]],
+def make_batch(utts: List[Tuple[Optional[np.ndarray], np.ndarray]],
                t_pad: int, l_pad: int, batch_size: int,
-               indices: Optional[Sequence[int]] = None) -> Batch:
-    """Pad a list of (feats [T,D], labels [L]) to one static-shape Batch."""
+               indices: Optional[Sequence[int]] = None,
+               lengths: Optional[Sequence[int]] = None) -> Batch:
+    """Pad a list of (feats [T,D], labels [L]) to one static-shape Batch.
+    An utterance whose feats are None (another rank featurizes it) gets
+    its frame count from ``lengths`` and zero features."""
     n = len(utts)
     assert 0 < n <= batch_size
-    d = utts[0][0].shape[1]
+    d = next(f for f, _ in utts if f is not None).shape[1]
     feats = np.zeros((batch_size, t_pad, d), dtype=np.float32)
     mask = np.zeros((batch_size, t_pad), dtype=np.float32)
     f_len = np.zeros(batch_size, dtype=np.int32)
@@ -73,8 +85,9 @@ def make_batch(utts: List[Tuple[np.ndarray, np.ndarray]],
     weights = np.zeros(batch_size, dtype=np.float32)
     for i in range(batch_size):
         f, l = utts[i % n]           # tail batches repeat, weight 0
-        t, ll = len(f), len(l)
-        feats[i, :t] = f
+        t, ll = (int(lengths[i % n]) if f is None else len(f)), len(l)
+        if f is not None:
+            feats[i, :t] = f
         mask[i, :t] = 1.0
         f_len[i] = t
         labels[i, :ll] = l
@@ -95,13 +108,18 @@ class BucketedLoader:
     For multi-host data parallelism pass (host_id, num_hosts): each host
     deterministically takes a disjoint strided shard of every epoch's
     shuffled order (SURVEY.md §2.2 P1 "per-host input sharding").
+    ``rows`` (row indices of a global batch; None for all) limits what a
+    lazy dataset featurizes to the utterances of those rows; in-memory
+    datasets ignore it.
     """
 
     def __init__(self, dataset: Sequence[Tuple[np.ndarray, np.ndarray]],
-                 cfg: DataConfig, host_id: int = 0, num_hosts: int = 1):
+                 cfg: DataConfig, host_id: int = 0, num_hosts: int = 1,
+                 rows: Optional[Sequence[int]] = None):
         self.cfg = cfg
         self.host_id = host_id
         self.num_hosts = num_hosts
+        self.rows = None if rows is None else [int(r) for r in rows]
         # Lazy datasets (ManifestDataset) are kept as-is: list() would read
         # every payload, defeating the streaming path.  Anything indexable
         # passes through; generators are materialized.
@@ -147,13 +165,39 @@ class BucketedLoader:
         """Yield (cursor, Batch); ``start_batch`` resumes mid-epoch."""
         cfg = self.cfg
         plan = self._epoch_order(epoch)
+        fetch = getattr(self.dataset, "fetch", None)
+        rows = self.rows if fetch is not None else None
+        if fetch is None:           # in memory: items when they are awaited
+            def fetch(ids):
+                return lambda: [self.dataset[i] for i in ids]
+
+        def request(cursor):
+            ids = plan[cursor][1]
+            mine = (range(len(ids)) if rows is None else
+                    sorted({r % len(ids) for r in rows}))
+            return mine, fetch([ids[j] for j in mine])
+
+        labels = self.dataset.labels if rows is not None else None
+        pending = request(start_batch) if start_batch < len(plan) else None
         for cursor in range(start_batch, len(plan)):
             b, ids = plan[cursor]
+            mine, wait = pending
+            pending = request(cursor + 1) if cursor + 1 < len(plan) else None
+            got = dict(zip(mine, wait()))
+            if rows is not None:
+                for j, (f, _) in got.items():
+                    if len(f) != self._lengths[ids[j]]:
+                        raise ValueError(
+                            f"utterance {ids[j]} has {len(f)} frames, its "
+                            f"manifest metadata {self._lengths[ids[j]]}: a "
+                            f"rank's rows need the metadata's lengths")
+            utts = [got[j] if j in got else (None, labels[ids[j]])
+                    for j in range(len(ids))]
             t_pad = cfg.bucket_boundaries[b]
             l_pad = _label_pad_for(t_pad, cfg.max_label_len)
-            utts = [self.dataset[i] for i in ids]
             yield cursor, make_batch(utts, t_pad, l_pad, cfg.batch_size,
-                                     indices=ids)
+                                     indices=ids,
+                                     lengths=self._lengths[ids])
 
     def shape_keys(self) -> List[Tuple[int, int, int]]:
         """All (B, T_pad, L_pad) shapes jit will ever see (compile-cache bound)."""

@@ -19,18 +19,35 @@ reads no payload.  :func:`load_manifest_dataset` materializes a split.
 
 The frontend runs on the CPU, one utterance at a time, as the reference
 runs it on the host CPU backend: data preparation does not occupy the
-card.  The reference pads each waveform to a quantum of samples to bound
-jit's shapes; the port needs no such padding and pads only ``context``
-hops of zeros, so that the last valid frame's right context is masked
-frames, as it is in the reference (whose padding differs only when a
-waveform's length is an exact multiple of its quantum).
+card.  ``ManifestDataset(workers=N)`` gives :meth:`ManifestDataset.fetch`
+(the loader's access, a batch's items at once) a pool of N spawned worker
+processes, each with a ``ManifestDataset`` of its own over the same split
+that computes ``[i]`` as this process does (one intra-op thread: the
+features do not depend on the thread count, which the tests hold), so an
+item's features are bit-equal whichever process made them.  The pool
+starts at the first fetch, lives across epochs (a spawned worker takes
+seconds to import torch), and stops at :meth:`ManifestDataset.close`; a
+worker's exception, or a pool that cannot start, raises in the caller of
+the fetch.  The workers are spawned, so they import the main module: a
+script that starts a pool runs its work under ``if __name__ ==
+"__main__":``, as the CLI and ``chip_smoke.py`` do.  :func:`host_workers`
+is the pool size the CLI gives a loader that feeds a card.
+
+The reference pads each waveform to a quantum of samples to bound jit's
+shapes; the port needs no such padding and pads only ``context`` hops of
+zeros, so that the last valid frame's right context is masked frames, as
+it is in the reference (whose padding differs only when a waveform's
+length is an exact multiple of its quantum).
 """
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import weakref
+from concurrent.futures import ProcessPoolExecutor
 from math import gcd
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,19 +62,47 @@ def _strided_len(n_frames: int, stride: int) -> int:
     return (int(n_frames) + stride - 1) // stride if stride > 1 else int(n_frames)
 
 
+def host_workers() -> int:
+    """The frontend pool's size for a rank that feeds a card: the CPUs
+    this process may run on (``os.sched_getaffinity``) shared among the
+    host's ranks (``LOCAL_WORLD_SIZE``, which torchrun sets), less one for
+    the rank's training thread."""
+    local = max(int(os.environ.get("LOCAL_WORLD_SIZE", "1")), 1)
+    return max(len(os.sched_getaffinity(0)) // local - 1, 0)
+
+
+_WORKER_DATASET = None          # a pool worker's own in-process dataset
+
+
+def _worker_init(manifest_dir, cfg, alphabet, split):
+    global _WORKER_DATASET
+    torch.set_num_threads(1)
+    _WORKER_DATASET = ManifestDataset(manifest_dir, cfg, alphabet=alphabet,
+                                      split=split)
+
+
+def _worker_features(ids: List[int]) -> List[np.ndarray]:
+    return [_WORKER_DATASET[i][0] for i in ids]
+
+
 class ManifestDataset:
     """Lazy Sequence of (feats [T, D] float32, labels [L] int32).
 
     Only the parsed manifest (id, path, text, length metadata) and the
     labels live in memory; payloads are read per access (``payload_reads``
-    counts them).  ``cache_items`` keeps that many processed items."""
+    counts them, in this process or in the pool).  ``cache_items`` keeps
+    that many processed items.  ``workers`` > 0 featurizes
+    :meth:`fetch`'s items in that many spawned processes; 0 in this
+    process."""
 
     def __init__(self, manifest_dir: str, cfg,
                  alphabet: Alphabet = DEFAULT_ALPHABET,
-                 split: str = "train", cache_items: int = 0):
+                 split: str = "train", cache_items: int = 0,
+                 workers: int = 0):
         self.manifest_dir = manifest_dir
         self.cfg = cfg
         self.alphabet = alphabet
+        self.split = split
         self.records: List[dict] = []
         with open(os.path.join(manifest_dir, f"{split}.jsonl")) as f:
             for line in f:
@@ -71,9 +116,71 @@ class ManifestDataset:
         self._cache: dict = {}
         self._cache_items = cache_items
         self.payload_reads = 0
+        self.workers = workers
+        self._pool: Optional[ProcessPoolExecutor] = None
+        self._stop_pool = None
 
     def __len__(self) -> int:
         return len(self.records)
+
+    @property
+    def labels(self) -> List[np.ndarray]:
+        """Every item's labels, from the manifest (no payload read)."""
+        return self._labels
+
+    def fetch(self, ids: Sequence[int]
+              ) -> Callable[[], List[Tuple[np.ndarray, np.ndarray]]]:
+        """Start on the items ``ids``; the function returned waits for
+        them and returns them in order.  With ``workers`` the uncached
+        items go to the pool now, as one task a worker (every
+        ``workers``-th item: a batch's items are of one length bucket);
+        with none, the function computes ``self[i]`` for each when it is
+        called.  One task a worker, not one an item: the pool's threads in
+        this process then wake a few times a batch, not once an item,
+        and take the GIL less from the training step (``PERF.md`` §5)."""
+        if not self.workers:
+            return lambda: [self[i] for i in ids]
+        pool = self._started_pool()
+        ready = {i: self._cache[i] for i in ids if i in self._cache}
+        todo = [i for i in dict.fromkeys(ids) if i not in ready]
+        chunks = [todo[k::self.workers]
+                  for k in range(min(self.workers, len(todo)))]
+        futures = [pool.submit(_worker_features, c) for c in chunks]
+        self.payload_reads += len(todo)
+
+        def wait():
+            for chunk, fut in zip(chunks, futures):
+                for i, feats in zip(chunk, fut.result()):
+                    ready[i] = (feats, self._labels[i])
+                    self._remember(i, ready[i])
+            return [ready[i] for i in ids]
+        return wait
+
+    def close(self) -> None:
+        """Stop the pool's workers (waiting for them to exit); a later
+        :meth:`fetch` starts a new pool."""
+        if self._stop_pool is not None:
+            self._stop_pool()
+        self._pool = self._stop_pool = None
+
+    def _started_pool(self) -> ProcessPoolExecutor:
+        if self._pool is None:
+            pool = ProcessPoolExecutor(
+                self.workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_worker_init,
+                initargs=(self.manifest_dir, self.cfg, self.alphabet,
+                          self.split))
+            # also stops the workers of a dataset dropped without close()
+            self._stop_pool = weakref.finalize(self, pool.shutdown,
+                                               wait=True, cancel_futures=True)
+            self._pool = pool
+        return self._pool
+
+    def _remember(self, i, item) -> None:
+        if self._cache_items:
+            if len(self._cache) >= self._cache_items:
+                self._cache.pop(next(iter(self._cache)))
+            self._cache[i] = item
 
     def __getitem__(self, i):
         if isinstance(i, slice):
@@ -93,10 +200,7 @@ class ManifestDataset:
         else:
             raise ValueError(f"manifest record needs 'feats' or 'audio': {rec}")
         item = (feats, self._labels[i])
-        if self._cache_items:
-            if len(self._cache) >= self._cache_items:
-                self._cache.pop(next(iter(self._cache)))
-            self._cache[i] = item
+        self._remember(i, item)
         return item
 
     @property
@@ -180,6 +284,16 @@ class DatasetView:
     @property
     def records(self):
         return [self.base.records[i] for i in self.indices]
+
+    @property
+    def labels(self) -> List[np.ndarray]:
+        return [self.base.labels[i] for i in self.indices]
+
+    def fetch(self, ids: Sequence[int]):
+        return self.base.fetch([self.indices[i] for i in ids])
+
+    def close(self) -> None:
+        self.base.close()
 
 
 def load_manifest_dataset(manifest_dir: str, cfg,

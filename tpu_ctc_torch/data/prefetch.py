@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_ctc.data.prefetch``: a daemon thread takes
 ``(cursor, Batch)`` from the loader (the lazy manifest's frontend runs
-there), turns the batch's arrays into tensors on the device and queues
+there, or in the manifest's pool of processes, whose items the thread
+awaits), turns the batch's arrays into tensors on the device and queues
 them, ``size`` batches ahead of the consumer.
 
 On a card the thread pins each array and copies it with

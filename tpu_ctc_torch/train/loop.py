@@ -11,15 +11,19 @@ n-gram LM trains on the train split's transcripts; on a TP or PP mesh it
 decodes the log posteriors that the split eval gathers, so every mesh
 decodes the whole model).  Batches reach the card
 through ``data.prefetch.prefetch_to_device``: a thread runs the loader (and
-the lazy manifest's frontend) and copies ahead of the step.  The step's
+the lazy manifest's frontend, or awaits its pool) and copies ahead of the
+step.  The step's
 metrics stay on the card; they are read (one synchronisation) every
 ``log_every`` steps.
 
 On a mesh of ranks (``cfg.mesh``, the process group of
-``parallel.distributed.initialize``) every rank loads the same global
-batch from the same loader and keeps its block (rows over 'data', frames
-over 'seq'), as the JAX loop shards one global batch; the prefetch thread
-copies only that block to the rank's card.  Metrics, ``metrics.jsonl`` and
+``parallel.distributed.initialize``) every rank plans the same global
+batches and keeps its block (rows over 'data', frames over 'seq'), as the
+JAX loop shards one global batch: its loader featurizes only the
+utterances of its rows (``train.step.local_rows``; the eval loader those
+its eval step reads, ``train.step.eval_rows``), and the prefetch thread
+copies only the block to the rank's card.  A lazy dataset's frontend pool
+is stopped when ``train`` returns or raises.  Metrics, ``metrics.jsonl`` and
 checkpoints are written by rank 0 while the others wait at a barrier; a
 state split over 'model' (TP, PP) is gathered first
 (``train.step.full_state``), so the file is the one-card file and a
@@ -53,8 +57,9 @@ from tpu_ctc_torch.parallel.mesh import make_mesh
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
                                       create_train_state, eval_step,
-                                      full_state, local_batch,
-                                      make_eval_step, make_train_step)
+                                      eval_rows, full_state, local_batch,
+                                      local_rows, make_eval_step,
+                                      make_train_step)
 
 
 class MetricsLogger:
@@ -181,18 +186,33 @@ def train(cfg: Config,
           mesh=None) -> Tuple[TrainState, Dict[str, float]]:
     """Run the training job on ``device`` (default ``cuda``) and the mesh
     of ``cfg.mesh`` over the process group (one rank without one) unless
-    ``mesh`` is given; returns (final state, last logged metrics)."""
+    ``mesh`` is given; returns (final state, last logged metrics).  The
+    datasets' frontend pools (``ManifestDataset.close``) are stopped at
+    the end, on preemption and on an error."""
     device = resolve_device(device)
     if mesh is None:
         mesh = make_mesh(cfg.mesh)
+    try:
+        return _train(cfg, train_data, eval_data, work_dir, resume, device,
+                      alphabet, mesh)
+    finally:
+        for data in (train_data, eval_data):
+            if hasattr(data, "close"):
+                data.close()
+
+
+def _train(cfg, train_data, eval_data, work_dir, resume, device, alphabet,
+           mesh):
     lead = mesh.rank == 0
 
     def barrier():
         if mesh.size > 1:
             dist.barrier()
 
-    loader = BucketedLoader(train_data, cfg.data)
-    eval_loader = (BucketedLoader(eval_data, cfg.data)
+    loader = BucketedLoader(train_data, cfg.data,
+                            rows=local_rows(mesh, cfg.data.batch_size))
+    eval_loader = (BucketedLoader(eval_data, cfg.data,
+                                  rows=eval_rows(cfg, mesh))
                    if eval_data is not None else None)
     if loader.num_dropped and lead:
         print(f"[data] dropped {loader.num_dropped} utterances longer than "

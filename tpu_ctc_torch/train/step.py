@@ -216,6 +216,27 @@ def local_batch(arrays: Dict[str, np.ndarray],
     return mesh_lib.shard_batch(mesh, arrays, batch_shardings(mesh))
 
 
+def local_rows(mesh: mesh_lib.Mesh, batch_size: int) -> Optional[np.ndarray]:
+    """The rows of a global batch of ``batch_size`` that :func:`local_batch`
+    keeps on this rank (its block over 'data', every frame of them under
+    SP): the rows its loader featurizes (``BucketedLoader(rows=)``).  None
+    where the rank keeps every row."""
+    if mesh.axis_size(AXIS_DATA) == 1:
+        return None
+    return local_batch({"weights": np.arange(batch_size)}, mesh)["weights"]
+
+
+def eval_rows(cfg: Config, mesh: mesh_lib.Mesh) -> Optional[np.ndarray]:
+    """The rows of a global eval batch that :func:`make_eval_step`'s step
+    reads on this rank: its :func:`local_rows` under pure DP, TP and PP
+    (each rank evaluates its block and the outputs are gathered); every
+    row (None) where every rank evaluates the whole batch."""
+    if (cfg.mesh.pipeline or mesh.axis_size(AXIS_MODEL) > 1
+            or _pure_dp(mesh, cfg)):
+        return local_rows(mesh, cfg.data.batch_size)
+    return None
+
+
 def state_shardings(mesh: mesh_lib.Mesh, cfg: Config, state: TrainState):
     """Specs of the train state: for each parameter and its trace, the
     mesh axis each dimension is split over.  Under TP (``model > 1``) the
@@ -423,10 +444,11 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
     rank evaluates its rows and the outputs are gathered over 'data';
     under TP and PP each rank runs the split forward on its block (rows
     over 'data') with its shards, the logits are gathered over 'model'
-    and 'data', and every rank decodes the whole batch, whose log
-    posteriors it also returns (``"log_probs"``: ``loop.evaluate``'s beam
-    search decodes them, since the rank's model is not the whole model);
-    otherwise every rank evaluates the whole batch."""
+    and 'data', and every rank decodes the whole batch.  Both also return
+    the whole batch's log posteriors (``"log_probs"``: ``loop.evaluate``'s
+    beam search decodes them, since the rank's loader featurized only its
+    rows, :func:`eval_rows`, and under TP and PP the rank's model is not
+    the whole model); otherwise every rank evaluates the whole batch."""
     specs = batch_shardings(mesh)
     if cfg.mesh.pipeline or mesh.shape.get(AXIS_MODEL, 1) > 1:
         if cfg.mesh.pipeline:
@@ -452,9 +474,12 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
     if not _pure_dp(mesh, cfg):
         return lambda model, batch: eval_step(model, cfg, batch)
 
+    @torch.no_grad()
     def dp_eval(model, batch):
         local = mesh_lib.shard_batch(mesh, batch, specs)
-        out = eval_step(model, cfg, local)
+        logits = birnn.forward(model, cfg.model, local["feats"],
+                               local["frame_mask"])
+        out = eval_outputs(cfg, logits, local, keep_log_probs=True)
         return {k: mesh_lib.gather_blocks(mesh, v, AXIS_DATA, 0)
                 for k, v in out.items()}
     return dp_eval
