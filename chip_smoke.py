@@ -37,11 +37,18 @@ against its plain PyTorch version on the same inputs:
   7. training, end to end: preset 2 (``timit_full_3layer``: 1 dense
      pre-layer and 3 bidirectional layers at H = 1024, bf16 compute,
      Nesterov SGD with clipping at 5) on 64 synthetic utterances (two
-     800-frame batches of 32), ``train_step`` as ``train`` calls it from
-     seeded random weights; its loss and gradients against the plain path
-     and against the f32 GEMMs that the bf16 GEMMs replaced; two steps from
-     the same seeded state on the same batch, outside PyTorch's
-     deterministic mode, bit-equal in loss and parameters;
+     800-frame batches of 32), the step of ``make_train_step`` as
+     ``train`` calls it (on one card the compiled step: one CUDA graph per
+     batch shape) from seeded random weights, bit-equal over its 6 steps
+     on both batches to the eager ``train_step`` from the same seed (loss,
+     metrics, parameters, trace), each one's ms and host ms a step, idle
+     share and device operations a step, the launches, the capture's
+     seconds and shapes, and the reserved memory; the CTC loss at the
+     label width rounded up to 32 against the longest label; the loss and
+     gradients against the plain path and against the f32 GEMMs that the
+     bf16 GEMMs replaced; two steps from the same seeded state on the same
+     batch, outside PyTorch's deterministic mode, bit-equal in loss and
+     parameters;
   8. kernel B5's GRU char-LM branch at B = 64, T = 800, A = 29, K = 128,
      a seeded GRU at E = 64, H = 128, and the trigram;
   9. kernel B6 (K in (128, 256], the same source) at K = 256 with the
@@ -65,7 +72,9 @@ against its plain PyTorch version on the same inputs:
      ``make_batch``, pin and copy, the consumer's wait, the step's host
      time, the device's idle share, ``ManifestDataset`` alone and beside
      the step), in process and with the pool, each path's ms a step and
-     audio-s/s beside the same batches in memory and phase 7's; ``cli
+     audio-s/s beside the same batches in memory (the compiled step, and
+     the eager one's ms, host ms and idle share beside it) and phase 7's;
+     ``cli
      train --config 2 --data`` (two epochs, ``train.eval_beam``: B1-B5 and
      the walk), the loss on one batch from the seeded weights and from the
      checkpoint; ``model.remat`` bit-equal (outside deterministic mode)
@@ -86,9 +95,9 @@ against its plain PyTorch version on the same inputs:
      beside the same chunk from zero; ``CarryRecurrence``'s backward (B2,
      the GEMMs) against its plain autograd at preset 2's width; preset 3
      (``swbd_5layer_dp``) at B = 64 for 3 steps through ``make_mesh`` and
-     ``make_train_step`` with a one-rank NCCL group, bit-equal to
-     ``train_step``; then the same steps with ``mesh.seq=2`` over several
-     ranks (``nvidia-smi -L``: 2 NCCL ranks on 2 or 3 cards, 4 with
+     ``make_train_step`` with a one-rank NCCL group (the compiled step),
+     bit-equal to ``train_step``; then the same steps with ``mesh.seq=2``
+     over several ranks (``nvidia-smi -L``: 2 NCCL ranks on 2 or 3 cards, 4 with
      data = 2 on 4 or more; two gloo ranks on one card), the loss within
      1e-3 of one card's, the parameters bit-equal across ranks, with the
      step time and audio-s/s; then preset 2 from audio (96 WAV files)
@@ -99,13 +108,14 @@ against its plain PyTorch version on the same inputs:
      batches, the parameters bit-equal across ranks, the job's audio-s/s
      beside one rank's from audio.
  13. the benchmarks and the tools: ``tpu_ctc_torch.bench.bench`` at its
-     defaults (the CPU reference on one utterance) with its JSON line and
+     defaults (the CPU reference on one utterance) with its JSON line (the
+     compiled step's audio-s/s; the eager step's beside it on stderr) and
      the step's MFU; ``bench_ctc`` at its defaults, its spot check and B3 +
      B4's device time within 20% of their CUDA-event time over runs of
      back-to-back launches at its shape (phase 6's single-call medians
      scaled to T = 1600 printed beside it);
      ``bench_decode --preset4 --skip-plain`` and ``bench_decode
-     --host-utts 4``; the C++ host decoder (``decode/cpp_decoder.py``)
+     --host-utts 1``; the C++ host decoder (``decode/cpp_decoder.py``)
      against B5 on phase 3's posteriors and trigram (no pruning: the C++
      search has none), beside the plain search in float32 and in float64:
      the C++ decoder equal to the float64 search everywhere, and to B5
@@ -161,8 +171,9 @@ its decodes, phase 12's two mesh runs, phase 14's TP, PP and
 collective-decode runs, the ranks' launches summed, and phase 15's
 chain, its subprocesses' launches summed) is
 run with every launch count set to 0 just before it and
-read just after; a kernel's ``launches`` in the record is the sum over the
-paths that run it.  The profile of each
+read just after (a CUDA graph's replay adds the launches its capture
+made, ``tpu_ctc_torch/train/graphs.py``); a kernel's ``launches`` in the
+record is the sum over the paths that run it.  The profile of each
 path prints its dense GEMMs' device ms.  B5 has two records,
 told apart by ``variant``: ``trigram`` (phase 3, launched on phase 4's
 and phase 11's paths) and ``gru+trigram`` (phase 8, launched on phase
@@ -175,9 +186,17 @@ first part where two candidates tied within that drift swap places at the
 beam boundary (bisected over the utterance's length).  Every check raises on failure, so
 the script exits non-zero and prints no result line.  Every time, of a
 kernel and of its plain version alike, is the median of CUDA-event times of
-single calls after a warm-up call.  The last two lines are the per-kernel
+single calls after a warm-up call (``REPS`` calls of a kernel,
+``PLAIN_REPS`` of a plain version).  The last two lines are the per-kernel
 JSON record (B1's with ``h0_launches``, its launches from a carry on the
 sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
+
+The script runs the phases in a child process of its own
+(``chip_smoke.py --run``) and is the child subreaper of that run, so a
+process orphaned anywhere below it (a pool's worker, a rank of torchrun,
+the multiprocessing resource tracker) becomes its child.  When the run has
+ended it waits up to ten seconds for such processes to end, kills the
+rest, and names each on stderr: no process it started outlives it.
 
     python3 chip_smoke.py                 # all fifteen phases, one card
 """
@@ -185,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -209,7 +229,8 @@ SCALAR_INSTR_PER_S = 67e12 / 2
 # TF32 peak (495 TFLOP/s).
 TF32_SPLIT_FLOP_PER_S = 495e12 / 3
 REPS = 5                        # timed calls per kernel, after a warm-up
-PLAIN_REPS = 3                  # timed calls per plain version
+PLAIN_REPS = 1                  # timed calls per plain version (each
+                                # 50-3500 ms: the run's time limit)
 
 BIRNN_SOURCE = "tpu_ctc_torch/csrc/birnn.cu"          # B1 and B2
 B1_REPLACES = "tpu_ctc/ops/birnn_pallas.py:103"
@@ -919,15 +940,41 @@ def rel_err(a, b) -> float:
                  / torch.linalg.norm(b.float()).clamp_min(1e-30))
 
 
+def state_tensors(state):
+    """The parameters and the trace of a train state, in a fixed order."""
+    trace = state.opt_state.trace
+    return list(state.model.parameters()) + [trace[k] for k in sorted(trace)]
+
+
+def timed_steps(step_fn, state, tensors, order):
+    """``step_fn`` over ``tensors[i]`` for i in ``order``, synchronised
+    at both ends; returns (state, metrics of each step, wall s, each
+    call's host ms up to its return)."""
+    metrics, host = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in order:
+        h0 = time.perf_counter()
+        state, m = step_fn(state, tensors[i])
+        host.append((time.perf_counter() - h0) * 1e3)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, metrics, time.time() - t0, host
+
+
 def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
                 **overrides):
-    """Preset 2 at full width and depth: ``train_step`` on two 800-frame
-    batches of 32, from seeded random weights."""
+    """Preset 2 at full width and depth on two 800-frame batches of 32,
+    from seeded random weights: the eager ``train_step`` and the step that
+    ``make_train_step`` returns on one card (one CUDA graph per batch
+    shape), which is the main path, held bit-equal to it."""
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.data.bucketing import BucketedLoader
     from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.losses import ctc
     from tpu_ctc_torch.models import birnn
-    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    from tpu_ctc_torch.train import graphs, step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
 
     cfg = get_config("timit_full_3layer", **overrides)
@@ -936,60 +983,106 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
                              seed=seed)
     batches = [b for _, b in BucketedLoader(corpus.all_utterances(),
                                             cfg.data).epoch(0)]
-    state = step.create_train_state(cfg, device=dev)
-    log(f"phase 7: preset {cfg.name}: {birnn.count_params(state.model)} "
+    tensors = [step.batch_to_tensors(batch_to_device_dict(b), dev)
+               for b in batches]
+    ref = step.create_train_state(cfg, device=dev)
+    log(f"phase 7: preset {cfg.name}: {birnn.count_params(ref.model)} "
         f"params, {len(batches)} batch(es) of "
         f"{[b.feats.shape for b in batches]}, labels up to "
-        f"{max(int(b.label_lengths.max()) for b in batches)}")
+        f"{max(int(b.label_lengths.max()) for b in batches)}, cut to "
+        f"{[tuple(t['labels'].shape) for t in tensors]} columns")
+    eager = functools.partial(step.train_step, cfg=cfg)
+    order = [i % len(tensors) for i in range(1, steps + 1)]
 
-    def train_once(i):
-        batch = batches[i % len(batches)]
-        return step.train_step(state, step.batch_to_tensors(
-            batch_to_device_dict(batch), dev), cfg)
-
-    state, m0 = train_once(0)                  # warm-up: cuBLAS, buffers
+    ref, m0 = eager(ref, tensors[0])           # warm-up: cuBLAS, buffers
     first_loss = float(m0["loss"])
-
-    def run():
-        nonlocal state
-        metrics = []
-        for i in range(1, steps + 1):
-            state, m = train_once(i)
-            metrics.append(m)
-        return metrics
-
     torch.cuda.synchronize()
-    t0 = time.time()
-    metrics, launches = run_main_path(run)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    frames = sum(int(batches[i % len(batches)].frame_lengths.sum())
-                 for i in range(1, steps + 1))
-    log(f"phase 7: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
-        f"ms a step, {frames / 100 / wall:.1f} audio-s/s; launches on the "
-        f"path {launches}")
+    (ref, want, eager_wall, eager_host), eager_launches = run_main_path(
+        lambda: timed_steps(eager, ref, tensors, order))
+    reserved_eager = torch.cuda.memory_reserved()
+
+    # the main path: make_train_step's compiled step from the same seed
+    state = step.create_train_state(cfg, device=dev)
+    step_fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    if not isinstance(step_fn, graphs.CompiledTrainStep):
+        raise AssertionError(f"make_train_step gave {step_fn} on one card")
+    state, g0 = step_fn(state, tensors[0])     # captures batch 0's shape
+    for t in tensors:                          # and the others, no step
+        step_fn.capture(state, t)
+    cap = step_fn.stats()
+    (state, got, wall, host), launches = run_main_path(
+        lambda: timed_steps(step_fn, state, tensors, order))
+    reserved = torch.cuda.memory_reserved()
+    same = torch.equal(g0["loss"], m0["loss"]) and all(
+        torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w) and \
+        all(torch.equal(a, b) for a, b in zip(state_tensors(state),
+                                               state_tensors(ref)))
+    frames = sum(int(batches[i].frame_lengths.sum()) for i in order)
+    per = {k: n / steps for k, n in launches.items()}
+    log(f"phase 7: compiled step: {cap['shapes']} shape(s) captured in "
+        f"{[round(x, 3) for x in cap['capture_s']]} s (warm-up and capture "
+        f"each); {steps} steps on both batches bit-equal to the eager "
+        f"train_step (loss, metrics, parameters, trace): {same}")
+    log(f"phase 7: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} "
+        f"ms a step, {frames / 100 / wall:.1f} audio-s/s, host "
+        f"{np.median(host):.3f} ms a step to return (compiled); eager "
+        f"{eager_wall / steps * 1e3:.2f} ms a step, "
+        f"{frames / 100 / eager_wall:.1f} audio-s/s, host "
+        f"{np.median(eager_host):.3f} ms; launches on the path {launches} "
+        f"({per} a step; the eager steps' {eager_launches})")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in state_tensors(state))
+    log(f"phase 7: reserved device memory {reserved_eager / 2 ** 30:.2f} "
+        f"GiB after the eager steps, {reserved / 2 ** 30:.2f} GiB with the "
+        f"compiled step's graphs and its own state of "
+        f"{state_bytes / 2 ** 30:.2f} GiB")
+    if not same:
+        raise AssertionError("the compiled train step differs from the "
+                             "eager train_step")
     n_bi = cfg.model.num_bi_layers
-    want = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
-            "birnn_fwd_wide": 0, "birnn_bwd_wide": 0,
-            "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
-            "beam_search_wide": 0, "beam_reconstruct": 0}
+    want_n = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
+              "birnn_fwd_wide": 0, "birnn_bwd_wide": 0,
+              "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
+              "beam_search_wide": 0, "beam_reconstruct": 0}
     for name, n in launches.items():
-        if want[name] and n == 0:
+        if want_n[name] and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"training path")
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    losses = [float(m["loss"]) for m in metrics]
+    if launches != want_n or eager_launches != want_n:
+        raise AssertionError(f"launches {launches} (eager "
+                             f"{eager_launches}), expected {want_n}")
+    losses = [float(m["loss"]) for m in got]
     log(f"phase 7: losses {[round(x, 2) for x in [first_loss] + losses]}, "
-        f"grad norms {[round(float(m['grad_norm']), 1) for m in metrics]}")
+        f"grad norms {[round(float(m['grad_norm']), 1) for m in got]}")
 
-    bt0 = step.batch_to_tensors(batch_to_device_dict(batches[0]), dev)
+    bt0 = tensors[0]
     with torch.no_grad():
         after = float(step.loss_fn(state.model, cfg, bt0)[0])
     log(f"phase 7: loss on the first batch {first_loss:.3f} before, "
         f"{after:.3f} after {steps + 1} steps")
     if not (np.isfinite(after) and after < first_loss):
         raise AssertionError("training did not lower the loss")
+
+    # the host's label cut: the CTC loss at the rounded width against the
+    # cut at the longest label, on this batch's logits
+    with torch.no_grad():
+        logits = birnn.forward(state.model, cfg.model, bt0["feats"],
+                               bt0["frame_mask"]).float()
+    longest = int(batches[0].label_lengths.max())
+    cut = []
+    for width in (longest, bt0["labels"].shape[1]):
+        x = logits.clone().requires_grad_(True)
+        nll = ctc.ctc_loss(x, bt0["labels"][:, :width], bt0["frame_lengths"],
+                           bt0["label_lengths"])
+        nll.sum().backward()
+        cut.append((nll.detach(), x.grad))
+    width_gap = float((cut[0][1] - cut[1][1]).abs().max())
+    log(f"phase 7: label columns {longest} (the longest) against "
+        f"{bt0['labels'].shape[1]} (rounded up to 32): losses bit-equal "
+        f"{torch.equal(cut[0][0], cut[1][0])}; gradient max abs gap "
+        f"{width_gap:.3g} (max |g| {float(cut[0][1].abs().max()):.3g})")
+    if not torch.equal(cut[0][0], cut[1][0]) or width_gap > 1e-5:
+        raise AssertionError("the label cut moved the CTC loss or gradient")
 
     plain = cfg.override(**{"model.birnn_impl": "scan", "ctc_impl": "jnp"})
 
@@ -1024,30 +1117,39 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
                              "with its plain path or with its f32 GEMMs")
     # two steps from the same seeded state, outside deterministic mode
     assert not torch.are_deterministic_algorithms_enabled()
-    bt1 = step.batch_to_tensors(batch_to_device_dict(batches[1]), dev)
     twins = []
     for _ in range(2):
         s0 = step.create_train_state(cfg, device=dev)
-        s1, m = step.train_step(s0, bt1, cfg)
+        s1, m = step.train_step(s0, tensors[1], cfg)
         twins.append((m["loss"], list(s1.model.parameters())))
     same = torch.equal(twins[0][0], twins[1][0]) and all(
         torch.equal(a, b) for a, b in zip(twins[0][1], twins[1][1]))
     log(f"phase 7: two train_steps from the same state outside "
-        f"deterministic mode: loss and parameters bit-equal {same}; the "
-        f"step {wall / steps * 1e3:.1f} ms (60.8 ms with the atomic "
-        f"gather backward, NVIDIA H100 80GB HBM3, 700 W)")
+        f"deterministic mode: loss and parameters bit-equal {same}")
     if not same:
         raise AssertionError("two runs of one training step differ")
     del twins, s0, s1
     torch.cuda.reset_peak_memory_stats()
-    bd = device_breakdown(lambda: train_once(1), "phase 7")
-    log(f"phase 7: peak device memory of one step "
+    eager_bd = device_breakdown(lambda: eager(ref, tensors[1]),
+                                "phase 7 eager")
+    log(f"phase 7: peak device memory of one eager step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    bd = device_breakdown(lambda: step_fn(state, tensors[1]),
+                          "phase 7 compiled")
     with f32_dense_products():
-        device_breakdown(lambda: train_once(1), "phase 7 with the f32 GEMMs")
+        device_breakdown(lambda: eager(ref, tensors[1]),
+                         "phase 7 eager with the f32 GEMMs")
+
+    def idle(b):
+        return None if b is None else round(1 - b[1] / b[0], 3)
+    if eager_bd is not None:
+        log(f"phase 7: device operations a step (profiler, eager) "
+            f"{eager_bd[2]}, compiled {None if bd is None else bd[2]}; idle "
+            f"share eager {idle(eager_bd)}, compiled {idle(bd)}")
     return launches, {"ms": wall / steps * 1e3, "rate": frames / 100 / wall,
-                      "idle": None if bd is None else round(
-                          1 - bd[1] / bd[0], 3)}
+                      "idle": idle(bd), "eager_ms": eager_wall / steps * 1e3,
+                      "eager_rate": frames / 100 / eager_wall,
+                      "eager_idle": idle(eager_bd)}
 
 
 def seeded_gru(seed, a, e, h, dev="cuda"):
@@ -1610,6 +1712,13 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
         parts[shape] = apb.run_shape(shape, ["0", "host"], args, dev,
                                      log=lambda m: log("phase 11: " + m))
     for shape, rec in parts.items():
+        mem, eag = rec["in_memory"], rec["in_memory_eager"]
+        log(f"phase 11: {shape} on features in memory: compiled step "
+            f"{mem['ms']:.2f} ms a step, {mem['rate']:.1f} audio-s/s, host "
+            f"{mem['host_ms']:.3f} ms, idle share <= {mem['idle']} "
+            f"({rec['graphs']['shapes']} shapes captured); eager train_step "
+            f"{eag['ms']:.2f} ms, {eag['rate']:.1f} audio-s/s, host "
+            f"{eag['host_ms']:.3f} ms, idle share <= {eag['idle']}")
         for run in rec["runs"]:
             log(f"phase 11: {shape} from audio, {run['workers']} workers: "
                 f"{run['ms']:.2f} ms a step, {run['rate']:.1f} audio-s/s "
@@ -1967,13 +2076,14 @@ def preset3_batches(n_steps: int):
 
 def phase_mesh_one(steps=3, dev="cuda"):
     """Phase 12, part 3: preset 3 at B = 64 through ``make_mesh`` and
-    ``make_train_step`` with a one-rank NCCL group, against ``train_step``
-    from the same seed on the same batches: loss and parameters
-    bit-equal (outside deterministic mode: the CTC glue's gather sums its
-    gradient in a fixed order)."""
+    ``make_train_step`` with a one-rank NCCL group (the compiled step: one
+    CUDA graph per batch shape), against ``train_step`` from the same seed
+    on the same batches: loss and parameters bit-equal (outside
+    deterministic mode: the CTC glue's gather sums its gradient in a fixed
+    order)."""
     import torch.distributed as dist
     from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
-    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.train import graphs, step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     cfg, batches = preset3_batches(steps)
     distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0,
@@ -1987,6 +2097,8 @@ def phase_mesh_one(steps=3, dev="cuda"):
                    for b in batches]
         state = step.create_train_state(cfg, device=dev)
         step_fn, state = step.make_train_step(cfg, mesh, state)
+        if not isinstance(step_fn, graphs.CompiledTrainStep):
+            raise AssertionError(f"one-rank mesh step {step_fn}")
 
         walls = []
 
@@ -2012,8 +2124,9 @@ def phase_mesh_one(steps=3, dev="cuda"):
         step_s = float(np.median(walls[1:]))
         audio = float(np.mean([int(b.frame_lengths.sum()) / 100
                                for b in batches[1:]]))
-        log(f"phase 12: mesh path, {steps} steps: step {step_s * 1e3:.1f} "
-            f"ms (median of steps 2-3) = "
+        log(f"phase 12: mesh path (the compiled step, "
+            f"{step_fn.stats()['shapes']} shape(s) captured), {steps} steps: "
+            f"step {step_s * 1e3:.1f} ms (median of steps 2-3) = "
             f"{audio / step_s:.1f} audio-s/s; losses "
             f"{[round(x, 4) for x in losses]}; loss and parameters bit-equal "
             f"to train_step: {same}; launches on the path {launches}")
@@ -2212,7 +2325,7 @@ def phase_mesh_audio(seed: int, one_rank, epochs: int = 3):
 
     from torch_tools import audio_path_breakdown as apb
     from tpu_ctc_torch.config import get_config
-    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.bucketing import BucketedLoader, cut_labels
     from tpu_ctc_torch.data.manifest import ManifestDataset
     from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
     from tpu_ctc_torch.train import step
@@ -2231,7 +2344,8 @@ def phase_mesh_audio(seed: int, one_rank, epochs: int = 3):
             mesh = mesh_lib.Mesh({"data": 2, "model": 1, "seq": 1}, r,
                                  {"data": (0, 1), "model": (r,),
                                   "seq": (r,)})
-            block = step.local_batch(batch_to_device_dict(batch), mesh)
+            block = cut_labels(step.local_batch(batch_to_device_dict(batch),
+                                                mesh))
             h = hashlib.sha256()
             for k in sorted(block):
                 h.update(torch.as_tensor(block[k]).numpy().tobytes())
@@ -2437,7 +2551,7 @@ def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
         "bench_decode --preset4", bench_decode.main,
         ["--preset4", "--skip-plain"]), may_be_null=("vs_baseline",))
     bench_json("bench_decode", run_tool(
-        "bench_decode", bench_decode.main, ["--host-utts", "4"]))
+        "bench_decode", bench_decode.main, ["--host-utts", "1"]))
     cpp_against_b5(dev)
     run_tool("smoke_cuda_decode", lambda _: smoke_cuda_decode.main(), [])
     for preset, extra in (("2", []), ("3", ["--batch", "8"])):
@@ -3138,8 +3252,9 @@ def device_breakdown(run, phase: str):
     kernel name and the device's idle share of the pass (the profiler's
     own overhead lengthens the pass, so the idle share is an upper
     bound) and the device time of the dense GEMMs (kernels named as
-    ``GEMM_NAME`` matches).  Returns (wall ms, device busy ms), or None
-    when the profiler saw no device time."""
+    ``GEMM_NAME`` matches).  Returns (wall ms, device busy ms, device
+    operations: kernels, copies and sets), or None when the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3161,12 +3276,14 @@ def device_breakdown(run, phase: str):
         return None
     gemm = [r for r in rows if GEMM_NAME.search(r[2])]
     gemm_ms = sum(r[0] for r in gemm)
+    ops = sum(r[1] for r in rows)
     log(f"{phase}: profiled pass {wall_ms:.1f} ms wall, device busy "
-        f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}; dense "
-        f"GEMMs {gemm_ms:.2f} ms in {sum(r[1] for r in gemm)} launches")
+        f"{busy:.1f} ms, idle share <= {1 - busy / wall_ms:.3f}; {ops} "
+        f"device operations; dense GEMMs {gemm_ms:.2f} ms in "
+        f"{sum(r[1] for r in gemm)} launches")
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         log(f"  device {ms:9.2f} ms  x{count:<5d} {name[:90]}")
-    return wall_ms, busy
+    return wall_ms, busy, ops
 
 
 def main() -> int:
@@ -3177,33 +3294,51 @@ def main() -> int:
     import tpu_ctc_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.time()
+    marks = [t_start]
+
+    def took(what):     # each phase's wall, for the run's time limit
+        marks.append(time.time())
+        log(f"chip_smoke: {what} took {marks[-1] - marks[-2]:.1f} s "
+            f"({marks[-1] - t_start:.1f} s in)")
     phase_build()
+    took("phase 1")
     records = [phase_birnn(REPS), *phase_beam(REPS)]
+    took("phases 2-3")
     decode_launches, phase4 = phase_end_to_end(seed=0)
+    took("phase 4")
     records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
+    took("phases 5-6")
     train_launches, phase7 = phase_train(seed=0)
+    took("phase 7")
     records.append(phase_beam_gru(REPS, "phase 8", k=128))
     phase_wide_ngram(REPS)
     records.append(phase_beam_gru(REPS, "phase 9", k=200))
+    took("phases 8-9")
     gru_launches, _ = phase_gru_decode(seed=0)
+    took("phase 10")
     kept = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke_tools", "checkpoint")
     audio_paths, one_rank = phase_audio(seed=0, phase7=phase7,
                                         phase4=phase4, keep_checkpoint=kept)
+    took("phase 11")
     paths = {"decode": decode_launches, "train": train_launches,
              "gru": gru_launches, **audio_paths}
     carry_err, _ = phase_carry(REPS)
     paths["mesh_one"], ref_losses = phase_mesh_one()
     paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
     paths["mesh_audio"] = phase_mesh_audio(seed=0, one_rank=one_rank)
+    took("phase 12")
     phase_tools(records, kept)
+    took("phase 13")
     records += phase_wide_birnn(REPS)
     paths["tp"] = phase_tp_preset5()
     paths["pp"] = phase_pp_preset2()
     paths["collective"] = phase_collective_decode()
     phase_dryrun()
+    took("phase 14")
     phase_chain_kernels(records, REPS)
     paths.update(phase_chain())
+    took("phase 15")
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
@@ -3236,5 +3371,89 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The supervisor: no process of the run outlives the script
+# ---------------------------------------------------------------------------
+
+PR_SET_CHILD_SUBREAPER = 36     # <linux/prctl.h>
+
+
+def children(pid: int):
+    """The processes whose parent is ``pid``, read from /proc: [(pid,
+    command line, True for a zombie)]."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError, ValueError):
+            continue             # it ended while we read
+        if int(ppid) == pid:
+            out.append((int(name), cmd.strip()[:300], state == "Z"))
+    return out
+
+
+def stop_children(grace_s: float):
+    """Reap this process's children until it has none: each gets until
+    ``grace_s`` from now to end on its own, then SIGKILL; a child's own
+    orphans come here in turn (the subreaper).  Returns the children that
+    were alive after the run (not zombies), as (pid, command line, "ended"
+    or "killed")."""
+    import signal
+    seen, deadline = {}, time.time() + grace_s
+    while True:
+        live = []
+        for pid, cmd, zombie in children(os.getpid()):
+            if not zombie:
+                seen.setdefault(pid, [cmd, "ended"])
+            try:
+                done = os.waitpid(pid, os.WNOHANG)[0]
+            except ChildProcessError:
+                done = pid
+            if not done:
+                live.append(pid)
+        if not live:
+            return [(pid, cmd, how) for pid, (cmd, how) in seen.items()]
+        if time.time() < deadline:
+            time.sleep(0.1)
+            continue
+        for pid in live:
+            seen[pid][1] = "killed"
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        for pid in live:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0)
+
+
+def supervise(cmd=None, grace_s: float = 10.0) -> int:
+    """Run ``cmd`` (by default :func:`main` as ``chip_smoke.py --run``) in
+    a child process, its output passed through, as that run's child
+    subreaper; then stop every process the run left
+    (:func:`stop_children`) and name each on stderr.  Returns the run's
+    exit code."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+    proc = subprocess.Popen(cmd or [sys.executable, os.path.abspath(__file__),
+                                    "--run"])
+    try:
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        left = stop_children(grace_s)
+    for pid, cmd, how in left:
+        print(f"chip_smoke: process {pid} outlived the run ({how}): {cmd}",
+              file=sys.stderr, flush=True)
+    return rc
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main() if sys.argv[1:] == ["--run"] else supervise())

@@ -197,6 +197,40 @@ class TestImportHygiene:
             assert "from tpu_ctc import" not in text, path
             assert "import tpu_ctc." not in text, path
 
+    def test_chip_smoke_fails_without_a_card_or_the_repo(self, tmp_path):
+        """``chip_smoke.py`` alone in a directory exits non-zero (it cannot
+        import the port) and prints no result; so does it in the repo
+        without a card."""
+        import shutil
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        dirs = [str(tmp_path)] + ([] if torch.cuda.is_available() else [REPO])
+        for cwd in dirs:
+            out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                                 capture_output=True, text=True, timeout=120)
+            assert out.returncode != 0, cwd
+            assert '"ok"' not in out.stdout, cwd
+
+    def test_chip_smoke_stops_what_its_run_leaves(self):
+        """The supervisor (``chip_smoke.supervise``) reaps the processes its
+        run orphaned: one that ends within the grace, one that is killed
+        after it; the run's exit code passes through."""
+        child = ("import subprocess; subprocess.Popen(['sleep', '61']); "
+                 "subprocess.Popen(['sleep', '0.5']); raise SystemExit(3)")
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; sys.exit(chip_smoke.supervise("
+                "[sys.executable, '-c', sys.argv[2]], grace_s=2.0))")
+        out = subprocess.run([sys.executable, "-c", code, REPO, child],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 3, out.stderr
+        left = [x for x in out.stderr.splitlines() if "outlived" in x]
+        assert len(left) == 2, out.stderr
+        assert any("(killed): sleep 61" in x for x in left), left
+        assert any("(ended): sleep 0.5" in x for x in left), left
+        for line in left:
+            pid = int(line.split()[2])
+            with pytest.raises(ProcessLookupError):
+                os.kill(pid, 0)
+
     def test_default_device_is_cuda(self):
         if torch.cuda.is_available():
             assert resolve_device().type == "cuda"

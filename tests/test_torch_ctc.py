@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from tpu_ctc.losses import ctc_ref as jax_ref
 from tpu_ctc.ops import ctc_pallas
+from tpu_ctc_torch.data import bucketing
 from tpu_ctc_torch.losses import ctc, ctc_ref
 from tpu_ctc_torch.ops import ctc_cuda
 
@@ -181,8 +182,10 @@ class TestSweeps:
         b, t = 8, 16
         logits, labels, _, _ = _case(11, b, t, 29, max(ll) or 1)
         lp = torch.log_softmax(torch.from_numpy(logits), -1)
+        # the lattice's width is the label columns it is given
         emit, skip, skip2, init, final, lengths = ctc_cuda.lattice(
-            lp, torch.from_numpy(labels), torch.tensor(tl, dtype=torch.int32),
+            lp, torch.from_numpy(labels[:, :max(ll)]),
+            torch.tensor(tl, dtype=torch.int32),
             torch.tensor(ll, dtype=torch.int32))
         s = emit.shape[2]
         assert s == 2 * max(ll) + 1
@@ -242,9 +245,28 @@ class TestSweeps:
                 edits)
 
     def test_lattice_is_cut_to_the_longest_label(self):
-        emit, skip, skip2, init, final, lengths = self._lattice(3)
-        assert emit.shape[2] == skip.shape[1] == 2 * 5 + 1
-        assert lengths.dtype == torch.int32
+        """The host cuts the label columns (``bucketing.cut_labels``: the
+        longest label rounded up to 32, at most the padded width); the
+        lattice is 2 L + 1 states for the L columns it gets, read from
+        their shape: with label lengths whose values cannot reach the host
+        it builds the same lattice."""
+        logits, labels, tl, ll = _case(3, 8, 40, 29, 12)
+        labels = np.pad(labels, ((0, 0), (0, 36)))        # padded to 48
+        lp = torch.log_softmax(torch.from_numpy(logits), -1)
+        arrays = bucketing.cut_labels({"labels": labels,
+                                       "label_lengths": ll})
+        assert arrays["labels"].shape == (8, 32)
+        want = ctc_cuda.lattice(lp, torch.from_numpy(arrays["labels"]),
+                                torch.from_numpy(tl), torch.from_numpy(ll))
+        got = ctc_cuda.lattice(lp, torch.from_numpy(arrays["labels"]),
+                               torch.from_numpy(tl),
+                               _NoHostRead.of(torch.from_numpy(ll)))
+        assert want[0].shape[2] == want[1].shape[1] == 2 * 32 + 1
+        assert want[5].dtype == torch.int32
+        for g, w in zip(got, want):
+            assert torch.equal(g.as_subclass(torch.Tensor), w)
+        with pytest.raises(AssertionError, match="host"):
+            int(_NoHostRead.of(torch.from_numpy(ll)).max())
 
     def test_cpu_tensors_use_the_plain_sweeps(self):
         emit, skip, skip2, init, final, lengths = self._lattice(4)
@@ -258,6 +280,66 @@ class TestSweeps:
             ctc_cuda.alpha_cuda(emit, skip, init, lengths)
         with pytest.raises(ValueError):
             ctc_cuda.beta_cuda(emit, skip2, final, lengths)
+
+
+class _NoHostRead(torch.Tensor):
+    """A tensor whose values never reach the host: every read that a CUDA
+    graph capture refuses (``int``, ``item``, ``max``, ...) raises."""
+
+    @classmethod
+    def of(cls, t):
+        return torch.Tensor._make_subclass(cls, t)
+
+    def _refuse(self, *args, **kwargs):
+        raise AssertionError("a host read of a device value")
+
+    __int__ = __float__ = __bool__ = __index__ = _refuse
+    item = tolist = numpy = max = min = _refuse
+
+
+class TestLabelWidth:
+    """The host's label cut (``data.bucketing.cut_labels``, the longest
+    label rounded up to 32 columns, at most the padded width) against the
+    cut at the longest label and against the JAX package at the padded
+    width.  The losses are bit-equal: the extra states are dead, and the
+    final log-sum-exp adds only exact zeros for them.  The gradient's
+    one-hot product sums over S, so its f32 order may move with the width:
+    measured 0.0 in all three cases (the CPU's f32 product; the card's in
+    ``tests/test_torch_cuda.py``), held to ``GAP``, an ulp of a gradient of
+    magnitude ~8."""
+
+    GAP = 1e-6
+
+    @pytest.mark.parametrize("seed,b,t,pad,most", [
+        (3, 6, 80, 48, 21), (4, 5, 120, 100, 37), (5, 8, 96, 64, 40)])
+    def test_rounded_width(self, seed, b, t, pad, most):
+        r = np.random.RandomState(seed)
+        logits = r.randn(b, t, 29).astype(np.float32)
+        labels = np.zeros((b, pad), np.int32)
+        ll = r.randint(1, most + 1, b).astype(np.int32)
+        ll[0] = most
+        for i, n in enumerate(ll):
+            labels[i, :n] = r.randint(1, 29, n)
+        tl = r.randint(2 * most + 1, t + 1, b).astype(np.int32)
+        width = bucketing.label_width(ll, pad)
+        assert most < width <= pad and width % 32 == 0 or width == pad
+        at_longest = _port("auto", logits, labels[:, :most], tl, ll)
+        rounded = _port("auto", logits, labels[:, :width], tl, ll)
+        np.testing.assert_array_equal(rounded[0], at_longest[0])
+        gap = np.abs(rounded[1] - at_longest[1]).max()
+        assert gap <= self.GAP, gap
+        want, g_want = _jax(jax_ref.ctc_loss, logits, labels, tl, ll)
+        for got, g_got in (at_longest, rounded):
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(g_got, g_want, rtol=RTOL, atol=ATOL)
+
+    def test_width_rule(self):
+        assert [bucketing.label_width(np.array(v), p) for v, p in (
+            ([0, 0], 64), ([1, 5], 64), ([32], 64), ([33], 64), ([60], 50),
+            ([3], 20), ([7], 0))] == [32, 32, 32, 64, 50, 20, 0]
+        arrays = {"labels": np.ones((2, 32), np.int32),
+                  "label_lengths": np.array([3, 4], np.int32)}
+        assert bucketing.cut_labels(arrays) is arrays
 
 
 class TestEmitGather:

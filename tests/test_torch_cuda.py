@@ -27,7 +27,16 @@ twice; two training steps from one state bit-equal.
 The benches and tools: ``utils.devtime.device_time_ms`` of B3 within 20%
 of its CUDA-event time, the C++ host decoder against B5 under the rule of
 ``torch_tools/cpp_b5.py`` (phase 13's) and
-``torch_tools/smoke_cuda_decode.py`` passing.
+``torch_tools/smoke_cuda_decode.py`` passing.  The compiled step
+(``train.graphs``, one CUDA graph per batch shape): the train step
+bit-equal to the eager ``train_step`` in loss, metrics, parameters and
+trace over 8 steps on two bucket shapes and two label widths (with and
+without ``model.remat``), the eval step bit-equal to ``eval_step``, the
+launch counts of the replays those of the eager steps, a capture leaving
+the state as it was, replaced tensors refused, ``train.debug_nans``
+eager; B1/B2 captured as cooperative kernel nodes; ``train.loop.train``
+through the graphs bit-equal to the eager steps; the label cut's CTC loss
+bit-equal.
 """
 import ctypes
 import dataclasses
@@ -1229,3 +1238,315 @@ def test_smoke_cuda_decode_passes(dev):
     T = 400, K = 64): every row agrees with the plain search."""
     from torch_tools import smoke_cuda_decode
     assert smoke_cuda_decode.main() == 0
+
+
+# ---------------------------------------------------------------------------
+# The compiled step (train.graphs): one CUDA graph per batch shape
+# ---------------------------------------------------------------------------
+
+def _graph_cfg(**extra):
+    """Preset 2 cut to size, bf16, with a momentum ramp and a staircase
+    decay that change m and lr at every step."""
+    return get_config("2", **{
+        "model.hidden_dim": 128, "model.num_bi_layers": 2,
+        "data.batch_size": 8, "optim.momentum_start": 0.5,
+        "optim.momentum_ramp_steps": 9, "optim.lr_decay": 0.8,
+        "optim.lr_decay_steps": 1, **extra})
+
+
+def _graph_batch(seed, t, longest, b=8):
+    """A batch of ``b`` utterances padded to ``t`` frames and 128 label
+    columns, labels of 1..``longest`` characters (the longest once)."""
+    r = np.random.RandomState(seed)
+    lens = r.randint(2 * longest + 1, t + 1, b).astype(np.int32)
+    lens[0] = t
+    ll = r.randint(1, longest + 1, b).astype(np.int32)
+    ll[1] = longest
+    labels = np.zeros((b, 128), np.int32)
+    for i, n in enumerate(ll):
+        labels[i, :n] = r.randint(1, 29, n)
+    return {"feats": r.randn(b, t, 120).astype(np.float32),
+            "frame_mask": (np.arange(t)[None] < lens[:, None]).astype(
+                np.float32),
+            "frame_lengths": lens, "labels": labels, "label_lengths": ll,
+            "weights": np.ones(b, np.float32)}
+
+
+def _state_tensors(state):
+    return ([p.detach().clone() for p in state.model.parameters()]
+            + [state.opt_state.trace[k].clone()
+               for k in sorted(state.opt_state.trace)])
+
+
+def _launches():
+    from tpu_ctc_torch.ops import kernels
+    return {k.name: k.launches for k in kernels()}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_graphed_train_step_is_the_eager_step(dev, remat):
+    """``make_train_step`` on one card returns the compiled step; over 8
+    steps on two bucket shapes and two label widths (32 and 64 columns),
+    replayed out of order, with m and lr changing every step, its loss,
+    metrics, parameters and trace are bit-equal to the eager
+    ``train_step``'s after every step; a held metrics dict keeps its
+    values after later replays; a capture leaves the state bit-identical
+    and counts no launch; the launch counts of the replays equal the eager
+    steps'.  ``model.remat`` is captured too."""
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    from tpu_ctc_torch.train import graphs
+    cfg = _graph_cfg(**{"model.remat": remat})
+    shapes = [(96, 20), (96, 40), (160, 20), (160, 40)]
+    batches = [step.batch_to_tensors(_graph_batch(i, t, n), dev)
+               for i, (t, n) in enumerate(shapes)]
+    assert sorted({b["labels"].shape for b in batches}) == [
+        (8, 32), (8, 64)]
+    order = [0, 2, 1, 3, 2, 0, 3, 1]
+    ref = step.create_train_state(cfg, device=dev)
+    state = step.create_train_state(cfg, device=dev)
+    fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    assert isinstance(fn, graphs.CompiledTrainStep)
+    # a capture alone: the state bit-identical, no launch counted
+    before, counts = _state_tensors(state), _launches()
+    fn.capture(state, batches[3])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, _state_tensors(state)))
+    assert _launches() == counts and state.opt_state.count == 0
+    held, eager_n, graph_n = [], {}, {}
+    for i in order:
+        c0 = _launches()
+        ref, want = step.train_step(ref, batches[i], cfg)
+        c1 = _launches()
+        state, got = fn(state, batches[i])
+        c2 = _launches()
+        for k in c0:
+            eager_n[k] = eager_n.get(k, 0) + c1[k] - c0[k]
+            graph_n[k] = graph_n.get(k, 0) + c2[k] - c1[k]
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        for a, b in zip(_state_tensors(state), _state_tensors(ref)):
+            assert torch.equal(a, b), i
+        held.append((got, {k: v.clone() for k, v in want.items()}))
+    assert state.step == ref.step == 8
+    assert state.opt_state.count == ref.opt_state.count == 8
+    for got, want in held:
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert graph_n == eager_n and eager_n["birnn_fwd"] == (
+        (2 if remat else 1) * 4 * len(order))
+    assert fn.stats()["shapes"] == 4
+
+
+def test_graphed_train_step_refuses_replaced_tensors(dev):
+    """A parameter replaced by a new tensor after the capture is refused
+    (a replay would write to the old memory); a copy in place is taken,
+    and the graph reads the new values as the eager step does."""
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    cfg = _graph_cfg()
+    bt = step.batch_to_tensors(_graph_batch(3, 96, 20), dev)
+    ref = step.create_train_state(cfg, device=dev)
+    state = step.create_train_state(cfg, device=dev)
+    fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    state, _ = fn(state, bt)
+    ref, _ = step.train_step(ref, bt, cfg)
+    with torch.no_grad():
+        for s in (state, ref):
+            s.model.out.w.mul_(0.5)                 # in place: taken
+    state, got = fn(state, bt)
+    ref, want = step.train_step(ref, bt, cfg)
+    assert torch.equal(got["loss"], want["loss"])
+    step._set_param(state.model, "out.w", state.model.out.w.detach().clone())
+    with pytest.raises(RuntimeError, match="not the one its CUDA graphs"):
+        fn(state, bt)
+    # a step made again binds the new tensors; a trace replaced is refused
+    fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    state, _ = fn(state, bt)
+    trace = state.opt_state.trace
+    trace["out.w"] = trace["out.w"].clone()
+    with pytest.raises(RuntimeError, match="not the one its CUDA graphs"):
+        fn(state, bt)
+
+
+def test_debug_nans_stays_eager_on_the_card(dev):
+    """``train.debug_nans`` keeps the eager step on a card: a NaN gradient
+    raises before the update, the state as it was."""
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    cfg = _graph_cfg(**{"train.debug_nans": True})
+    state = step.create_train_state(cfg, device=dev)
+    fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    assert getattr(fn, "func", None) is step.train_step
+    bt = step.batch_to_tensors(_graph_batch(4, 96, 20), dev)
+    bt["feats"][0, 0, 0] = float("nan")
+    before = _state_tensors(state)
+    with pytest.raises(FloatingPointError, match="debug_nans"):
+        fn(state, bt)
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, _state_tensors(state)))
+
+
+def test_graphed_eval_step_is_eval_step(dev):
+    """``make_eval_step`` on one card returns the compiled eval step:
+    bit-equal to ``eval_step`` (hyp, hyp_len, nll) on two shapes replayed
+    in turn, held outputs kept, the launches equal."""
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    from tpu_ctc_torch.train import graphs
+    cfg = _graph_cfg()
+    model = step.create_train_state(cfg, device=dev).model
+    ev = step.make_eval_step(cfg, make_mesh(cfg.mesh), dev)
+    assert isinstance(ev, graphs.CompiledEvalStep)
+    batches = [step.batch_to_tensors(_graph_batch(i, t, n), dev)
+               for i, (t, n) in enumerate([(96, 20), (160, 40)])]
+    held = []
+    for i in (0, 1, 0, 1):
+        c0 = _launches()
+        want = step.eval_step(model, cfg, batches[i])
+        c1 = _launches()
+        got = ev(model, batches[i])
+        c2 = _launches()
+        assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k]
+                                                   for k in c0}
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        held.append((got, want))
+    for got, want in held:
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert ev.stats()["shapes"] == 2
+
+
+# Driver API numbers (cuda.h): a kernel node's type, and the launch
+# attribute that marks a cooperative launch.
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_LAUNCH_ATTRIBUTE_COOPERATIVE = 2
+
+
+def _kernel_nodes(graph):
+    """For each kernel node of a graph made with ``keep_graph=True`` (after
+    its capture): whether it launches cooperatively, as the driver reads
+    the node (``cuGraphKernelNodeGetAttribute``).  B1 and B2 wait at a
+    grid barrier, which only a cooperative launch guarantees."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        value = (ctypes.c_ubyte * 64)()        # CUlaunchAttributeValue
+        check(cu.cuGraphKernelNodeGetAttribute(
+            ctypes.c_void_p(node), _CU_LAUNCH_ATTRIBUTE_COOPERATIVE, value),
+            "cuGraphKernelNodeGetAttribute")
+        out.append(int.from_bytes(bytes(value[:4]), "little") != 0)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fwd", "fwd_h0", "bwd"])
+def test_sweeps_are_captured_as_cooperative_nodes(dev, kind):
+    """B1/B2's cooperative launch under stream capture: the graph holds
+    one kernel node, cooperative as the driver reads it, and two replays
+    give the eager launch's output bit for bit (each starts from a zeroed
+    barrier counter: the zeroing is a node of the graph, in stream
+    order)."""
+    z, w, lens = _recurrence_inputs(5, 64, 8, 256)
+    z, w, lens = (z.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+                  lens.to(dev))
+    h0 = (torch.randn(8, 256, device=dev).clamp(0, 20).to(torch.bfloat16)
+          if kind == "fwd_h0" else None)
+    if kind == "bwd":
+        hs = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False,
+                                            clip=20.0)
+
+        def launch():
+            return birnn_cuda.bwd_recurrence_cuda(z, hs, w.t().contiguous(),
+                                                  reverse=True, clip=20.0)
+    else:
+        def launch():
+            return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False,
+                                                  clip=20.0, h0=h0)
+    want = launch()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = launch()
+    nodes = _kernel_nodes(g)
+    g.instantiate()
+    assert nodes.count(True) == 1, nodes
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_label_width_on_the_card(dev):
+    """The host's label cut on the card: the CTC loss at the rounded width
+    (32 columns) bit-equal to the cut at the longest label, the gradient
+    within ``TestLabelWidth.GAP`` of ``tests/test_torch_ctc.py`` (the
+    one-hot product sums over S)."""
+    b = _graph_batch(8, 160, 27)
+    x = torch.from_numpy(np.random.RandomState(9).randn(8, 160, 29).astype(
+        np.float32)).to(dev)
+    out = []
+    for width in (27, 32):
+        xr = x.clone().requires_grad_(True)
+        nll = ctc.ctc_loss(xr, torch.as_tensor(b["labels"][:, :width],
+                                               device=dev),
+                           torch.as_tensor(b["frame_lengths"], device=dev),
+                           torch.as_tensor(b["label_lengths"], device=dev))
+        nll.sum().backward()
+        out.append((nll.detach(), xr.grad))
+    assert torch.equal(out[0][0], out[1][0])
+    assert float((out[0][1] - out[1][1]).abs().max()) <= 1e-6
+
+
+def test_train_loop_runs_the_compiled_step(dev, tmp_path):
+    """``train.loop.train`` on one card: the compiled step and eval step,
+    captured while the prefetch thread pins and copies the next batches;
+    the parameters bit-equal to the eager ``train_step`` over the same
+    batches from the same seed, and the launches of the run those of its
+    steps and evals."""
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    from tpu_ctc_torch.train import loop
+    from tpu_ctc_torch.train.loop import batch_to_device_dict
+    cfg = _graph_cfg(**{"data.bucket_boundaries": (200, 400),
+                        "train.num_epochs": 2, "train.eval_every": 3,
+                        "train.log_every": 1, "train.checkpoint_every": 0})
+    data = SyntheticCorpus(24, feature_dim=120, min_chars=5, max_chars=45,
+                           seed=2).all_utterances()
+    c0 = _launches()
+    state, last = loop.train(cfg, data, eval_data=data[:8],
+                             work_dir=str(tmp_path), device=dev)
+    c1 = _launches()
+    ref = step.create_train_state(cfg, device=dev)
+    loader = BucketedLoader(data, cfg.data)
+    n = 0
+    for e in range(cfg.train.num_epochs):
+        for _, b in loader.epoch(e):
+            ref, _ = step.train_step(ref, step.batch_to_tensors(
+                batch_to_device_dict(b), dev), cfg)
+            n += 1
+    assert state.step == ref.step == n and np.isfinite(last["loss"])
+    for a, b in zip(_state_tensors(state), _state_tensors(ref)):
+        assert torch.equal(a, b)
+    evals = n // cfg.train.eval_every
+    fwd = 2 * cfg.model.num_bi_layers
+    assert c1["birnn_fwd"] - c0["birnn_fwd"] == fwd * (n + evals * len(
+        list(BucketedLoader(data[:8], cfg.data).epoch(0))))
+    assert c1["ctc_beta"] - c0["ctc_beta"] == n

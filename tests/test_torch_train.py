@@ -67,6 +67,26 @@ def _batches(cfg, n=12, seed=1):
             for _, b in BucketedLoader(data, cfg.data).epoch(0)]
 
 
+def _python_float_updates(params, grads, trace, count, ocfg):
+    """The optimizer chain as it ran with m and -lr as Python floats."""
+    names = list(params)
+    updates = [grads[k].to(torch.float32) for k in names]
+    if ocfg.grad_clip_norm > 0:
+        g_norm = optim.global_norm(updates)
+        keep = g_norm < ocfg.grad_clip_norm
+        updates = [torch.where(keep, u, (u / g_norm) * ocfg.grad_clip_norm)
+                   for u in updates]
+    if ocfg.weight_decay > 0:
+        updates = [u + ocfg.weight_decay * params[k]
+                   for u, k in zip(updates, names)]
+    m = optim.momentum_at(ocfg, count)
+    lr = -optim.learning_rate_at(ocfg, count)
+    for k, u in zip(names, updates):
+        trace[k].mul_(m).add_(u)
+        u = u + m * trace[k] if ocfg.nesterov else trace[k]
+        params[k].add_((lr * u).to(params[k].dtype))
+
+
 class TestOptimizer:
     @pytest.mark.parametrize("over,scale", [
         ({}, 0.1),                                     # clip never triggers
@@ -105,6 +125,44 @@ class TestOptimizer:
         assert ts.count == 8
         if scale == 1.0:
             assert min(norms) < 5.0 < max(norms)
+
+    @pytest.mark.parametrize("over", [
+        {"momentum_start": 0.5, "momentum_ramp_steps": 5, "lr_decay": 0.5,
+         "lr_decay_steps": 3, "weight_decay": 1e-3},
+        {"momentum_start": 0.3, "momentum_ramp_steps": 7, "lr_decay": 0.7,
+         "lr_decay_steps": 1, "nesterov": False, "learning_rate": 0.031}])
+    def test_device_scalars_are_the_python_floats(self, over):
+        """``apply_updates`` takes m and -lr as an f32 tensor
+        (``step_scalars``, what a CUDA graph of the step reads): bit-equal
+        over a momentum ramp and a staircase decay to the chain with the
+        same values as Python floats, which f32 ops round once; each
+        scalar is the f32 of the host formula.  (``test_matches_optax``
+        holds the same chain against optax.)"""
+        ocfg = dataclasses.replace(config.OptimConfig(), **over)
+        r = np.random.RandomState(7)
+        shapes = {"a": (5, 3), "b": (7,)}
+        p0 = {k: r.randn(*v).astype(np.float32) for k, v in shapes.items()}
+        got = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        want = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        state = optim.init_opt_state(got)
+        trace = {k: torch.zeros_like(v) for k, v in want.items()}
+        for count in range(9):
+            g = {k: torch.from_numpy((2.0 * r.randn(*v)).astype(np.float32))
+                 for k, v in shapes.items()}
+            sc = optim.step_scalars(ocfg, count)
+            assert sc.dtype == torch.float32 and sc.tolist() == [
+                float(np.float32(optim.momentum_at(ocfg, count))),
+                float(np.float32(-optim.learning_rate_at(ocfg, count)))]
+            state = optim.apply_updates(got, g, state, ocfg,
+                                        scalars=sc if count % 2 else None)
+            _python_float_updates(want, g, trace, count, ocfg)
+            for k in shapes:
+                assert torch.equal(got[k], want[k]), (count, k)
+                assert torch.equal(state.trace[k], trace[k]), (count, k)
+        assert state.count == 9
+        ramp = [optim.momentum_at(ocfg, c) for c in range(9)]
+        decay = [optim.learning_rate_at(ocfg, c) for c in range(9)]
+        assert len(set(ramp)) > 4 and len(set(decay)) > 2
 
     def test_schedules(self):
         ocfg = config.OptimConfig(momentum_start=0.5, momentum_ramp_steps=4,
@@ -262,6 +320,79 @@ class TestTrainStep:
         np.testing.assert_array_equal(out["hyp"].numpy(), np.asarray(hyp))
         np.testing.assert_allclose(out["nll"].numpy(), np.asarray(nll),
                                    rtol=1e-5)
+
+
+def _step_shapes(cfg):
+    """Every (B, T_pad, label width) a step can see once the labels are cut
+    (``bucketing.cut_labels``): each bucket with every multiple of 32 below
+    its padded width, and the padded width."""
+    from tpu_ctc_torch.data.bucketing import LABEL_ALIGN, label_width
+    out = set()
+    for b, t, l_pad in BucketedLoader([], cfg.data).shape_keys():
+        widths = {label_width(np.array([n]), l_pad)
+                  for n in range(1, l_pad + 1)}
+        assert all(w % LABEL_ALIGN == 0 or w == l_pad for w in widths)
+        out |= {(b, t, w) for w in widths}
+    return sorted(out)
+
+
+class TestCompiledStep:
+    """The compiled step (``train.graphs``: one CUDA graph per batch shape
+    on a card) is made only for a one-rank mesh on a card: on the CPU
+    ``make_train_step`` and ``make_eval_step`` return the eager step, and
+    the graphs' shape key and their bound come from host shapes alone.
+    The graphs themselves are held against the eager step on a card
+    (``tests/test_torch_cuda.py``)."""
+
+    def test_the_cpu_and_debug_nans_stay_eager(self):
+        from tpu_ctc_torch.parallel.mesh import make_mesh
+        cfg = config.get_config("2", **SMALL)
+        mesh = make_mesh(cfg.mesh)
+        assert mesh.size == 1
+        for c in (cfg, cfg.override(**{"train.debug_nans": True})):
+            st = step.create_train_state(c, device="cpu")
+            fn, st2 = step.make_train_step(c, mesh, st)
+            assert st2 is st
+            assert isinstance(fn, functools.partial)
+            assert fn.func is step.train_step
+        bt = step.batch_to_tensors(_batches(cfg)[0], "cpu")
+        ev = step.make_eval_step(cfg, mesh, "cpu")(st.model, bt)
+        want = step.eval_step(st.model, cfg, bt)
+        assert ev.keys() == want.keys()
+        for k in want:
+            assert torch.equal(ev[k], want[k]), k
+
+    def test_shape_keys_come_from_host_shapes(self):
+        """The key of a batch's host arrays (the labels cut) is the key of
+        the tensors a step gets; the (B, T, label width) shapes the cut
+        allows bound the graphs a run can capture: 23 for preset 2
+        (buckets 200, 400, 800; labels padded to 200, 256, 256), 6 at the
+        accuracy chain's shape (buckets 80, 160, 320; labels padded to
+        64)."""
+        from tpu_ctc_torch.data.bucketing import cut_labels
+        from tpu_ctc_torch.train import graphs
+        cfg = config.get_config("2", **dict(
+            SMALL, **{"data.bucket_boundaries": (400,)}))
+        loader = BucketedLoader(SyntheticCorpus(
+            12, feature_dim=cfg.model.input_dim, min_chars=2, max_chars=40,
+            seed=3).all_utterances(), cfg.data)
+        keys = set()
+        for _, b in loader.epoch(0):
+            host = cut_labels(loop.batch_to_device_dict(b))
+            key = graphs.shape_key(host)
+            assert key == graphs.shape_key(step.batch_to_tensors(host,
+                                                                 "cpu"))
+            assert dict((k, s) for k, s, _ in key)["labels"] in [
+                (4, w) for _, _, w in _step_shapes(cfg)]
+            keys.add(key)
+        # labels of 9-38 characters padded to 256: widths 32 and 64
+        assert sorted(dict((k, s) for k, s, _ in key)["labels"][1]
+                      for key in keys) == [32, 64]
+        p2 = config.get_config("2")
+        chain = p2.override(**{"data.bucket_boundaries": (80, 160, 320),
+                               "data.max_label_len": 64,
+                               "data.batch_size": 16})
+        assert [len(_step_shapes(c)) for c in (p2, chain)] == [23, 6]
 
 
 class TestCheckpoint:

@@ -3,10 +3,10 @@
 
 The port trains from audio files through ``ManifestDataset`` (payload reads
 and the frontend on the host CPU), ``BucketedLoader`` (``make_batch``) and
-``prefetch_to_device`` (pin and copy on a side stream), then
-``train_step``.  This tool takes that path apart, for each shape and each
-frontend pool size given (``ManifestDataset(workers=N)``; 0 is the
-in-process path):
+``prefetch_to_device`` (pin and copy on a side stream), then the step of
+``make_train_step`` (on a card one CUDA graph per batch shape).  This tool
+takes that path apart, for each shape and each frontend pool size given
+(``ManifestDataset(workers=N)``; 0 is the in-process path):
 
 * a corpus: ``preset2`` is preset 2 at its full width (H = 1024, B = 32,
   buckets (200, 400, 800)) on synthetic tone waveforms of 4-8 s written as
@@ -17,15 +17,17 @@ in-process path):
   the read waveform, split into the operators' own time (their self time
   under ``torch.profiler``) and the rest (Python, dispatch, allocation);
 * ``ManifestDataset``'s audio-s/s over an epoch's batches alone, and again
-  in a thread while the main thread runs ``train_step`` on batches held on
+  in a thread while the main thread runs the step on batches held on
   the device (the GIL's and the cores' share), with the step's ms alone
   and so contended;
 * the step on features in memory (the epoch's batches copied once): ms a
-  step, audio-s/s and the device's idle share;
+  step, audio-s/s, the step's host time to its return and the device's
+  idle share, for the compiled step and, for the record, the eager
+  ``train_step`` on the same state;
 * the epoch through an instrumented copy of the prefetch thread, per batch:
   the loader's featurization (reads and frontend apart when in process),
   ``make_batch``, pin plus copy, the consumer's wait in ``queue.get``, the
-  step's host time up to its return (its last launch: ``train_step`` does
+  step's host time up to its return (its last launch: the step does
   not synchronise) and the step's wall;
 * the same epochs through the real ``prefetch_to_device``: ms a step,
   audio-s/s and the device's busy time and idle share (union of the device
@@ -49,6 +51,7 @@ the CLI gives a loader on a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import queue
@@ -210,22 +213,26 @@ def dataset_rate(ds, plan, frames_per_s=100.0):
     return frames / frames_per_s / (time.perf_counter() - t0)
 
 
-def step_loop(state, cfg, tensors, dev, stop=None, steps=None):
-    """``train_step`` over ``tensors`` in turn until ``stop`` is set or
-    ``steps`` are done; returns (state, ms a step)."""
-    from tpu_ctc_torch.train import step
+def step_loop(state, step_fn, tensors, dev, stop=None, steps=None,
+              host=None):
+    """``step_fn`` over ``tensors`` in turn until ``stop`` is set or
+    ``steps`` are done, each call's host ms (to its return) appended to
+    ``host`` when given; returns (state, ms a step)."""
     n = 0
     sync(dev)
     t0 = time.perf_counter()
     while (steps is None or n < steps) and not (stop and stop.is_set()):
-        state, _ = step.train_step(state, tensors[n % len(tensors)], cfg)
+        h0 = time.perf_counter()
+        state, _ = step_fn(state, tensors[n % len(tensors)])
+        if host is not None:
+            host.append((time.perf_counter() - h0) * 1e3)
         n += 1
     sync(dev)
     return state, (time.perf_counter() - t0) * 1e3 / max(n, 1)
 
 
-def contended(ds, plan, state, cfg, tensors, dev):
-    """``dataset_rate`` in a thread while this thread runs ``train_step``;
+def contended(ds, plan, state, step_fn, tensors, dev):
+    """``dataset_rate`` in a thread while this thread runs the step;
     returns (the dataset's audio-s/s, the step's ms) so contended."""
     out, stop = {}, threading.Event()
 
@@ -236,17 +243,17 @@ def contended(ds, plan, state, cfg, tensors, dev):
             stop.set()
     th = threading.Thread(target=reader)
     th.start()
-    state, ms = step_loop(state, cfg, tensors, dev, stop=stop)
+    state, ms = step_loop(state, step_fn, tensors, dev, stop=stop)
     th.join()
     return out["rate"], ms, state
 
 
-def instrumented_epoch(loader, epoch, state, cfg, dev, in_process):
+def instrumented_epoch(loader, epoch, state, step_fn, cfg, dev, in_process):
     """One epoch through a copy of ``prefetch_to_device``'s thread with
     every stage timed; per batch a dict of ms."""
     from tpu_ctc_torch.data import audio_io
-    from tpu_ctc_torch.data.bucketing import _label_pad_for, make_batch
-    from tpu_ctc_torch.train import step
+    from tpu_ctc_torch.data.bucketing import (_label_pad_for, cut_labels,
+                                              make_batch)
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     ds, dcfg = loader.dataset, loader.cfg
     fe = cfg.frontend
@@ -280,7 +287,7 @@ def instrumented_epoch(loader, epoch, state, cfg, dev, in_process):
                                _label_pad_for(t_pad, dcfg.max_label_len),
                                dcfg.batch_size, indices=ids)
             t2 = time.perf_counter()
-            arrays = batch_to_device_dict(batch)
+            arrays = cut_labels(batch_to_device_dict(batch))
             if stream is None:
                 tens = {k: torch.as_tensor(v) for k, v in arrays.items()}
                 event = None
@@ -316,7 +323,7 @@ def instrumented_epoch(loader, epoch, state, cfg, dev, in_process):
             for t in tens.values():
                 t.record_stream(cur)
         s0 = time.perf_counter()
-        state, _ = step.train_step(state, tens, cfg)
+        state, _ = step_fn(state, tens)
         s1 = time.perf_counter()
         sync(dev)          # the step's wall ends when the card is done
         t_now = time.perf_counter()
@@ -328,20 +335,19 @@ def instrumented_epoch(loader, epoch, state, cfg, dev, in_process):
     return recs, state
 
 
-def real_epochs(loader, epochs, state, cfg, dev):
-    """``epochs`` epochs through ``prefetch_to_device`` and ``train_step``
-    as ``train.loop.train`` runs them (no synchronisation in between);
+def real_epochs(loader, epochs, state, step_fn, dev):
+    """``epochs`` epochs through ``prefetch_to_device`` and the step as
+    ``train.loop.train`` runs them (no synchronisation in between);
     returns (ms a step, audio-s/s, steps, state) of the epochs after the
     first (a warm-up)."""
     from tpu_ctc_torch.data.prefetch import prefetch_to_device
-    from tpu_ctc_torch.train import step
     audio, steps, t0 = 0.0, 0, None
     for e in range(epochs):
         if e == 1:
             sync(dev)
             t0 = time.perf_counter()
         for _, batch, tb in prefetch_to_device(loader.epoch(e), dev):
-            state, _ = step.train_step(state, tb, cfg)
+            state, _ = step_fn(state, tb)
             if e >= 1:
                 audio += batch.audio_seconds()
                 steps += 1
@@ -350,7 +356,7 @@ def real_epochs(loader, epochs, state, cfg, dev):
     return wall * 1e3 / steps, audio / wall, steps, state
 
 
-def profiled_epoch(loader, state, cfg, dev):
+def profiled_epoch(loader, state, step_fn, dev):
     """One epoch of the real path under ``torch.profiler``: (wall ms,
     device busy ms) or None on the CPU or when the trace holds no device
     time."""
@@ -359,42 +365,44 @@ def profiled_epoch(loader, state, cfg, dev):
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_ctc_torch.data.prefetch import prefetch_to_device
-    from tpu_ctc_torch.train import step
     sync(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _, _, tb in prefetch_to_device(loader.epoch(1), dev):
-            state, _ = step.train_step(state, tb, cfg)
+            state, _ = step_fn(state, tb)
         sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
     busy = device_busy_ms(prof)
     return None if busy <= 0 else (wall, busy)
 
 
-def in_memory(loader, state, cfg, dev, epochs):
-    """The step on the epoch's batches held on the device: (ms a step,
-    audio-s/s, idle share or None, the tensors, state)."""
+def in_memory(loader, state, step_fn, dev, epochs):
+    """The step on the epoch's batches held on the device: ({"ms" a step,
+    "rate" audio-s/s, "idle" share or None, "host_ms" a step's host time
+    to its return (median), "steps"}, the tensors, state)."""
     from tpu_ctc_torch.train import step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     batches = [b for _, b in loader.epoch(1)]
     tensors = [step.batch_to_tensors(batch_to_device_dict(b), dev)
                for b in batches]
     audio = sum(b.audio_seconds() for b in batches)
-    state, _ = step_loop(state, cfg, tensors, dev, steps=len(tensors))
+    state, _ = step_loop(state, step_fn, tensors, dev, steps=len(tensors))
     n = len(tensors) * max(epochs - 1, 1)
-    state, ms = step_loop(state, cfg, tensors, dev, steps=n)
+    host = []
+    state, ms = step_loop(state, step_fn, tensors, dev, steps=n, host=host)
     idle = None
     if dev.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, _ = step_loop(state, cfg, tensors, dev,
+            state, _ = step_loop(state, step_fn, tensors, dev,
                                  steps=len(tensors))
             wall = (time.perf_counter() - t0) * 1e3
         busy = device_busy_ms(prof)
         idle = 1 - busy / wall if busy > 0 else None
     rate = audio / len(tensors) / (ms / 1e3)
-    return ms, rate, idle, tensors, state
+    return {"ms": ms, "rate": rate, "idle": idle, "host_ms": med(host),
+            "steps": len(tensors)}, tensors, state
 
 
 def run_shape(shape, workers_list, args, dev, log=print):
@@ -403,6 +411,7 @@ def run_shape(shape, workers_list, args, dev, log=print):
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.data.bucketing import BucketedLoader
     from tpu_ctc_torch.data.manifest import ManifestDataset
+    from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train import step
 
     dev = torch.device(dev)
@@ -448,14 +457,28 @@ def run_shape(shape, workers_list, args, dev, log=print):
         f"{pu['frontend_ops_self_ms']:.3f} ms, the rest (Python between "
         f"them) {pu['frontend_rest_ms']:.3f} ms")
 
-    state = step.create_train_state(cfg, device=dev)
-    mem_ms, mem_rate, mem_idle, tensors, state = in_memory(
-        loader0, state, cfg, dev, args.epochs)
-    record["in_memory"] = {"ms": mem_ms, "rate": mem_rate, "idle": mem_idle,
-                           "steps": len(tensors)}
-    log(f"[audio_path] {shape}: features in memory: {mem_ms:.2f} ms a step, "
-        f"{mem_rate:.1f} audio-s/s, idle share "
-        f"{'not measured' if mem_idle is None else f'{mem_idle:.3f}'}")
+    # the step a run makes (make_train_step: on a card one CUDA graph per
+    # batch shape), and the eager train_step on the same state for the
+    # record; both update the state's tensors in place
+    step_fn, state = step.make_train_step(
+        cfg, make_mesh(cfg.mesh), step.create_train_state(cfg, device=dev))
+    eager = functools.partial(step.train_step, cfg=cfg)
+    for name, fn in (("in_memory_eager", eager), ("in_memory", step_fn)):
+        record[name], tensors, state = in_memory(loader0, state, fn, dev,
+                                                 args.epochs)
+        mem = record[name]
+        idle = ("not measured" if mem["idle"] is None
+                else f"{mem['idle']:.3f}")
+        log(f"[audio_path] {shape}: features in memory, "
+            f"{'eager train_step' if fn is eager else 'make_train_step'}: "
+            f"{mem['ms']:.2f} ms a step, {mem['rate']:.1f} audio-s/s, host "
+            f"{mem['host_ms']:.3f} ms a step to return, idle share {idle}")
+    mem_rate = record["in_memory"]["rate"]
+    if hasattr(step_fn, "stats"):
+        record["graphs"] = step_fn.stats()
+        log(f"[audio_path] {shape}: {record['graphs']['shapes']} batch "
+            f"shapes captured, in "
+            f"{[round(x, 3) for x in record['graphs']['capture_s']]} s")
 
     for w in workers_list:
         if w == "host":
@@ -469,22 +492,22 @@ def run_shape(shape, workers_list, args, dev, log=print):
             featurize(ds, plan[0][1])            # a started pool
             run = {"workers": n_w}
             run["dataset_rate"] = dataset_rate(ds, plan)
-            rate_c, ms_c, state = contended(ds, plan, state, cfg, tensors,
-                                            dev)
+            rate_c, ms_c, state = contended(ds, plan, state, step_fn,
+                                            tensors, dev)
             run.update(dataset_rate_contended=rate_c, step_ms_contended=ms_c)
             recs = []
             for e in range(args.epochs):
-                r, state = instrumented_epoch(loader, 1, state, cfg, dev,
-                                              in_process=n_w == 0)
+                r, state = instrumented_epoch(loader, 1, state, step_fn,
+                                              cfg, dev, in_process=n_w == 0)
                 if e:
                     recs += r
             run["batches"] = recs
             keys = [k for k in recs[0] if k.endswith("_ms")]
             run["medians"] = {k: med([r[k] for r in recs]) for k in keys}
             ms, rate, steps, state = real_epochs(loader, args.epochs, state,
-                                                 cfg, dev)
+                                                 step_fn, dev)
             run.update(ms=ms, rate=rate, steps=steps)
-            prof = profiled_epoch(loader, state, cfg, dev)
+            prof = profiled_epoch(loader, state, step_fn, dev)
             run["busy_ms"], run["idle"] = (
                 (None, None) if prof is None else
                 (prof[1] / len(plan), 1 - prof[1] / prof[0]))
@@ -508,14 +531,14 @@ def report(shape, run, mem_rate, log, per_batch=True):
     log(f"{tag}: medians (ms) " + ", ".join(
         f"{k[:-3]} {v:.2f}" for k, v in m.items()))
     log(f"{tag}: ManifestDataset {run['dataset_rate']:.1f} audio-s/s alone, "
-        f"{run['dataset_rate_contended']:.1f} while train_step runs (the step "
+        f"{run['dataset_rate_contended']:.1f} while the step runs (the step "
         f"then {run['step_ms_contended']:.2f} ms)")
     idle = ("not measured" if run["idle"] is None else
             f"{run['idle']:.3f} (device busy {run['busy_ms']:.2f} ms a step)")
-    log(f"{tag}: prefetch_to_device + train_step: {run['ms']:.2f} ms a step "
-        f"over {run['steps']} steps, {run['rate']:.1f} audio-s/s = "
-        f"{run['rate'] / mem_rate:.3f} of features in memory; idle share "
-        f"{idle}")
+    log(f"{tag}: prefetch_to_device + make_train_step's step: "
+        f"{run['ms']:.2f} ms a step over {run['steps']} steps, "
+        f"{run['rate']:.1f} audio-s/s = {run['rate'] / mem_rate:.3f} of "
+        f"features in memory; idle share {idle}")
 
 
 def main(argv=None):

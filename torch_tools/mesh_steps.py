@@ -4,9 +4,11 @@
 Each mesh ``DxS`` (data x seq) runs ``chip_smoke.spawn_ranks``: D x S
 processes, one per card, take the same global batches of
 ``chip_smoke.preset3_batches`` (preset 3, B = 64, 400-800 frames) through
-``make_train_step``; ``1x1`` is one process on one card (``train_step``
-itself).  ``tpN`` runs preset 5 (H = 4096) under tensor parallelism,
-model = N, at a global B = 16 N, T = 800 (preset 5's B = 64 at N = 4);
+``make_train_step``; ``1x1`` is one process on one card (the compiled
+step, one CUDA graph per batch shape; the meshes of several ranks run
+``train_step`` eagerly).  ``tpN`` runs preset 5 (H = 4096) under tensor
+parallelism, model = N, at a global B = 16 N, T = 800 (preset 5's B = 64
+at N = 4);
 ``ppN`` runs preset 2 as N pipeline stages (N divides its 3 layers), 4
 microbatches, B = 32, T = 800; both through ``chip_smoke.spawn_mesh14``
 on ``chip_smoke.synthetic_batches``.  The meshes run in the order given

@@ -9,11 +9,12 @@ Counterpart of the repository's root ``bench.py``.  Prints ONE JSON line:
    "decode_vs_plain_search": N, "decode_neural_lm_throughput": N,
    "decode_preset4_throughput": N}
 
-* ``value``: ``train_step`` (forward, CTC, backward, the Nesterov update;
-  kernels B1-B4 on a card) on a device-resident batch, B = 128, H = 1024,
-  3 BiRNN layers, T = 400: audio seconds (100 frames a second) over the
-  wall clock of 20 steps after 3 warm-up steps, synchronised with
-  ``torch.cuda.synchronize``.
+* ``value``: the step of ``make_train_step`` (forward, CTC, backward, the
+  Nesterov update; kernels B1-B4 on a card, captured in a CUDA graph) on a
+  device-resident batch, B = 128, H = 1024, 3 BiRNN layers, T = 400:
+  audio seconds (100 frames a second) over the wall clock of 20 steps
+  after 3 warm-up steps, synchronised with ``torch.cuda.synchronize``; the
+  eager ``train_step``'s rate beside it on stderr.
 * ``vs_baseline``: over the reference's per-utterance CPU path
   (:mod:`tpu_ctc_torch.bench.reference_numpy`); null only under
   ``--skip-cpu-baseline``.
@@ -80,15 +81,33 @@ def train_config(hidden=1024, num_bi=3, batch=128, t_frames=400, vocab=29,
         ctc_impl="auto")
 
 
+def time_steps(step_fn, state, bt, steps, dev):
+    """``steps`` calls of ``step_fn`` from ``state`` on the batch ``bt``,
+    synchronised at the end; returns (state, the last metrics, seconds)."""
+    sync(dev)
+    t0 = time.time()
+    for _ in range(steps):
+        state, m = step_fn(state, bt)
+    sync(dev)
+    return state, m, time.time() - t0
+
+
 def bench_train(hidden=1024, num_bi=3, batch=128, t_frames=400, vocab=29,
                 input_dim=120, steps=20, warmup=3, device="cuda"):
-    """Training throughput on a device-resident batch; returns
-    (audio-s/s, step seconds, the config)."""
+    """Training throughput on a device-resident batch, through the step
+    that ``make_train_step`` returns (on a card one CUDA graph per batch
+    shape, as the JAX bench times its jitted step); the eager
+    ``train_step``'s from the same seed timed after it, to stderr.
+    Returns (audio-s/s, step seconds, the config)."""
+    import functools
+
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.data.bucketing import make_batch
+    from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     from tpu_ctc_torch.train.step import (batch_to_tensors,
-                                          create_train_state, train_step)
+                                          create_train_state,
+                                          make_train_step, train_step)
 
     dev = resolve_device(device)
     cfg = train_config(hidden, num_bi, batch, t_frames, vocab, input_dim)
@@ -97,28 +116,30 @@ def bench_train(hidden=1024, num_bi=3, batch=128, t_frames=400, vocab=29,
              rng.randint(1, vocab, min(40, t_frames // 3)).astype(np.int32))
             for _ in range(batch)]
     b = make_batch(utts, t_pad=t_frames, l_pad=48, batch_size=batch)
-    state = create_train_state(cfg, device=dev)
+    step_fn, state = make_train_step(cfg, make_mesh(cfg.mesh),
+                                     create_train_state(cfg, device=dev))
+    eager = functools.partial(train_step, cfg=cfg)
     # Device-resident batch: the training loop prefetches input copies on
     # a side stream (data/prefetch.py), so the steady-state step is what
     # the card computes.
     bt = batch_to_tensors(batch_to_device_dict(b), dev)
-    t0 = time.time()
-    for _ in range(warmup):
-        state, m = train_step(state, bt, cfg)
-    sync(dev)
-    log(f"[bench] warmup (and kernel build) {time.time() - t0:.1f}s, "
-        f"loss={float(m['loss']):.3f}")
-    t0 = time.time()
-    for _ in range(steps):
-        state, m = train_step(state, bt, cfg)
-    sync(dev)
-    dt = time.time() - t0
-    if not np.isfinite(float(m["loss"])):
-        raise FloatingPointError(f"train loss {float(m['loss'])}")
-    thr = batch * t_frames / FRAMES_PER_SECOND * steps / dt
-    log(f"[bench] train on {dev}: {steps} steps in {dt:.2f}s -> "
-        f"{thr:.1f} audio-s/s (step {dt / steps * 1e3:.1f} ms)")
-    return thr, dt / steps, cfg
+    audio = batch * t_frames / FRAMES_PER_SECOND * steps
+    thr = {}
+    for name, fn in (("make_train_step", step_fn), ("eager train_step",
+                                                    eager)):
+        st = state if fn is step_fn else create_train_state(cfg, device=dev)
+        st, m, dt = time_steps(fn, st, bt, warmup, dev)
+        log(f"[bench] {name}: warmup (and kernel build, graph capture) "
+            f"{dt:.1f}s, loss={float(m['loss']):.3f}")
+        st, m, dt = time_steps(fn, st, bt, steps, dev)
+        if not np.isfinite(float(m["loss"])):
+            raise FloatingPointError(f"train loss {float(m['loss'])}")
+        thr[name] = (audio / dt, dt / steps)
+        log(f"[bench] train on {dev}, {name}: {steps} steps in {dt:.2f}s "
+            f"-> {audio / dt:.1f} audio-s/s (step {dt / steps * 1e3:.2f} "
+            f"ms)")
+        del st
+    return (*thr["make_train_step"], cfg)
 
 
 def log_softmax_np(x: np.ndarray) -> np.ndarray:

@@ -67,6 +67,32 @@ def _label_pad_for(bucket_frames: int, max_label_len: int) -> int:
     return int(min(max_label_len, bucket_frames))
 
 
+# The label columns a step keeps are cut to a multiple of this.
+LABEL_ALIGN = 32
+
+
+def label_width(label_lengths, padded: int) -> int:
+    """The label columns a step keeps of a batch padded to ``padded``: its
+    longest label (at least 1) rounded up to a multiple of
+    :data:`LABEL_ALIGN`, at most ``padded``.  Host arithmetic on the
+    lengths the loader already holds; the CTC lattice then takes its width
+    from the columns it is given and never reads the device."""
+    lengths = np.asarray(label_lengths)
+    longest = max(int(lengths.max()) if lengths.size else 0, 1)
+    return min(-(-longest // LABEL_ALIGN) * LABEL_ALIGN, int(padded))
+
+
+def cut_labels(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A batch's host arrays with ``labels`` cut to :func:`label_width`
+    columns (the dead columns past every label leave the loss as it was);
+    the same dict when there is nothing to cut."""
+    labels = np.asarray(arrays["labels"])
+    width = label_width(arrays["label_lengths"], labels.shape[1])
+    if width == labels.shape[1]:
+        return arrays
+    return dict(arrays, labels=np.ascontiguousarray(labels[:, :width]))
+
+
 def make_batch(utts: List[Tuple[Optional[np.ndarray], np.ndarray]],
                t_pad: int, l_pad: int, batch_size: int,
                indices: Optional[Sequence[int]] = None,

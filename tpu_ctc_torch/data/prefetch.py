@@ -23,6 +23,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tpu_ctc_torch.data.bucketing import cut_labels
+
 _END = object()
 
 
@@ -32,7 +34,9 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
     {name: tensor on device})`` with the arrays of
     ``train.loop.batch_to_device_dict``, passed through ``select`` (this
     rank's block of them, ``train.step.local_batch``) before the copy when
-    it is given.  The cursor is the yielded batch's own, so a checkpoint
+    it is given, and the labels cut to the block's width
+    (``bucketing.cut_labels``, as ``train.step.batch_to_tensors`` cuts
+    them).  The cursor is the yielded batch's own, so a checkpoint
     taken while it is consumed resumes at it."""
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     device = torch.device(device)
@@ -57,6 +61,7 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
                 arrays = batch_to_device_dict(batch)
                 if select is not None:
                     arrays = select(arrays)
+                arrays = cut_labels(arrays)
                 if stream is None:
                     dev = {k: torch.as_tensor(np.asarray(v), device=device)
                            for k, v in arrays.items()}

@@ -172,8 +172,11 @@ def bi_recur_tm(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
         bidirectional=cfg.bidirectional,
         plain=resolve_birnn_impl(cfg) == "scan")
     if cfg.remat:
+        # no random op to replay, so no RNG state to save (whose read a
+        # CUDA graph capture refuses)
         return torch.utils.checkpoint.checkpoint(rec, z, wf, wb, lengths,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False,
+                                                 preserve_rng_state=False)
     return rec(z, wf, wb, lengths)
 
 

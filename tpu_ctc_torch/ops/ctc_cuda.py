@@ -221,15 +221,17 @@ def lattice(log_probs: torch.Tensor, labels: torch.Tensor,
     """The DP's inputs from log probs [B, T, A]: (emit [B, T, S], skip,
     skip2, init, final [B, S] f32, lengths [B] int32).
 
-    Label columns past the longest label of the batch are cut first: their
-    states are dead in every row, so S = 2 max(label_lengths) + 1 gives the
-    same losses and gradients on a smaller lattice (one host read of the
-    label lengths)."""
+    S = 2 L + 1 for the L label columns given: nothing is read from the
+    device, so a step can be captured in a CUDA graph and its lattice has
+    one width per batch shape.  The host cuts the columns past the batch's
+    longest label before the step (``data.bucketing.cut_labels``, to a
+    multiple of 32); the states of the columns past a row's label are dead,
+    so they leave the loss as it was (the gradient's one-hot product sums
+    over S, so its f32 order may move with the width)."""
     n_b, n_t, _ = log_probs.shape
     dev = log_probs.device
     lab_len = label_lengths.to(device=dev, dtype=torch.int64)
-    l_max = int(lab_len.max()) if n_b else 0
-    labels = labels.to(device=dev, dtype=torch.int64)[:, :l_max]
+    labels = labels.to(device=dev, dtype=torch.int64)
     ext, allow_skip = extend_labels(labels, blank)               # [B, S]
     n_s = ext.shape[1]
     # Finitize first: -inf log probs become the NEG_INF sentinel, which

@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_ctc.train.loop``: a plain loop over
 ``BucketedLoader.epoch`` calling the step of ``train.step.make_train_step``
-(``train_step`` itself on one card), JSONL metrics
+(on one card its CUDA graphs of ``train_step``, one per batch shape; on the
+CPU ``train_step`` itself), JSONL metrics
 (:class:`MetricsLogger`), checkpoints of the full state with the data
 cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
 (:class:`PreemptionGuard`), and greedy-CER/NLL evaluation, with the beam
@@ -241,7 +242,7 @@ def _train(cfg, train_data, eval_data, work_dir, resume, device, alphabet,
                 print(f"[ckpt] resumed at epoch {start_epoch} batch "
                       f"{start_batch} step {state.step}")
     step_fn, state = make_train_step(cfg, mesh, state)
-    eval_fn = make_eval_step(cfg, mesh)
+    eval_fn = make_eval_step(cfg, mesh, device)
 
     beam_decode_fn = None
     if cfg.train.eval_beam and eval_loader is not None:

@@ -13,7 +13,9 @@ here as one plain function on the parameter tensors, in the chain's order:
   4. ``scale(-lr)``, or the staircase ``exponential_decay`` of lr.
 
 The update is applied in place to the parameters and the trace (no copy of
-either is kept), under ``torch.no_grad()``.
+either is kept), under ``torch.no_grad()``.  m and -lr enter as an f32
+device tensor (:func:`step_scalars`), which the compiled step
+(``train.graphs``) rewrites before each replay.
 """
 from __future__ import annotations
 
@@ -75,6 +77,26 @@ def learning_rate_at(cfg: OptimConfig, count: int) -> float:
     return cfg.learning_rate
 
 
+def step_scalars(cfg: OptimConfig, count: int, out: torch.Tensor = None,
+                 device=None) -> torch.Tensor:
+    """The update's two per-step scalars at step ``count``, [m, -lr] f32
+    (:func:`momentum_at`, :func:`learning_rate_at`; each Python double
+    rounded to f32 once, as an f32 tensor op rounds a Python scalar).
+    Written into ``out`` (a CUDA graph's input) when given, else a new
+    tensor on ``device`` (default the CPU).  On a card the values go
+    through a new pinned block of the caching host allocator each call,
+    which keeps a block until the copy that reads it has run, so no write
+    lands in a buffer that an earlier copy may still read."""
+    dev = torch.device(device or (out.device if out is not None else "cpu"))
+    host = torch.tensor([momentum_at(cfg, count),
+                         -learning_rate_at(cfg, count)], dtype=torch.float32,
+                        pin_memory=dev.type == "cuda")
+    if out is None:
+        return host.to(dev, non_blocking=True) if dev.type == "cuda" \
+            else host
+    return out.copy_(host, non_blocking=True)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, an f32 scalar."""
     return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2)
@@ -84,10 +106,15 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: OptimConfig, g_norm: torch.Tensor = None) -> OptState:
+                  cfg: OptimConfig, g_norm: torch.Tensor = None,
+                  scalars: torch.Tensor = None) -> OptState:
     """One step of the chain on ``params`` in place; returns the new state
     (its trace tensors are updated in place too).  ``g_norm`` is the
-    global norm of ``grads`` when the caller has it already."""
+    global norm of ``grads`` when the caller has it already.  ``scalars``
+    is :func:`step_scalars` at ``state.count`` on the parameters' device
+    (made here when not given): device tensors, so that a CUDA graph of
+    the step reads each step's momentum and learning rate instead of
+    baking in the first ones."""
     names = list(params)
     updates = [grads[k].to(torch.float32) for k in names]
     if cfg.grad_clip_norm > 0:
@@ -99,8 +126,10 @@ def apply_updates(params: Dict[str, torch.Tensor],
     if cfg.weight_decay > 0:
         updates = [u + cfg.weight_decay * params[k]
                    for u, k in zip(updates, names)]
-    m = momentum_at(cfg, state.count)
-    step = -learning_rate_at(cfg, state.count)
+    if scalars is None:
+        scalars = step_scalars(cfg, state.count,
+                               device=params[names[0]].device)
+    m, step = scalars[0], scalars[1]
     for k, u in zip(names, updates):
         trace = state.trace[k]
         trace.mul_(m).add_(u)                         # g + m * trace

@@ -26,7 +26,8 @@ a replicated parameter's over all ranks, a split one's over 'data' only,
 and the global norm counts each parameter once (a split one's squares
 summed over 'model'), so the clip sees the global gradient as in JAX and
 every rank applies the same update to what it holds.  A one-rank mesh runs
-:func:`train_step` as it is.
+:func:`train_step` as it is: on a card captured once per batch shape in a
+CUDA graph (``train.graphs``), as the JAX package jits its step.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch.distributed as dist
 
 from tpu_ctc_torch import resolve_device
 from tpu_ctc_torch.config import Config
+from tpu_ctc_torch.data.bucketing import cut_labels
 from tpu_ctc_torch.decode.greedy import collapse_ids
 from tpu_ctc_torch.losses import ctc
 from tpu_ctc_torch.models import birnn
@@ -80,9 +82,11 @@ def create_train_state(cfg: Config, device=None) -> TrainState:
 def batch_to_tensors(batch: Dict[str, np.ndarray],
                      device) -> Dict[str, torch.Tensor]:
     """A batch dict of host arrays (``loop.batch_to_device_dict``) as
-    tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-            for k in BATCH_KEYS}
+    tensors on ``device``, its labels cut on the host to the batch's
+    longest label rounded up to a multiple of 32
+    (``data.bucketing.cut_labels``)."""
+    batch = cut_labels({k: np.asarray(batch[k]) for k in BATCH_KEYS})
+    return {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
 
 
 def loss_fn(model: birnn.BiRNN, cfg: Config,
@@ -121,13 +125,16 @@ def _check_finite(step: int, loss: torch.Tensor,
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                cfg: Config, loss_closure: Optional[Callable] = None,
                reduce_grads: Optional[Callable] = None,
-               norm_fn: Optional[Callable] = None
+               norm_fn: Optional[Callable] = None,
+               scalars: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One update: value and gradient of :func:`loss_fn` (or of
     ``loss_closure(model, batch)``), the gradients passed through
     ``reduce_grads`` (a sum over ranks) when given, their global norm
     (``norm_fn``, default ``optim.global_norm``), then the optimizer
-    chain in place on the parameters.  With ``cfg.train.debug_nans`` a
+    chain in place on the parameters, with the momentum and learning rate
+    of ``scalars`` (``optim.step_scalars`` at the state's count; made
+    here when not given).  With ``cfg.train.debug_nans`` a
     non-finite loss or gradient norm raises ``FloatingPointError`` before
     the update, leaving the parameters and the optimizer state as they
     were."""
@@ -145,7 +152,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if cfg.train.debug_nans:
         _check_finite(state.step, loss, g_norm)
     opt_state = optim.apply_updates(params, grads, state.opt_state,
-                                    cfg.optim, g_norm=g_norm)
+                                    cfg.optim, g_norm=g_norm, scalars=scalars)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
     return dataclasses.replace(state, step=state.step + 1,
@@ -378,9 +385,14 @@ def full_state(state: TrainState) -> TrainState:
 def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
     """The train step of ``mesh``, with the JAX function's dispatch and
     checks: returns (step_fn, state), step_fn(state, batch) taking this
-    rank's block of the batch as tensors (:func:`local_batch`).  The state
-    is replicated from rank 0, then split over 'model' where its specs say
-    so (:func:`state_shardings`): TP (``model > 1``) runs
+    rank's block of the batch as tensors (:func:`local_batch`).  On one
+    rank with the state on a card, step_fn is the compiled step
+    (``train.graphs.CompiledTrainStep``: one CUDA graph per batch shape,
+    as the JAX function returns its step jitted); it stays
+    :func:`train_step` on the CPU, with ``train.debug_nans`` (a host read
+    before the update) and on a mesh of several ranks (collectives).  The
+    state is replicated from rank 0, then split over 'model' where its
+    specs say so (:func:`state_shardings`): TP (``model > 1``) runs
     ``parallel.tensor_parallel``'s loss, PP (``mesh.pipeline``)
     ``parallel.pipeline``'s, SP ``parallel.seq_parallel``'s, DP
     :func:`make_dp_loss_fn`."""
@@ -426,9 +438,13 @@ def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
             reduce_grads, norm_fn = _split_grad_reduction(mesh, sharded)
         else:
             reduce_grads = _all_reduce_grads
-    return functools.partial(train_step, cfg=cfg, loss_closure=loss_closure,
-                             reduce_grads=reduce_grads,
-                             norm_fn=norm_fn), state
+    eager = functools.partial(train_step, cfg=cfg, loss_closure=loss_closure,
+                              reduce_grads=reduce_grads, norm_fn=norm_fn)
+    if (mesh.size > 1 or cfg.train.debug_nans
+            or next(state.model.parameters()).device.type != "cuda"):
+        return eager, state
+    from tpu_ctc_torch.train.graphs import CompiledTrainStep
+    return CompiledTrainStep(cfg, state), state
 
 
 def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
@@ -438,9 +454,13 @@ def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
             and not _uses_sp(mesh) and not cfg.mesh.pipeline)
 
 
-def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
+def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh, device=None):
     """eval_fn(model, batch) on the global batch's tensors -> the whole
-    batch's {"hyp", "hyp_len", "nll"} on every rank.  Under pure DP each
+    batch's {"hyp", "hyp_len", "nll"} on every rank.  On one rank on a
+    card (``device``, default ``cuda``) eval_fn is the compiled
+    :func:`eval_step` (``train.graphs.CompiledEvalStep``, one CUDA graph
+    per batch shape, as the JAX eval step is jitted); on the CPU the eager
+    one.  Under pure DP each
     rank evaluates its rows and the outputs are gathered over 'data';
     under TP and PP each rank runs the split forward on its block (rows
     over 'data') with its shards, the logits are gathered over 'model'
@@ -471,6 +491,9 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh):
             logits = mesh_lib.gather_blocks(mesh, logits, AXIS_DATA, 0)
             return eval_outputs(cfg, logits, batch, keep_log_probs=True)
         return split_eval
+    if mesh.size == 1 and resolve_device(device).type == "cuda":
+        from tpu_ctc_torch.train.graphs import CompiledEvalStep
+        return CompiledEvalStep(cfg, resolve_device(device))
     if not _pure_dp(mesh, cfg):
         return lambda model, batch: eval_step(model, cfg, batch)
 
