@@ -96,11 +96,18 @@ against its plain PyTorch version on the same inputs:
      the GEMMs) against its plain autograd at preset 2's width; preset 3
      (``swbd_5layer_dp``) at B = 64 for 3 steps through ``make_mesh`` and
      ``make_train_step`` with a one-rank NCCL group (the compiled step),
-     bit-equal to ``train_step``; then the same steps with ``mesh.seq=2``
-     over several ranks (``nvidia-smi -L``: 2 NCCL ranks on 2 or 3 cards, 4 with
-     data = 2 on 4 or more; two gloo ranks on one card), the loss within
-     1e-3 of one card's, the parameters bit-equal across ranks, with the
-     step time and audio-s/s; then preset 2 from audio (96 WAV files)
+     bit-equal to ``train_step``, and the step's gradient all-reduce
+     captured in a CUDA graph over that group, two replays bit-equal to
+     the eager call; then the same steps over several ranks
+     (``nvidia-smi -L``): on 2 or more cards NCCL ranks, one card each,
+     DP2 and SP2, each the compiled step (one CUDA
+     graph per batch shape, collectives included) against the eager mesh
+     step from the same seed, bit-equal in metrics, parameters, trace and
+     launch counts on every rank, with the shapes captured and their
+     capture seconds; on one card SP2 as two gloo ranks sharing it, which
+     stay eager (the phase prints why); each mesh's loss within 1e-3 of
+     one card's, the parameters bit-equal across ranks, with the step
+     time and audio-s/s; then preset 2 from audio (96 WAV files)
      under DP2 (two gloo ranks sharing one card, or NCCL ranks on two),
      each rank's loader featurizing only its rows in its own frontend
      pool: each rank's payload reads per epoch (about half of one
@@ -141,7 +148,9 @@ against its plain PyTorch version on the same inputs:
      global B = 8, T = 200 (two gloo ranks sharing the card, or NCCL ranks
      on 2-3 cards; model = 4 at B = 64, T = 800 on 4 or more), bf16 and
      f32, 2 steps against one card's ``train_step``; preset 2 as 3
-     pipeline stages, M = 4, B = 32, T = 400; the collective decode of
+     pipeline stages, M = 4, B = 32, T = 400; on NCCL ranks both the
+     compiled step against the eager mesh step, as in phase 12 (gloo
+     ranks stay eager, and the phase says so); the collective decode of
      preset 4 over 2 ranks with the length-balancing redistribution, its
      hypotheses on phase 4's posteriors bit-equal to the one-card decode;
      ``python -m tpu_ctc_torch.dryrun`` under torchrun over 2 ranks.  The
@@ -167,7 +176,8 @@ against its plain PyTorch version on the same inputs:
      trainings are bit-equal.
 
 Each main path (phases 4, 7, both widths of 10, phase 11's training and
-its decodes, phase 12's two mesh runs, phase 14's TP, PP and
+its decodes, phase 12's mesh runs (the compiled step's turn where the
+ranks are NCCL's), phase 14's TP, PP and
 collective-decode runs, the ranks' launches summed, and phase 15's
 chain, its subprocesses' launches summed) is
 run with every launch count set to 0 just before it and
@@ -2074,6 +2084,139 @@ def preset3_batches(n_steps: int):
                                               cfg.data).epoch(0)][:n_steps]
 
 
+CHAIN_SET = {"model.hidden_dim": 512, "data.batch_size": 16,
+             "data.bucket_boundaries": (80, 160, 320),
+             "data.max_label_len": 64}
+
+
+def mesh_batches(shape: str, n_steps: int):
+    """(config, global batches) of a mesh run: ``preset3`` is
+    :func:`preset3_batches`; ``chain`` the accuracy chain's shape
+    (``docs/EVAL.md``: preset 2 at H = 512, B = 16, buckets (80, 160,
+    320), labels <= 64) on synthetic utterances of 5-38 characters (40-304
+    frames: every bucket, label widths 32 and 64)."""
+    if shape == "preset3":
+        return preset3_batches(n_steps)
+    from tpu_ctc_torch.config import get_config
+    from tpu_ctc_torch.data.bucketing import BucketedLoader
+    from tpu_ctc_torch.data.synthetic import SyntheticCorpus
+    cfg = get_config("timit_full_3layer", **CHAIN_SET)
+    corpus = SyntheticCorpus(16 * n_steps, feature_dim=cfg.model.input_dim,
+                             min_chars=5, max_chars=38, seed=15)
+    return cfg, [b for _, b in BucketedLoader(corpus.all_utterances(),
+                                              cfg.data).epoch(0)][:n_steps]
+
+
+def step_turns(cfg, mesh, dev, tensors, turns=("graphs", "eager")):
+    """This rank's run of the compiled mesh step against the eager one:
+    two states from the same seed, one through ``make_train_step`` (the
+    compiled step where ``step.eager_reason`` gives no reason) and one
+    through ``make_train_step`` stepped by the compiled step's ``eager``
+    (the eager mesh step it captures); each turn of ``turns``
+    steps one of them over ``tensors`` (on a mesh that stays eager only
+    the eager turns run); the graphs of every shape are captured before
+    the first turn (the state left as it was), so no turn's step holds a
+    capture.  Returns (the record, the first turn's state):
+    per turn its kind, losses, synchronised step walls and host seconds
+    to the step's return, and launches (the first turn's counts zeroed
+    just before it: the main path); the graphs' shapes and capture
+    seconds; whether every step's metrics and the final parameters and
+    trace are bit-equal between the two states and the launch counts
+    equal; and a hash of the replicated parameters."""
+    import hashlib
+    from tpu_ctc_torch.train import graphs, step
+    why = step.eager_reason(cfg, mesh, dev)
+    kinds = ["eager"] if why else ["graphs", "eager"]
+    fns, states = {}, {}
+    for kind in kinds:
+        fn, states[kind] = step.make_train_step(
+            cfg, mesh, step.create_train_state(cfg, device=dev))
+        fns[kind] = fn if kind == "graphs" else getattr(fn, "eager", fn)
+    if not why:
+        if not isinstance(fns["graphs"], graphs.CompiledTrainStep):
+            raise AssertionError(f"an NCCL mesh's step {fns['graphs']}")
+        for bt in tensors:      # every shape captured before the turns
+            fns["graphs"].capture(states["graphs"], bt)
+    seen = {k: [] for k in kinds}
+    counts = {k: {} for k in kinds}
+    runs = []
+    for kind in [k for k in turns if k in fns]:
+        walls, hosts, losses = [], [], []
+
+        def run():
+            for bt in tensors:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[kind], m = fns[kind](states[kind], bt)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                hosts.append(t1 - t0)
+                seen[kind].append({k: v.cpu() for k, v in m.items()})
+                losses.append(float(m["loss"]))
+        _, launches = run_main_path(run)
+        for k, n in launches.items():
+            counts[kind][k] = counts[kind].get(k, 0) + n
+        runs.append({"kind": kind, "losses": losses, "walls": walls,
+                     "hosts": hosts, "launches": launches})
+    main = states[runs[0]["kind"]]
+    rec = {"eager_reason": why, "runs": runs}
+    if not why:
+        a, b = states["graphs"], states["eager"]
+        rec["stats"] = fns["graphs"].stats()
+        rec["bit_equal"] = {
+            "metrics": len(seen["graphs"]) == len(seen["eager"]) and all(
+                x.keys() == y.keys() and all(torch.equal(x[k], y[k])
+                                             for k in x)
+                for x, y in zip(seen["graphs"], seen["eager"])),
+            "parameters": all(torch.equal(p, q) for p, q in zip(
+                a.model.parameters(), b.model.parameters())),
+            "trace": all(torch.equal(a.opt_state.trace[k],
+                                     b.opt_state.trace[k])
+                         for k in a.opt_state.trace),
+            "launches": counts["graphs"] == counts["eager"]}
+    h = hashlib.sha256()
+    for k, p in main.model.named_parameters():
+        if step.sharded_dim((main.specs or {}).get(k, ())) is None:
+            h.update(p.detach().cpu().numpy().tobytes())
+    rec["replicated"] = h.hexdigest()
+    if not why:         # its graphs hold NCCL's communicators
+        fns["graphs"].release()
+    return rec, main
+
+
+def describe_turns(phase: str, what: str, recs, audio):
+    """Print a mesh run's compiled-against-eager record (ranks' records
+    of :func:`step_turns`; ``audio``: the audio seconds of each step's
+    global batch) and raise unless, where the step is compiled, every
+    rank's graphs are bit-equal to its eager step (metrics at every step,
+    parameters, trace, launch counts); returns rank 0's main turn (the
+    first)."""
+    rec = recs[0]
+    if rec["eager_reason"]:
+        log(f"{phase}: {what}: the eager step, not graphs: "
+            f"{rec['eager_reason']}")
+        return rec["runs"][0]
+    for run in rec["runs"]:
+        log(f"{phase}: {what}: {run['kind']} turn (rank 0): "
+            f"{float(np.mean(run['walls'])) * 1e3:.2f} ms a step "
+            f"(steps synchronised), {sum(audio) / sum(run['walls']):.1f} "
+            f"audio-s/s, host {float(np.median(run['hosts'])) * 1e3:.3f} "
+            f"ms a step to its return (median)")
+    equal = [r["bit_equal"] for r in recs]
+    ok = all(all(e.values()) for e in equal)
+    log(f"{phase}: {what}: compiled step, {rec['stats']['shapes']} shape(s) "
+        f"captured in "
+        f"{[round(x, 3) for x in rec['stats']['capture_s']]} s (warm-up + "
+        f"capture, rank 0); bit-equal to the eager mesh step on every "
+        f"rank (metrics every step, parameters, trace, launch counts): "
+        f"{ok} {equal[0]}")
+    if not ok:
+        raise AssertionError(f"{what}: the compiled mesh step differs from "
+                             f"the eager one: {equal}")
+    return rec["runs"][0]
+
+
 def phase_mesh_one(steps=3, dev="cuda"):
     """Phase 12, part 3: preset 3 at B = 64 through ``make_mesh`` and
     ``make_train_step`` with a one-rank NCCL group (the compiled step: one
@@ -2135,48 +2278,71 @@ def phase_mesh_one(steps=3, dev="cuda"):
                                  "train_step")
         if launches["birnn_fwd"] != 10 * steps:
             raise AssertionError(f"launches {launches}")
+        captured_all_reduce(state, dev)
     finally:
         dist.destroy_process_group()
     return launches, ref_losses
 
 
+def captured_all_reduce(state, dev="cuda"):
+    """One NCCL collective in a CUDA graph, on the card this run has: the
+    step's gradient all-reduce (``train.step._all_reduce_grads``, one
+    all-reduce of the flattened gradients) over the one-rank NCCL world,
+    captured after a warm-up on a side stream, then replayed on two new
+    sets of values, each bit-equal to the eager call on the same
+    values.  (Several ranks' graphs need several cards: phases 12 and 14
+    hold them where ``nvidia-smi -L`` lists enough.)"""
+    from tpu_ctc_torch.train import step
+    grads = [torch.zeros_like(p) for p in state.model.parameters()]
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        step._all_reduce_grads(grads)
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = step._all_reduce_grads(grads)
+    same = []
+    for seed in (1, 2):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        vals = [torch.randn(g.shape, generator=gen, device=dev).to(g.dtype)
+                for g in grads]
+        for g, v in zip(grads, vals):
+            g.copy_(v)
+        graph.replay()
+        want = step._all_reduce_grads([v.clone() for v in vals])
+        same.append(all(torch.equal(a, b) for a, b in zip(out, want)))
+    log(f"phase 12: the step's gradient all-reduce (_all_reduce_grads, "
+        f"{sum(g.numel() for g in grads)} values) captured in a CUDA graph "
+        f"over the one-rank NCCL group; 2 replays on new values bit-equal "
+        f"to the eager call: {same}")
+    if not all(same):
+        raise AssertionError("a captured NCCL all-reduce differs from the "
+                             "eager one")
+
+
 RANK_WORKER = r"""
-import hashlib, json, sys, time
+import faulthandler, json, sys
 import torch, torch.distributed as dist
+faulthandler.dump_traceback_later(540, exit=True)   # a hang shows its stack
 sys.path.insert(0, sys.argv[6])
 import chip_smoke
 from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
 from tpu_ctc_torch.train import step
 from tpu_ctc_torch.train.loop import batch_to_device_dict
 
-coord, rank, world, backend, dev, _, data, seq, steps = sys.argv[1:10]
-rank, world = int(rank), int(world)
+coord, rank, world, backend, dev, _, spec = sys.argv[1:8]
+rank, world, spec = int(rank), int(world), json.loads(spec)
 dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
-cfg, batches = chip_smoke.preset3_batches(int(steps))
-cfg = cfg.override(**{"mesh.data": int(data), "mesh.seq": int(seq)})
+cfg, batches = chip_smoke.mesh_batches(spec["shape"], spec["steps"])
+cfg = cfg.override(**{"mesh.data": spec["data"], "mesh.seq": spec["seq"]})
 mesh = mesh_lib.make_mesh(cfg.mesh)
-state = step.create_train_state(cfg, device=dev)
-step_fn, state = step.make_train_step(cfg, mesh, state)
-tensors = [step.batch_to_tensors(step.local_batch(batch_to_device_dict(b),
-                                                  mesh), dev)
+tensors = [step.batch_to_tensors(batch_to_device_dict(b), dev, mesh)
            for b in batches]
-losses, walls = [], []
-def run():
-    global state
-    for bt in tensors:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        state, m = step_fn(state, bt)
-        losses.append(float(m["loss"]))
-        walls.append(time.time() - t0)
-_, launches = chip_smoke.run_main_path(run)
-h = hashlib.sha256()
-for p in state.model.parameters():
-    h.update(p.detach().cpu().numpy().tobytes())
-print("RANK " + json.dumps({"rank": rank, "mesh": mesh.shape,
-                            "losses": losses, "walls": walls,
-                            "launches": launches,
-                            "params": h.hexdigest()}), flush=True)
+rec, _ = chip_smoke.step_turns(cfg, mesh, dev, tensors, spec["turns"])
+rec.update(rank=rank, mesh=mesh.shape)
+print("RANK " + json.dumps(rec), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -2189,66 +2355,84 @@ def card_count() -> int:
 
 
 def spawn_ranks(world: int, backend: str, devs, data: int, seq: int,
-                steps: int = 3, timeout: int = 600):
-    """Preset 3's first ``steps`` global batches of
-    :func:`preset3_batches` through ``make_train_step`` on a mesh of
-    ``world`` ranks (one process each on ``devs[r]``, ``backend``, mesh
-    data x seq); returns each rank's record: losses, step walls, launches
-    on the path and a hash of its parameters."""
+                steps: int = 3, shape: str = "preset3",
+                turns=("graphs", "eager"), timeout: int = 600):
+    """The first ``steps`` global batches of :func:`mesh_batches`
+    (``shape``) through ``make_train_step`` on a mesh of ``world`` ranks
+    (one process each on ``devs[r]``, ``backend``, mesh data x seq), the
+    compiled step against the eager one in ``turns``
+    (:func:`step_turns`); returns each rank's record."""
     from tpu_ctc_torch.parallel import distributed
     root = os.path.dirname(os.path.abspath(__file__))
     coord = f"127.0.0.1:{distributed.free_port()}"
+    spec = json.dumps({"shape": shape, "steps": steps, "data": data,
+                       "seq": seq, "turns": list(turns)})
     return distributed.spawn_ranks(
         [[sys.executable, "-c", RANK_WORKER, coord, str(r), str(world),
-          backend, devs[r], root, str(data), str(seq), str(steps)]
+          backend, devs[r], root, spec]
          for r in range(world)], cwd=root,
         env=dict(os.environ, PYTHONPATH=root), timeout=timeout)
 
 
 def phase_mesh_ranks(ref_losses):
-    """Phase 12, part 4: preset 3 with ``mesh.seq=2`` over several ranks
-    for 3 steps on phase 12's global batches: on 2 or more cards 2 NCCL
-    ranks, or 4 (data = 2) when there are 4; on one card 2 ranks on that
-    card over gloo (NCCL refuses two ranks on one device; gloo sums CUDA
-    tensors, and the step's collectives are all-reduces and broadcasts).
-    The loss against the one-card step's within LOSS_REL_TOL, the
-    parameters bit-equal across ranks."""
+    """Phase 12, part 4: preset 3 over several ranks for 3 steps on phase
+    12's global batches.  On 2 or more cards NCCL ranks, one card each:
+    DP2 (data = 2) and SP2 (seq = 2), each the compiled step (one CUDA
+    graph per batch shape) against the eager mesh step from the same
+    seed (:func:`step_turns`: bit-equal in metrics, parameters, trace and
+    launch counts on every rank).  On one
+    card SP2 as 2 gloo ranks sharing it (NCCL refuses two ranks on one
+    device; gloo sums CUDA tensors), which stays eager (gloo's
+    collectives run through the host).  On 4 or more cards DP2 x SP2
+    (data = 2, seq = 2) as well, the same way.  The losses against the one-card
+    step's within LOSS_REL_TOL, the parameters bit-equal across ranks.
+    Returns {mesh name: launches of its main run, ranks summed}."""
     count = card_count()
-    if count >= 2:                      # 2 or 4 ranks: seq = 2, data = 1 or 2
-        world, backend = (4 if count >= 4 else 2), "nccl"
-        devs = [f"cuda:{r}" for r in range(world)]
+    if count >= 2:
+        backend = "nccl"
+        meshes = [(2, 1), (1, 2)] + ([(2, 2)] if count >= 4 else [])
     else:
-        world, backend, devs = 2, "gloo", ["cuda:0", "cuda:0"]
-    log(f"phase 12: nvidia-smi -L lists {count} card(s): {world} {backend} "
-        f"ranks on {devs}, mesh data={world // 2} seq=2")
-    recs = spawn_ranks(world, backend, devs, world // 2, 2)
-    losses = recs[0]["losses"]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-    same = len({rec["params"] for rec in recs}) == 1
-    step_s = float(np.median(recs[0]["walls"][1:]))
+        backend, meshes = "gloo", [(1, 2)]
     _, batches = preset3_batches(3)
     audio = float(np.mean([int(b.frame_lengths.sum()) / 100
                            for b in batches[1:]]))
-    launches = {k: sum(rec["launches"][k] for rec in recs)
-                for k in recs[0]["launches"]}
-    log(f"phase 12: {world} ranks ({backend}), mesh {recs[0]['mesh']}: "
-        f"losses {[round(x, 4) for x in losses]} against one card's "
-        f"{[round(x, 4) for x in ref_losses]} (rel {rel:.2e}, limit "
-        f"{LOSS_REL_TOL}); parameters bit-equal across ranks: {same}; step "
-        f"{step_s * 1e3:.1f} ms (median of steps 2-3) = "
-        f"{audio / step_s:.1f} audio-s/s; launches on the path (all ranks) "
-        f"{launches}")
-    if rel > LOSS_REL_TOL or not same:
-        raise AssertionError("the multi-rank SP step disagrees")
-    if launches["birnn_fwd"] == 0 or launches["birnn_bwd"] == 0:
-        raise AssertionError("the SP step launched no B1 or B2")
-    return launches, {"world": world, "backend": backend, "cards": count,
-                      "step_ms": step_s * 1e3, "rate": audio / step_s}
+    out = {}
+    for data, seq in meshes:
+        world = data * seq
+        devs = ([f"cuda:{r}" for r in range(world)] if backend == "nccl"
+                else ["cuda:0"] * world)
+        name = f"data={data} seq={seq}"
+        log(f"phase 12: nvidia-smi -L lists {count} card(s): {world} "
+            f"{backend} ranks on {devs}, mesh {name}")
+        recs = spawn_ranks(world, backend, devs, data, seq)
+        first = describe_turns("phase 12", f"preset 3 on {name}", recs,
+                               [int(b.frame_lengths.sum()) / 100
+                                for b in batches])
+        losses = first["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        same = len({rec["replicated"] for rec in recs}) == 1
+        step_s = float(np.median(first["walls"][1:]))
+        launches = {k: sum(rec["runs"][0]["launches"][k] for rec in recs)
+                    for k in first["launches"]}
+        log(f"phase 12: {world} ranks ({backend}), mesh {recs[0]['mesh']}: "
+            f"losses {[round(x, 4) for x in losses]} against one card's "
+            f"{[round(x, 4) for x in ref_losses]} (rel {rel:.2e}, limit "
+            f"{LOSS_REL_TOL}); parameters bit-equal across ranks: {same}; "
+            f"step {step_s * 1e3:.1f} ms (median of steps 2-3) = "
+            f"{audio / step_s:.1f} audio-s/s; launches on the path (all "
+            f"ranks) {launches}")
+        if rel > LOSS_REL_TOL or not same:
+            raise AssertionError(f"the multi-rank step on {name} disagrees")
+        if launches["birnn_fwd"] == 0 or launches["birnn_bwd"] == 0:
+            raise AssertionError(f"the step on {name} launched no B1 or B2")
+        out[name] = launches
+    return out
 
 
 AUDIO_RANK_WORKER = r"""
-import hashlib, json, sys, time
+import faulthandler, hashlib, json, sys, time
 import torch, torch.distributed as dist
+faulthandler.dump_traceback_later(540, exit=True)   # a hang shows its stack
 sys.path.insert(0, sys.argv[6])
 import chip_smoke
 from tpu_ctc_torch.config import get_config
@@ -2303,6 +2487,7 @@ print("RANK " + json.dumps({"rank": rank, "mesh": mesh.shape,
                             "hashes": hashes, "walls": walls, "audio": audio,
                             "losses": losses, "launches": launches,
                             "params": h.hexdigest()}), flush=True)
+del step_fn         # its graphs hold NCCL's communicators
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -2344,8 +2529,8 @@ def phase_mesh_audio(seed: int, one_rank, epochs: int = 3):
             mesh = mesh_lib.Mesh({"data": 2, "model": 1, "seq": 1}, r,
                                  {"data": (0, 1), "model": (r,),
                                   "seq": (r,)})
-            block = cut_labels(step.local_batch(batch_to_device_dict(batch),
-                                                mesh))
+            block = step.local_batch(cut_labels(batch_to_device_dict(
+                batch)), mesh)
             h = hashlib.sha256()
             for k in sorted(block):
                 h.update(torch.as_tensor(block[k]).numpy().tobytes())
@@ -2755,8 +2940,9 @@ def synthetic_batches(cfg, n_steps: int, batch: int, frames: int, seed: int):
 
 
 MESH14_WORKER = r"""
-import hashlib, json, sys, time
+import faulthandler, json, sys, time
 import numpy as np, torch, torch.distributed as dist
+faulthandler.dump_traceback_later(840, exit=True)   # a hang shows its stack
 sys.path.insert(0, sys.argv[6])
 import chip_smoke
 from tpu_ctc_torch.config import get_config
@@ -2772,31 +2958,15 @@ rec = {"rank": rank, "mesh": mesh.shape}
 if spec["kind"] == "train":
     batches = chip_smoke.synthetic_batches(cfg, spec["steps"], spec["batch"],
                                            spec["frames"], spec["seed"])
-    state = step.create_train_state(cfg, device=dev)
-    step_fn, state = step.make_train_step(cfg, mesh, state)
-    tensors = [step.batch_to_tensors(step.local_batch(b, mesh), dev)
-               for b in batches]
-    losses, walls = [], []
-    def run():
-        global state
-        for bt in tensors:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            state, m = step_fn(state, bt)
-            losses.append(float(m["loss"]))
-            walls.append(time.time() - t0)
-    _, launches = chip_smoke.run_main_path(run)
-    h = hashlib.sha256()
-    for k, p in state.model.named_parameters():
-        if step.sharded_dim(state.specs.get(k, ())) is None:
-            h.update(p.detach().cpu().numpy().tobytes())
+    tensors = [step.batch_to_tensors(b, dev, mesh) for b in batches]
+    rec2, state = chip_smoke.step_turns(
+        cfg, mesh, dev, tensors, spec.get("turns", ("graphs", "eager")))
+    rec.update(rec2)
     if spec.get("out"):                 # the gathered parameters
         whole = step.full_state(state)
         if rank == 0:
             torch.save({k: p.detach() for k, p in
                         whole.model.named_parameters()}, spec["out"])
-    rec.update(losses=losses, walls=walls, launches=launches,
-               replicated=h.hexdigest())
 else:                               # the collective decode of preset 4
     from tpu_ctc_torch.decode.collective import make_collective_decoder
     from tpu_ctc_torch.models import birnn
@@ -2885,17 +3055,21 @@ def check_mesh_train(what, recs, backend, ref, gathered, audio_s,
     """Losses within LOSS_REL_TOL of one card's, replicated parameters
     bit-equal across ranks, each gathered parameter's gap from one card's
     (:func:`param_gaps`) within ``limits[name]`` (default GRAD_REL_TOL,
-    §2's gradient limit)."""
+    §2's gradient limit); where the ranks are NCCL's, the compiled step
+    bit-equal to the eager mesh step on every rank
+    (:func:`describe_turns`)."""
     ref_losses = ref[0]
-    losses = recs[0]["losses"]
+    first = describe_turns("phase 14", what, recs,
+                           [audio_s] * len(recs[0]["runs"][0]["walls"]))
+    losses = first["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     same = len({rec["replicated"] for rec in recs}) == 1
     gaps = param_gaps(gathered, ref)
     limits = limits or {k: GRAD_REL_TOL for k in gaps}
     worst_k = max(gaps, key=lambda k: gaps[k] / limits[k])
-    step_s = float(np.median(recs[0]["walls"][1:] or recs[0]["walls"]))
-    launches = {k: sum(rec["launches"][k] for rec in recs)
-                for k in recs[0]["launches"]}
+    step_s = float(np.median(first["walls"][1:] or first["walls"]))
+    launches = {k: sum(rec["runs"][0]["launches"][k] for rec in recs)
+                for k in first["launches"]}
     log(f"phase 14: {what}: {len(recs)} {backend} ranks, mesh "
         f"{recs[0]['mesh']}: losses {[round(x, 4) for x in losses]} against "
         f"one card's {[round(x, 4) for x in ref_losses]} (rel {rel:.2e}, "
@@ -3325,7 +3499,8 @@ def main() -> int:
              "gru": gru_launches, **audio_paths}
     carry_err, _ = phase_carry(REPS)
     paths["mesh_one"], ref_losses = phase_mesh_one()
-    paths["mesh_ranks"], _ = phase_mesh_ranks(ref_losses)
+    mesh_runs = phase_mesh_ranks(ref_losses)
+    paths.update({f"mesh {name}": n for name, n in mesh_runs.items()})
     paths["mesh_audio"] = phase_mesh_audio(seed=0, one_rank=one_rank)
     took("phase 12")
     phase_tools(records, kept)
@@ -3343,7 +3518,8 @@ def main() -> int:
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
         if rec["name"] == "birnn_fwd":  # every SP sweep starts from h0
-            rec["h0_launches"] = paths["mesh_ranks"]["birnn_fwd"]
+            rec["h0_launches"] = sum(n["birnn_fwd"] for name, n in
+                                     mesh_runs.items() if "seq=2" in name)
             rec["max_abs_err"] = max(rec["max_abs_err"], carry_err)
     wide = {rec["name"]: rec for rec in records
             if rec["name"].endswith("_wide") and "replaces" in rec

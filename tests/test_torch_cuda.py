@@ -1086,21 +1086,23 @@ state = step.create_train_state(cfg, device=dev)
 step_fn, state = step.make_train_step(cfg, mesh, state)
 losses = []
 for b in batches:
-    local = step.local_batch(batch_to_device_dict(b), mesh)
-    state, m = step_fn(state, step.batch_to_tensors(local, dev))
+    state, m = step_fn(state, step.batch_to_tensors(batch_to_device_dict(b),
+                                                    dev, mesh))
     losses.append(float(m["loss"]))
 flat = torch.cat([p.detach().reshape(-1).cpu()
                   for p in state.model.parameters()])
 np.save(sys.argv[3] + f"/rank{rank}.npy", np.concatenate(
     [np.array(losses), flat.numpy()]))
+del step_fn         # its graphs hold NCCL's communicators
 torch.distributed.destroy_process_group()
 """
 
 
 def test_two_rank_nccl_dp_step(dev, tmp_path):
-    """Two NCCL ranks on two cards take DP steps of a narrow preset 2: the
-    parameters are bit-equal across ranks and the losses within 1e-3 of
-    one card's steps on the same global batches."""
+    """Two NCCL ranks on two cards take DP steps of a narrow preset 2 (the
+    compiled mesh step): the parameters are bit-equal across ranks and
+    the losses within 1e-3 of one card's steps on the same global
+    batches."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     import os
@@ -1157,20 +1159,21 @@ if rank == 0:
 mesh = mesh_lib.make_mesh(cfg.mesh)
 state = step.create_train_state(cfg, device=dev)
 step_fn, state = step.make_train_step(cfg, mesh, state)
-state, m = step_fn(state, step.batch_to_tensors(
-    step.local_batch(arrays, mesh), dev))
+state, m = step_fn(state, step.batch_to_tensors(arrays, dev, mesh))
 whole = step.full_state(state)
 np.save(out + f"/rank{rank}.npy", np.concatenate(
     [[float(m["loss"])]] + [p.detach().reshape(-1).float().numpy()
                             for p in whole.model.parameters()]))
+del step_fn         # its graphs hold NCCL's communicators
 torch.distributed.destroy_process_group()
 """
 
 
 def test_two_card_tp_step(dev, tmp_path):
     """Two NCCL ranks on two cards take a TP step (model = 2) of a narrow
-    preset 2: the gathered parameters are bit-equal across ranks and the
-    loss within 1e-3 of one card's step on the same batch."""
+    preset 2 (the compiled mesh step): the gathered parameters are
+    bit-equal across ranks and the loss within 1e-3 of one card's step
+    on the same batch."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     import os
@@ -1193,6 +1196,222 @@ def test_two_card_tp_step(dev, tmp_path):
     state = step.create_train_state(cfg, device=dev)
     _, m = step.train_step(state, step.batch_to_tensors(batch, dev), cfg)
     np.testing.assert_allclose(a[0], float(m["loss"]), rtol=1e-3)
+
+
+MESH_GRAPH_WORKER = """
+import faulthandler, json, sys
+import numpy as np, torch
+faulthandler.dump_traceback_later(300, exit=True)   # a hang shows its stack
+from tpu_ctc_torch.config import get_config
+from tpu_ctc_torch.data.bucketing import cut_labels
+from tpu_ctc_torch.ops import kernels
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import graphs, step
+
+coord, rank, out, over = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dev = distributed.initialize(coord, 2, rank)
+cfg = get_config("2", **{
+    "model.hidden_dim": 128, "model.num_bi_layers": 2, "data.batch_size": 8,
+    "optim.momentum_start": 0.5, "optim.momentum_ramp_steps": 9,
+    "optim.lr_decay": 0.8, "optim.lr_decay_steps": 1, **json.loads(over)})
+mesh = mesh_lib.make_mesh(cfg.mesh)
+
+
+def batch(seed, t, longest):
+    # the longest label in row 1 (data line 0's block under DP2); the rows
+    # of data line 1 at most 20 characters, so their block alone cuts to 32
+    r = np.random.RandomState(seed)
+    lens = r.randint(2 * longest + 1, t + 1, 8).astype(np.int32)
+    lens[0] = t
+    ll = r.randint(1, 21, 8).astype(np.int32)
+    ll[1] = longest
+    labels = np.zeros((8, 128), np.int32)
+    for i, n in enumerate(ll):
+        labels[i, :n] = r.randint(1, 29, n)
+    return {"feats": r.randn(8, t, 120).astype(np.float32),
+            "frame_mask": (np.arange(t)[None] < lens[:, None]).astype(
+                np.float32),
+            "frame_lengths": lens, "labels": labels, "label_lengths": ll,
+            "weights": np.ones(8, np.float32)}
+
+
+def counts():
+    return [k.launches for k in kernels()]
+
+
+def tensors_of(state):
+    return (list(state.model.parameters())
+            + [state.opt_state.trace[k] for k in sorted(state.opt_state.trace)])
+
+
+batches = [batch(i, t, n) for i, (t, n) in
+           enumerate([(96, 20), (96, 40), (160, 20), (160, 40)])]
+tensors = [step.batch_to_tensors(b, dev, mesh) for b in batches]
+eager, ref = step.make_train_step(
+    cfg, mesh, step.create_train_state(cfg, device=dev))
+eager = getattr(eager, "eager", eager)    # the eager mesh step
+fn, state = step.make_train_step(cfg, mesh,
+                                 step.create_train_state(cfg, device=dev))
+rec = {"compiled": isinstance(fn, graphs.CompiledTrainStep),
+       "train_equal": [], "losses": [],
+       "own_widths": [cut_labels(step.local_batch(b, mesh))["labels"].shape[1]
+                      for b in batches]}
+n_eager, n_graph = [0] * len(kernels()), [0] * len(kernels())
+for i in [0, 2, 1, 3, 2, 0, 3, 1]:
+    c0 = counts()
+    ref, want = eager(ref, tensors[i])
+    c1 = counts()
+    state, got = fn(state, tensors[i])
+    c2 = counts()
+    n_eager = [n + b - a for n, a, b in zip(n_eager, c0, c1)]
+    n_graph = [n + b - a for n, a, b in zip(n_graph, c1, c2)]
+    rec["train_equal"].append(
+        got.keys() == want.keys()
+        and all(torch.equal(got[k], want[k]) for k in want)
+        and all(torch.equal(a, b) for a, b in
+                zip(tensors_of(state), tensors_of(ref))))
+    rec["losses"].append(float(got["loss"]))
+rec["train_launches"] = [n_graph, n_eager]
+rec["widths"] = sorted(dict((k, s) for k, s, _ in key)["labels"][1]
+                       for key in fn.graphs)
+ev = step.make_eval_step(cfg, mesh, dev)
+ev_eager = getattr(ev, "eager", ev)       # the eager mesh eval
+rec["eval_compiled"] = isinstance(ev, graphs.CompiledEvalStep)
+rec["eval_equal"] = []
+n_eager, n_graph = [0] * len(kernels()), [0] * len(kernels())
+for i in (0, 3, 0, 3):
+    whole = step.batch_to_tensors(batches[i], dev)
+    c0 = counts()
+    want = ev_eager(state.model, whole)
+    c1 = counts()
+    got = ev(state.model, whole)
+    c2 = counts()
+    n_eager = [n + b - a for n, a, b in zip(n_eager, c0, c1)]
+    n_graph = [n + b - a for n, a, b in zip(n_graph, c1, c2)]
+    rec["eval_equal"].append(got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want))
+rec["eval_launches"] = [n_graph, n_eager]
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump(rec, f)
+fn.release()        # the graphs hold NCCL's communicators
+ev.release()
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+MESH_OVERRIDES = {
+    "dp2": {"mesh.data": 2},
+    "sp2": {"mesh.data": 1, "mesh.seq": 2},
+    "tp2": {"mesh.data": 1, "mesh.model": 2},
+    "pp2": {"mesh.data": 1, "mesh.model": 2, "mesh.pipeline": True},
+}
+
+
+@pytest.mark.parametrize("mesh", list(MESH_OVERRIDES))
+def test_two_card_compiled_mesh_step_is_the_eager_step(dev, tmp_path, mesh):
+    """Two NCCL ranks on two cards (DP2, SP2, TP2 and PP2 of a narrow
+    preset 2): ``make_train_step`` returns the compiled step, and over 8
+    steps on two T buckets and two label widths, replayed out of order,
+    with m and lr changing every step, its metrics, parameters and trace
+    are bit-equal to the eager mesh step's after every step on both
+    ranks, with equal launch counts; the loss is the same on both ranks.
+    The labels are cut on the global batch: data line 1's block alone
+    would cut the 40-character batches to 32 columns under DP2, yet every
+    rank captures the global width, 64.  The compiled eval step (DP's
+    gathered eval, TP's and PP's split eval, SP's whole-batch eval) is
+    bit-equal to the eager one, with equal launch counts."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_GRAPH_WORKER,
+                               coord, str(r), str(tmp_path),
+                               json.dumps(MESH_OVERRIDES[mesh])], cwd=repo,
+                              env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    recs = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    for rec in recs:
+        assert rec["compiled"] and rec["eval_compiled"]
+        assert all(rec["train_equal"]), rec["train_equal"]
+        assert all(rec["eval_equal"]), rec["eval_equal"]
+        graph_n, eager_n = rec["train_launches"]
+        assert graph_n == eager_n and max(eager_n) > 0
+        graph_n, eager_n = rec["eval_launches"]
+        assert graph_n == eager_n and max(eager_n) > 0
+        assert rec["widths"] == [32, 32, 64, 64], rec["widths"]
+    assert recs[0]["losses"] == recs[1]["losses"]
+    if mesh == "dp2":
+        assert recs[1]["own_widths"] == [32, 32, 32, 32]
+        assert recs[0]["own_widths"] == [32, 64, 32, 64]
+
+
+CLI_FAIL_WORKER = """
+import os, sys
+from tpu_ctc_torch import cli
+from tpu_ctc_torch.train import graphs
+
+coord, rank, work = sys.argv[1], sys.argv[2], sys.argv[3]
+host, port = coord.split(":")
+os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, WORLD_SIZE="2",
+                  RANK=rank, LOCAL_RANK=rank)
+call, calls = graphs.CompiledTrainStep.__call__, []
+
+
+def failing(self, state, batch):   # steps 1-2 captured and replayed
+    calls.append(1)
+    if len(calls) == 3:
+        raise RuntimeError("the third step fails on every rank")
+    return call(self, state, batch)
+
+
+graphs.CompiledTrainStep.__call__ = failing
+sys.exit(cli.main([
+    "train", "--config", "2", "--synthetic", "48", "--work-dir", work,
+    "--set", "model.hidden_dim=128", "--set", "model.num_bi_layers=1",
+    "--set", "data.batch_size=8", "--set", "data.bucket_boundaries=(200,)",
+    "--set", "mesh.data=2"]))
+"""
+
+
+def test_two_card_cli_train_exits_when_a_step_raises(dev, tmp_path):
+    """``cli train`` on two NCCL ranks (DP2, the compiled step) whose third
+    step raises on every rank exits with the error: the loop releases the
+    graphs, which hold NCCL operations, before ``destroy_process_group``
+    tears the communicators down (it would otherwise wait for ever)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    errs = [open(tmp_path / f"rank{r}.err", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", CLI_FAIL_WORKER, coord,
+                               str(r), str(tmp_path / "run")], cwd=repo,
+                              stdout=subprocess.DEVNULL, stderr=errs[r],
+                              env=dict(os.environ, PYTHONPATH=repo))
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for err in errs:
+        err.seek(0)
+        text = err.read()
+        assert "the third step fails on every rank" in text, text[-2000:]
+    assert rcs == [1, 1]
 
 
 def test_device_time_of_b3_matches_its_event_time(dev):

@@ -17,6 +17,9 @@ metadata; B = 4, buckets (60, 120, 250), frame stride 2):
   block of the one-rank global batch under DP2, SP2 and DP2 x SP2, from
   the first batch and resumed mid-epoch, and the global metadata (lengths,
   labels, weights, the batch's audio seconds) is whole;
+* every rank's block carries the global batch's label width (one graph
+  key on every rank of a mesh), with the CTC loss of the old per-rank
+  cut;
 * a pool of 2 spawned workers (``ManifestDataset(workers=2)``) gives every
   item bit-equal to ``ds[i]`` in this process, dither on and off;
 * a worker's exception reaches the consumer of ``prefetch_to_device`` and
@@ -136,8 +139,8 @@ class TestRankRows:
                 select=lambda a: step.local_batch(a, mesh)))
             assert [c for c, _, _ in got] == [c for c, _ in want]
             for (_, batch, tens), (_, full) in zip(got, want):
-                block = cut_labels(step.local_batch(
-                    batch_to_device_dict(full), mesh))
+                block = step.local_batch(cut_labels(
+                    batch_to_device_dict(full)), mesh)
                 assert set(tens) == set(block)
                 for k, v in block.items():
                     assert tens[k].dtype == torch.from_numpy(v).dtype
@@ -147,6 +150,42 @@ class TestRankRows:
                     np.testing.assert_array_equal(getattr(batch, k),
                                                   getattr(full, k), k)
                 assert batch.audio_seconds() == full.audio_seconds()
+
+    @pytest.mark.parametrize("name", ["dp2", "dp2xsp2"])
+    def test_every_rank_gets_the_global_label_width(self, name):
+        """The prefetch thread cuts the labels on the global batch before it
+        keeps the rank's block, so every rank of the mesh gets the same
+        label width, the key of the same CUDA graph at the same step: here
+        a 40-character label in data line 0's rows makes the global width
+        64, where data line 1's rows alone would cut to 32.  Each rank's
+        CTC loss at the global width equals the loss at its block's own
+        cut bit for bit (the extra states are dead)."""
+        from tpu_ctc_torch.data.bucketing import make_batch
+        from tpu_ctc_torch.losses import ctc
+        r = np.random.RandomState(5)
+        n_b, t = 8, 120
+        lens = [40] + [int(x) for x in r.randint(5, 21, n_b - 1)]
+        utts = [(r.randn(int(r.randint(100, t + 1)), 6).astype(np.float32),
+                 (np.arange(n) % 28 + 1).astype(np.int32)) for n in lens]
+        full = make_batch(utts, t_pad=t, l_pad=64, batch_size=n_b)
+        shape = MESHES[name]
+        logits = torch.from_numpy(r.randn(n_b, t, 29).astype(np.float32))
+        for rank in range(int(np.prod(shape))):
+            mesh = hand_mesh(shape, rank)
+            (_, _, tens), = prefetch_to_device(
+                iter([(0, full)]), "cpu",
+                select=lambda a: step.local_batch(a, mesh))
+            own = cut_labels(step.local_batch(batch_to_device_dict(full),
+                                              mesh))
+            assert tens["labels"].shape[1] == 64, (rank, tens["labels"].shape)
+            assert own["labels"].shape[1] == (
+                64 if mesh.axis_index("data") == 0 else 32)
+            rows = step.local_rows(mesh, n_b)
+            got, want = (ctc.ctc_loss(
+                logits[rows], torch.as_tensor(np.asarray(labels)),
+                tens["frame_lengths"], tens["label_lengths"])
+                for labels in (tens["labels"], own["labels"]))
+            assert torch.equal(got, want), rank
 
     def test_eval_rows_follow_the_eval_step(self):
         """The rows an eval loader featurizes are the rows the mesh's eval

@@ -19,7 +19,11 @@ within rtol 1e-4, atol 1e-5: the tolerances by which the JAX tests hold SP
 and DP to one device (``test_seq_parallel.py:68-72``).  The gradient norm
 is compared too because the clip at 5 hides a wrong gradient scale (a
 factor n_seq) from the parameters.  After the steps the parameters are
-bit-equal across ranks.  Beside them: ``resolve_mesh_shape`` (the cases of
+bit-equal across ranks.  DP2 once more on batches from
+``prefetch_to_device`` (the labels cut on the global batch), where
+``make_train_step`` and ``make_eval_step`` stay eager on gloo ranks (no
+CUDA graph over collectives that run through the host).  Beside them:
+``resolve_mesh_shape`` (the cases of
 ``tests/test_sharding.py:61-73``), the step's configuration errors, a
 two-process ``initialize`` with ``local_batch_slice`` and one all-reduce, a
 checkpoint written under data = 2 and restored in one process, and ``cli
@@ -112,6 +116,49 @@ out.update({"trace/" + k: v.numpy() for k, v in state.opt_state.trace.items()})
 np.savez(f"{work}/out_{rank}.npz", **out)
 if rank == 0:
     checkpoint.save(work + "/ckpt", state, epoch=2, batch_cursor=5)
+torch.distributed.barrier()
+print(f"OK rank {rank}", flush=True)
+""" % STEPS
+
+PREFETCH_WORKER = """
+import json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from tpu_ctc_torch import config as C
+from tpu_ctc_torch.data.bucketing import Batch
+from tpu_ctc_torch.data.prefetch import prefetch_to_device
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import checkpoint, graphs, step
+
+coord, rank, world, work, fields = sys.argv[1:6]
+rank, world, f = int(rank), int(world), json.loads(fields)
+distributed.initialize(coord, world, rank, device="cpu")
+cfg = C.Config(model=C.ModelConfig(**f["model"]),
+               optim=C.OptimConfig(**f["optim"]),
+               data=C.DataConfig(**f["data"]),
+               mesh=C.MeshConfig(**f["mesh"]),
+               train=C.TrainConfig(**f["train"]))
+mesh = mesh_lib.make_mesh(cfg.mesh)
+for device in ("cpu", "cuda"):   # gloo stays eager, whatever the device
+    assert "gloo" in step.eager_reason(cfg, mesh, device), device
+state = step.create_train_state(cfg, device="cpu")
+checkpoint.load_npz(state.model, work + "/w.npz")
+step_fn, state = step.make_train_step(cfg, mesh, state)
+assert step_fn.func is step.train_step, step_fn
+eval_fn = step.make_eval_step(cfg, mesh, "cpu")
+assert not isinstance(eval_fn, graphs.CompiledEvalStep), eval_fn
+data = np.load(work + "/batches.npz")
+batches = [(i, Batch(**{k: data[f"{i}/{k}"] for k in step.BATCH_KEYS}))
+           for i in range(%d)]
+losses, norms = [], []
+for _, _, bt in prefetch_to_device(
+        iter(batches), "cpu", select=lambda a: step.local_batch(a, mesh)):
+    state, m = step_fn(state, bt)
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+out = {"losses": np.array(losses), "norms": np.array(norms)}
+out.update({k: p.detach().numpy() for k, p in state.model.named_parameters()})
+np.savez(f"{work}/out_{rank}.npz", **out)
 torch.distributed.barrier()
 print(f"OK rank {rank}", flush=True)
 """ % STEPS
@@ -265,6 +312,28 @@ class TestDistributedSteps:
             assert np.array_equal(p.detach().numpy(), out[k]), k
         for k, v in state.opt_state.trace.items():
             assert np.array_equal(v.numpy(), out["trace/" + k]), k
+
+    def test_dp2_from_the_prefetch_path_stays_eager(self, inputs, tmp_path):
+        """Two gloo ranks on the CPU: ``make_train_step`` and
+        ``make_eval_step`` return the eager steps (``eager_reason`` names
+        gloo, on either device: its collectives run through the host),
+        and DP2 steps on batches from ``prefetch_to_device`` (the labels
+        cut on the global batch, then the rank's block) agree with JAX's
+        DP step within the tolerances above, bit-equal across ranks."""
+        src, refs = inputs
+        for f in ("w.npz", "batches.npz"):
+            os.symlink(src / f, tmp_path / f)
+        launch(PREFETCH_WORKER, 2, str(tmp_path),
+               json.dumps(tiny_fields(2, 1)))
+        outs = [np.load(tmp_path / f"out_{r}.npz") for r in range(2)]
+        losses, norms, params = refs["dp2"]
+        np.testing.assert_allclose(outs[0]["losses"], losses, rtol=1e-4)
+        np.testing.assert_allclose(outs[0]["norms"], norms, rtol=1e-4)
+        for k, want in params.items():
+            np.testing.assert_allclose(outs[0][k], want, rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+        for k in outs[0].files:
+            assert np.array_equal(outs[1][k], outs[0][k]), k
 
     def test_two_process_initialize(self):
         outs = launch(INIT_WORKER, 2)

@@ -338,11 +338,12 @@ def _step_shapes(cfg):
 
 class TestCompiledStep:
     """The compiled step (``train.graphs``: one CUDA graph per batch shape
-    on a card) is made only for a one-rank mesh on a card: on the CPU
-    ``make_train_step`` and ``make_eval_step`` return the eager step, and
-    the graphs' shape key and their bound come from host shapes alone.
-    The graphs themselves are held against the eager step on a card
-    (``tests/test_torch_cuda.py``)."""
+    on a card) is made only on a card, for one rank or NCCL ranks: on the
+    CPU ``make_train_step`` and ``make_eval_step`` return the eager step
+    (gloo ranks too: ``tests/test_torch_parallel.py``), and the graphs'
+    shape key and their bound come from host shapes alone.  The graphs
+    themselves are held against the eager step on a card
+    (``tests/test_torch_cuda.py``, meshes on two cards)."""
 
     def test_the_cpu_and_debug_nans_stay_eager(self):
         from tpu_ctc_torch.parallel.mesh import make_mesh
@@ -355,12 +356,54 @@ class TestCompiledStep:
             assert st2 is st
             assert isinstance(fn, functools.partial)
             assert fn.func is step.train_step
+            assert step.eager_reason(c, mesh, "cpu").startswith("the CPU")
         bt = step.batch_to_tensors(_batches(cfg)[0], "cpu")
         ev = step.make_eval_step(cfg, mesh, "cpu")(st.model, bt)
         want = step.eval_step(st.model, cfg, bt)
         assert ev.keys() == want.keys()
         for k in want:
             assert torch.equal(ev[k], want[k]), k
+
+    def test_train_releases_the_graphs_when_it_returns_or_raises(
+            self, tmp_path, monkeypatch):
+        """``loop.train`` releases its steps' graphs (on a mesh they keep
+        NCCL's communicators alive, and ``destroy_process_group`` would
+        wait for ever) when it returns and when a step raises, though the
+        traceback keeps its frame."""
+        cfg = config.get_config("2", **{**SMALL, "train.num_epochs": 1})
+        data = SyntheticCorpus(10, feature_dim=120, min_chars=2, max_chars=5,
+                               seed=3).all_utterances()
+        released = []
+
+        class Compiled:
+            def __init__(self, fn, what, fail):
+                self.fn, self.what, self.fail = fn, what, fail
+
+            def __call__(self, *args):
+                if self.fail:
+                    raise RuntimeError("capture failed")
+                return self.fn(*args)
+
+            def release(self):
+                released.append(self.what)
+
+        for fail in (False, True):
+            make_train, make_eval = step.make_train_step, step.make_eval_step
+            monkeypatch.setattr(loop, "make_train_step", lambda *a: (
+                lambda fn, st: (Compiled(fn, "train", fail), st))(
+                    *make_train(*a)))
+            monkeypatch.setattr(loop, "make_eval_step", lambda *a: Compiled(
+                make_eval(*a), "eval", False))
+            released.clear()
+            if fail:
+                with pytest.raises(RuntimeError, match="capture failed"):
+                    loop.train(cfg, data, work_dir=str(tmp_path / "f"),
+                               device="cpu")
+            else:
+                state, _ = loop.train(cfg, data, work_dir=str(tmp_path),
+                                      device="cpu")
+                assert state.step > 0
+            assert sorted(released) == ["eval", "train"], (fail, released)
 
     def test_shape_keys_come_from_host_shapes(self):
         """The key of a batch's host arrays (the labels cut) is the key of

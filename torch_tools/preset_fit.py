@@ -229,8 +229,7 @@ def tp_rank_main(spec_json: str) -> None:
     from tpu_ctc_torch.parallel import distributed
     from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train.step import (batch_to_tensors,
-                                          create_train_state, local_batch,
-                                          make_train_step)
+                                          create_train_state, make_train_step)
 
     spec = json.loads(spec_json)
     dev = distributed.initialize(spec["coord"], spec["world"], spec["rank"],
@@ -241,14 +240,15 @@ def tp_rank_main(spec_json: str) -> None:
         mesh = make_mesh(cfg.mesh)
         state = create_train_state(cfg, device=dev)
         step_fn, state = make_train_step(cfg, mesh, state)
-        bt = batch_to_tensors(local_batch(
-            _tp_batch(cfg, spec["batch"], spec["frames"]), mesh), dev)
+        bt = batch_to_tensors(_tp_batch(cfg, spec["batch"], spec["frames"]),
+                              dev, mesh)
         t0 = time.time()
         state, m = step_fn(state, bt)
         loss = float(m["loss"])
         print("RANK " + json.dumps({"loss": loss,
                                     "wall_s": time.time() - t0}),
               flush=True)
+        del step_fn     # its graphs hold NCCL's communicators
         dist.barrier()
     finally:
         dist.destroy_process_group()

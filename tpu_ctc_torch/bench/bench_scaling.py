@@ -8,7 +8,8 @@ starts its ranks): NCCL with one card a rank, or with
 ``--force-cpu-devices N`` N gloo ranks on the CPU, which is a functional
 check only (CPU timings say nothing about NVLink scaling).  Every rank
 builds the same seeded batch and takes its block of it
-(``train.step.local_batch``), steps ``make_train_step`` 3 times to warm
+(``train.step.batch_to_tensors(..., mesh=)``), steps ``make_train_step``
+(on NCCL ranks its CUDA graphs: the first step captures) 3 times to warm
 up and then ``--steps`` times; rank 0's wall clock of those steps gives
 the point's step time.
 
@@ -74,8 +75,7 @@ def rank_main(spec_json: str) -> None:
     from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     from tpu_ctc_torch.train.step import (batch_to_tensors,
-                                          create_train_state, local_batch,
-                                          make_train_step)
+                                          create_train_state, make_train_step)
 
     spec = json.loads(spec_json)
     dev = distributed.initialize(spec["coord"], spec["world"], spec["rank"],
@@ -94,7 +94,7 @@ def rank_main(spec_json: str) -> None:
         mesh = make_mesh(cfg.mesh)
         state = create_train_state(cfg, device=dev)
         step_fn, state = make_train_step(cfg, mesh, state)
-        bt = batch_to_tensors(local_batch(batch_to_device_dict(b), mesh), dev)
+        bt = batch_to_tensors(batch_to_device_dict(b), dev, mesh)
         for _ in range(WARMUP):
             state, m = step_fn(state, bt)
         sync(dev)
@@ -108,6 +108,7 @@ def rank_main(spec_json: str) -> None:
         print("RANK " + json.dumps({"rank": spec["rank"], "step_s": dt,
                                     "loss": loss, "mesh": mesh.shape}),
               flush=True)
+        del step_fn     # its graphs hold NCCL's communicators
         dist.barrier()
     finally:
         dist.destroy_process_group()

@@ -32,12 +32,15 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
                        select=None) -> Iterator:
     """Wrap an iterator of ``(cursor, Batch)``; yield ``(cursor, Batch,
     {name: tensor on device})`` with the arrays of
-    ``train.loop.batch_to_device_dict``, passed through ``select`` (this
-    rank's block of them, ``train.step.local_batch``) before the copy when
-    it is given, and the labels cut to the block's width
-    (``bucketing.cut_labels``, as ``train.step.batch_to_tensors`` cuts
-    them).  The cursor is the yielded batch's own, so a checkpoint
-    taken while it is consumed resumes at it."""
+    ``train.loop.batch_to_device_dict``, the labels cut to the global
+    batch's width (``bucketing.cut_labels``, as
+    ``train.step.batch_to_tensors`` cuts them), then passed through
+    ``select`` (this rank's block of them, ``train.step.local_batch``)
+    before the copy when it is given.  The cut comes first so that every
+    rank of a mesh gets the same label width, and so the same graph key
+    (``train.graphs.shape_key``), at every step.  The cursor is the
+    yielded batch's own, so a checkpoint taken while it is consumed
+    resumes at it."""
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -58,10 +61,9 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
             stream = (torch.cuda.Stream(device) if device.type == "cuda"
                       else None)
             for cursor, batch in iterator:
-                arrays = batch_to_device_dict(batch)
+                arrays = cut_labels(batch_to_device_dict(batch))
                 if select is not None:
                     arrays = select(arrays)
-                arrays = cut_labels(arrays)
                 if stream is None:
                     dev = {k: torch.as_tensor(np.asarray(v), device=device)
                            for k, v in arrays.items()}

@@ -49,8 +49,7 @@ def dryrun_multichip(n: int, dev, log=print) -> None:
     from tpu_ctc_torch.models import birnn
     from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train.step import (batch_to_tensors,
-                                          create_train_state, local_batch,
-                                          make_train_step)
+                                          create_train_state, make_train_step)
 
     model_axis = 2 if n % 2 == 0 and n >= 2 else 1
     seq_axis = 2 if n % 4 == 0 and n >= 4 else 1
@@ -69,8 +68,8 @@ def dryrun_multichip(n: int, dev, log=print) -> None:
         assert mesh.size == n, mesh.shape
         state = create_train_state(cfg, device=dev)
         step_fn, state = make_train_step(cfg, mesh, state)
-        batch = batch_to_tensors(local_batch(
-            _batch(cfg.data.batch_size, t_pad, 0), mesh), dev)
+        batch = batch_to_tensors(_batch(cfg.data.batch_size, t_pad, 0),
+                                 dev, mesh)
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         assert np.isfinite(loss), f"non-finite loss {loss} ({mesh_cfg})"

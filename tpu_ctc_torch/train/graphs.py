@@ -1,5 +1,5 @@
-"""The compiled step: one CUDA graph per batch shape for the one-card train
-and eval steps.
+"""The compiled step: one CUDA graph per batch shape for the train and eval
+steps, on one card and on every mesh of NCCL ranks.
 
 Counterpart of the JAX package's jitted step: its ``make_train_step``
 returns ``jax.jit(train_step, donate_argnums=(0,))``, its eval step is
@@ -9,8 +9,12 @@ jit-compiled step per bucket shape (compiled once, cached)"
 ``train.step.eval_step`` are captured into a ``torch.cuda.CUDAGraph`` the
 first time a batch shape is seen and replayed after that: a step is one
 graph launch instead of the eager step's few hundred launches from Python.
-The eager functions stay as they are: the CPU tests hold them against the
-JAX package, and the card tests hold the graphs against them.
+On a mesh the graph holds the eager mesh step whole: its loss closure
+(DP, SP, TP, PP), the gradient sums and the global norm
+(``train.step.make_train_step``), collectives included, as the JAX
+package jits its step on every mesh.  The eager functions stay as they
+are: the CPU tests hold them against the JAX package, and the card tests
+hold the graphs against them.
 
 A batch's shape (:func:`shape_key`) is the shape and dtype of each of its
 arrays: (B, T bucket, label width) once the host has cut the labels
@@ -50,13 +54,33 @@ wrappers, so each graph records, per kernel, the launches its capture made
 warm-up and the capture count as none.  N replays count what N eager steps
 count.
 
-Stays eager (``train.step.make_train_step``, ``make_eval_step``): the CPU
-(no graphs; the tests' path); ``train.debug_nans``, whose check is a host
-read that must come before the update; every mesh of more than one rank
-(gloo's collectives cannot be captured; NCCL's can, but no graph over
-NCCL has been checked on a card yet).  A capture that fails raises with
-the error of the operation that broke it: no step quietly runs eager
-instead.
+Meshes.  NCCL's collectives are captured as graph nodes on the process
+group's stream, forked from and joined to the capturing stream; the
+capture runs in ``thread_local`` mode, so the process group's watchdog
+may query its own events meanwhile.  Three rules keep the ranks together:
+
+* every rank keys on the same shape at every step: this rank's block of
+  the batch, its labels cut on the global batch (``data.prefetch``,
+  ``train.step.batch_to_tensors(..., mesh=)``), so all ranks warm up and
+  capture at the same steps and replay the same graphs;
+* the warm-up runs the whole eager mesh step on every rank, its
+  collectives executed, before any capture: that creates every
+  communicator the step uses (each mesh line's group, NCCL's p2p
+  communicators of ``batch_isend_irecv``), since one made lazily inside a
+  capture breaks it;
+* a replay issues its collectives in the eager step's order, between the
+  loop's eager ones on the same communicators (NCCL's graph mixing).
+
+A graph that holds NCCL operations keeps its communicator alive: release
+the step (:meth:`_Compiled.release`, or drop it) before destroying the
+process group.
+
+Stays eager (``train.step.eager_reason``): the CPU (no graphs; the
+tests' path); ``train.debug_nans``, whose check is a host read that must
+come before the update; gloo groups (the CPU's backend, and that of
+ranks sharing one card), whose collectives run through the host and
+cannot be captured.  A capture that fails raises with the error of the
+operation that broke it: no step quietly runs eager instead.
 """
 from __future__ import annotations
 
@@ -69,8 +93,7 @@ import torch
 from tpu_ctc_torch.config import Config
 from tpu_ctc_torch.ops import kernels
 from tpu_ctc_torch.train import optim
-from tpu_ctc_torch.train.step import (BATCH_KEYS, TrainState, eval_step,
-                                      train_step)
+from tpu_ctc_torch.train.step import BATCH_KEYS, TrainState
 
 
 def shape_key(batch) -> Tuple:
@@ -181,6 +204,14 @@ class _Compiled:
         self.graphs[key] = g
         return g
 
+    def release(self) -> None:
+        """Drop every graph once the card has run them.  On a mesh call it
+        (or drop the step) before ``dist.destroy_process_group``: NCCL's
+        communicator teardown waits until no CUDA graph holds operations of
+        that communicator."""
+        torch.cuda.synchronize(self.device)
+        self.graphs.clear()
+
     def stats(self) -> Dict[str, object]:
         """Shapes captured and each one's warm-up + capture seconds."""
         return {"shapes": len(self.graphs),
@@ -188,15 +219,19 @@ class _Compiled:
 
 
 class CompiledTrainStep(_Compiled):
-    """``step_fn(state, batch) -> (state, metrics)`` of one card: the eager
-    ``train_step``'s arithmetic, one CUDA graph per batch shape.  Made by
-    ``train.step.make_train_step`` for a one-rank mesh on a card."""
+    """``step_fn(state, batch) -> (state, metrics)``: the eager step's
+    arithmetic, one CUDA graph per batch shape.  ``eager`` is the step it
+    captures, called as ``eager(state, batch, scalars=...)``: the mesh's
+    ``train_step`` with its loss closure, gradient sums and norm (on one
+    card ``train_step`` alone).  Made by ``train.step.make_train_step``
+    on a card for one rank or a mesh of NCCL ranks."""
 
     what = "train step"
 
-    def __init__(self, cfg: Config, state: TrainState):
+    def __init__(self, cfg: Config, state: TrainState, eager: Callable):
         device = next(state.model.parameters()).device
         super().__init__(cfg, device)
+        self.eager = eager
         self.scalars = torch.zeros(2, dtype=torch.float32, device=device)
         self._bind(self._tensors(state))
 
@@ -209,7 +244,7 @@ class CompiledTrainStep(_Compiled):
     def _warm(self, state: TrainState):
         def warm(inputs):
             saved = [t.detach().clone() for t in self._bound]
-            train_step(state, inputs, self.cfg, scalars=self.scalars)
+            self.eager(state, inputs, scalars=self.scalars)
             with torch.no_grad():
                 for t, s in zip(self._bound, saved):
                     t.copy_(s)
@@ -217,8 +252,7 @@ class CompiledTrainStep(_Compiled):
 
     def _body(self, state: TrainState):
         def body(inputs):
-            return train_step(state, inputs, self.cfg,
-                              scalars=self.scalars)[1]
+            return self.eager(state, inputs, scalars=self.scalars)[1]
         return body
 
     def capture(self, state: TrainState, batch: Dict[str, torch.Tensor]
@@ -246,13 +280,19 @@ class CompiledTrainStep(_Compiled):
 
 
 class CompiledEvalStep(_Compiled):
-    """``eval_fn(model, batch) -> {"hyp", "hyp_len", "nll"}`` of one card:
+    """``eval_fn(model, batch) -> {"hyp", "hyp_len", "nll", ...}``: the
+    eager ``eager(model, batch)``, one CUDA graph per batch shape:
     ``eval_step`` (forward, log-softmax, argmax, ``collapse_ids`` and the
-    NLL), one CUDA graph per batch shape.  Bound to the first model it is
-    called with.  Made by ``train.step.make_eval_step`` for a one-rank mesh
-    on a card."""
+    NLL), on a DP, TP or PP mesh ``make_eval_step``'s DP or split eval
+    (the gathers included).  Bound to the first model it is called with.
+    Made by ``train.step.make_eval_step`` on a card for one rank or a
+    mesh of NCCL ranks."""
 
     what = "eval step"
+
+    def __init__(self, cfg: Config, device: torch.device, eager: Callable):
+        super().__init__(cfg, device)
+        self.eager = eager
 
     def __call__(self, model, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
@@ -261,7 +301,7 @@ class CompiledEvalStep(_Compiled):
         graph = self.graphs.get(key)
         if graph is None:
             def run(inputs):
-                return eval_step(model, self.cfg, inputs)
+                return self.eager(model, inputs)
             graph = self._capture(key, batch, run, run)
         return graph.run(batch)
 

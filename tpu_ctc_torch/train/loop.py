@@ -2,8 +2,9 @@
 
 Counterpart of ``tpu_ctc.train.loop``: a plain loop over
 ``BucketedLoader.epoch`` calling the step of ``train.step.make_train_step``
-(on one card its CUDA graphs of ``train_step``, one per batch shape; on the
-CPU ``train_step`` itself), JSONL metrics
+(on a card, with one rank or NCCL ranks, its CUDA graphs of the step, one
+per batch shape; on the CPU and on gloo ranks ``train_step`` itself),
+JSONL metrics
 (:class:`MetricsLogger`), checkpoints of the full state with the data
 cursor (``train.checkpoint.save``), graceful exit on SIGTERM/SIGINT
 (:class:`PreemptionGuard`), and greedy-CER/NLL evaluation, with the beam
@@ -23,8 +24,11 @@ batches and keeps its block (rows over 'data', frames over 'seq'), as the
 JAX loop shards one global batch: its loader featurizes only the
 utterances of its rows (``train.step.local_rows``; the eval loader those
 its eval step reads, ``train.step.eval_rows``), and the prefetch thread
-copies only the block to the rank's card.  A lazy dataset's frontend pool
-is stopped when ``train`` returns or raises.  Metrics, ``metrics.jsonl`` and
+copies only the block to the rank's card, its labels cut to the global
+batch's width (so every rank replays the same graph at every step).  A
+lazy dataset's frontend pool is stopped when ``train`` returns or raises,
+and the compiled steps' graphs are released before it returns or raises
+(they keep NCCL's communicators alive).  Metrics, ``metrics.jsonl`` and
 checkpoints are written by rank 0 while the others wait at a barrier; a
 state split over 'model' (TP, PP) is gathered first
 (``train.step.full_state``), so the file is the one-card file and a
@@ -57,10 +61,10 @@ from tpu_ctc_torch.decode.wer import cer, score_corpus
 from tpu_ctc_torch.parallel.mesh import make_mesh
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
-                                      create_train_state, eval_step,
-                                      eval_rows, full_state, local_batch,
-                                      local_rows, make_eval_step,
-                                      make_train_step)
+                                      create_train_state, eager_reason,
+                                      eval_step, eval_rows, full_state,
+                                      local_batch, local_rows,
+                                      make_eval_step, make_train_step)
 
 
 class MetricsLogger:
@@ -243,59 +247,74 @@ def _train(cfg, train_data, eval_data, work_dir, resume, device, alphabet,
                       f"{start_batch} step {state.step}")
     step_fn, state = make_train_step(cfg, mesh, state)
     eval_fn = make_eval_step(cfg, mesh, device)
+    if lead:
+        why = eager_reason(cfg, mesh, device)
+        print(f"[step] {mesh.size} rank(s), mesh {mesh.shape}: "
+              + ("one CUDA graph per batch shape" if why is None
+                 else f"eager: {why}"))
 
-    beam_decode_fn = None
-    if cfg.train.eval_beam and eval_loader is not None:
-        lm = train_char_lm_from_data(train_data, cfg)
-        beam_decode_fn = make_beam_decoder(cfg, lm=lm, device=device)
+    # A graph that holds NCCL operations keeps its communicator alive, and
+    # an exception's traceback keeps this frame: release them here, or
+    # the caller's destroy_process_group waits for ever.
+    try:
+        beam_decode_fn = None
+        if cfg.train.eval_beam and eval_loader is not None:
+            lm = train_char_lm_from_data(train_data, cfg)
+            beam_decode_fn = make_beam_decoder(cfg, lm=lm, device=device)
 
-    last_metrics: Dict[str, float] = {}
-    t_start = time.time()
-    guard = PreemptionGuard()
-    t_win, audio_win, steps_win = time.time(), 0.0, 0
-    for epoch in range(start_epoch, cfg.train.num_epochs):
-        sb = start_batch if epoch == start_epoch else 0
-        for cursor, batch, dev_batch in prefetch_to_device(
-                loader.epoch(epoch, sb), device,
-                select=lambda arrays: local_batch(arrays, mesh)):
-            if _agreed(mesh, guard.requested, device):
-                save(state, epoch, cursor)
-                logger.log(kind="preempted", epoch=epoch, cursor=cursor,
-                           step=state.step)
-                logger.close()
-                guard.restore()
-                if lead:
-                    print(f"[preempt] checkpointed at step {state.step} "
-                          f"(epoch {epoch}, batch {cursor}); exiting")
-                return state, last_metrics
-            state, m = step_fn(state, dev_batch)
-            audio_win += batch.audio_seconds()
-            steps_win += 1
-            if state.step % cfg.train.log_every == 0:
-                # Reading the metrics waits for the card.
-                m = {k: float(v) for k, v in m.items()}
-                dt = time.time() - t_win
-                m.update(step=state.step, epoch=epoch,
-                         audio_s_per_s=audio_win / max(dt, 1e-9),
-                         step_time_s=dt / max(steps_win, 1))
-                logger.log(kind="train", **m)
-                last_metrics = m
-                t_win, audio_win, steps_win = time.time(), 0.0, 0
-            if cfg.train.checkpoint_every and \
-                    state.step % cfg.train.checkpoint_every == 0:
-                t0 = time.time()
-                save(state, epoch, cursor + 1)
-                t_win += time.time() - t0     # exclude the save
-            if (eval_loader is not None and cfg.train.eval_every
-                    and state.step % cfg.train.eval_every == 0):
-                t0 = time.time()
-                ev = evaluate(state.model, cfg, eval_loader, device,
-                              alphabet=alphabet,
-                              beam_decode_fn=beam_decode_fn, eval_fn=eval_fn)
-                logger.log(kind="eval", step=state.step, **ev)
-                t_win += time.time() - t0     # exclude the eval
-        logger.log(kind="epoch_end", epoch=epoch, wall_s=time.time() - t_start)
-    guard.restore()
-    save(state, cfg.train.num_epochs, 0)
-    logger.close()
-    return state, last_metrics
+        last_metrics: Dict[str, float] = {}
+        t_start = time.time()
+        guard = PreemptionGuard()
+        t_win, audio_win, steps_win = time.time(), 0.0, 0
+        for epoch in range(start_epoch, cfg.train.num_epochs):
+            sb = start_batch if epoch == start_epoch else 0
+            for cursor, batch, dev_batch in prefetch_to_device(
+                    loader.epoch(epoch, sb), device,
+                    select=lambda arrays: local_batch(arrays, mesh)):
+                if _agreed(mesh, guard.requested, device):
+                    save(state, epoch, cursor)
+                    logger.log(kind="preempted", epoch=epoch, cursor=cursor,
+                               step=state.step)
+                    logger.close()
+                    guard.restore()
+                    if lead:
+                        print(f"[preempt] checkpointed at step {state.step} "
+                              f"(epoch {epoch}, batch {cursor}); exiting")
+                    return state, last_metrics
+                state, m = step_fn(state, dev_batch)
+                audio_win += batch.audio_seconds()
+                steps_win += 1
+                if state.step % cfg.train.log_every == 0:
+                    # Reading the metrics waits for the card.
+                    m = {k: float(v) for k, v in m.items()}
+                    dt = time.time() - t_win
+                    m.update(step=state.step, epoch=epoch,
+                             audio_s_per_s=audio_win / max(dt, 1e-9),
+                             step_time_s=dt / max(steps_win, 1))
+                    logger.log(kind="train", **m)
+                    last_metrics = m
+                    t_win, audio_win, steps_win = time.time(), 0.0, 0
+                if cfg.train.checkpoint_every and \
+                        state.step % cfg.train.checkpoint_every == 0:
+                    t0 = time.time()
+                    save(state, epoch, cursor + 1)
+                    t_win += time.time() - t0     # exclude the save
+                if (eval_loader is not None and cfg.train.eval_every
+                        and state.step % cfg.train.eval_every == 0):
+                    t0 = time.time()
+                    ev = evaluate(state.model, cfg, eval_loader, device,
+                                  alphabet=alphabet,
+                                  beam_decode_fn=beam_decode_fn,
+                                  eval_fn=eval_fn)
+                    logger.log(kind="eval", step=state.step, **ev)
+                    t_win += time.time() - t0     # exclude the eval
+            logger.log(kind="epoch_end", epoch=epoch,
+                       wall_s=time.time() - t_start)
+        guard.restore()
+        save(state, cfg.train.num_epochs, 0)
+        logger.close()
+        return state, last_metrics
+    finally:
+        for fn in (step_fn, eval_fn):
+            if hasattr(fn, "release"):
+                fn.release()

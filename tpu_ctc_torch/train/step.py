@@ -25,9 +25,11 @@ replicated.  Before ``grad_norm`` and the clip the gradients are summed:
 a replicated parameter's over all ranks, a split one's over 'data' only,
 and the global norm counts each parameter once (a split one's squares
 summed over 'model'), so the clip sees the global gradient as in JAX and
-every rank applies the same update to what it holds.  A one-rank mesh runs
-:func:`train_step` as it is: on a card captured once per batch shape in a
-CUDA graph (``train.graphs``), as the JAX package jits its step.
+every rank applies the same update to what it holds.  On a card the step
+of a one-rank mesh and of every mesh of NCCL ranks is captured once per
+batch shape in a CUDA graph (``train.graphs``), collectives included, as
+the JAX package jits its step on every mesh; :func:`eager_reason` names
+what stays eager.
 """
 from __future__ import annotations
 
@@ -79,13 +81,19 @@ def create_train_state(cfg: Config, device=None) -> TrainState:
         dict(model.named_parameters())))
 
 
-def batch_to_tensors(batch: Dict[str, np.ndarray],
-                     device) -> Dict[str, torch.Tensor]:
+def batch_to_tensors(batch: Dict[str, np.ndarray], device,
+                     mesh: Optional[mesh_lib.Mesh] = None
+                     ) -> Dict[str, torch.Tensor]:
     """A batch dict of host arrays (``loop.batch_to_device_dict``) as
     tensors on ``device``, its labels cut on the host to the batch's
     longest label rounded up to a multiple of 32
-    (``data.bucketing.cut_labels``)."""
+    (``data.bucketing.cut_labels``); with ``mesh``, this rank's block of
+    the global batch (:func:`local_batch`), cut first, so every rank of
+    the mesh gets the global batch's label width (one graph key on every
+    rank, ``train.graphs.shape_key``)."""
     batch = cut_labels({k: np.asarray(batch[k]) for k in BATCH_KEYS})
+    if mesh is not None:
+        batch = local_batch(batch, mesh)
     return {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
 
 
@@ -382,20 +390,49 @@ def full_state(state: TrainState) -> TrainState:
                       optim.OptState(trace, state.opt_state.count))
 
 
+def eager_reason(cfg: Config, mesh: mesh_lib.Mesh, device,
+                 train: bool = True) -> Optional[str]:
+    """Why the train step (``train``) or the eval step of ``mesh`` on
+    ``device`` stays eager, or None where :func:`make_train_step` and
+    :func:`make_eval_step` capture it in CUDA graphs (``train.graphs``):
+    on a card with one rank, or with several whose process groups are all
+    NCCL's (DP, SP, TP, PP, DP x SP, DP x TP).  Eager on purpose: the CPU
+    (no graphs: the tests' path); the train step with
+    ``train.debug_nans``, whose check is a host read before the update;
+    gloo groups (the CPU's backend, and that of ranks sharing one card),
+    whose collectives run through the host and cannot be captured.
+    Decided from the backends (``dist.get_backend``), never from a
+    capture that failed."""
+    if mesh.size > 1:
+        backends = {dist.get_backend(g)
+                    for g in (None, *mesh.groups.values())}
+        if backends != {"nccl"}:
+            return (f"{'/'.join(sorted(backends))} process groups (their "
+                    f"collectives run through the host and cannot be "
+                    f"captured)")
+    if resolve_device(device).type != "cuda":
+        return "the CPU (no CUDA graphs)"
+    if train and cfg.train.debug_nans:
+        return "train.debug_nans (a host read before the update)"
+    return None
+
+
 def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
     """The train step of ``mesh``, with the JAX function's dispatch and
     checks: returns (step_fn, state), step_fn(state, batch) taking this
-    rank's block of the batch as tensors (:func:`local_batch`).  On one
-    rank with the state on a card, step_fn is the compiled step
-    (``train.graphs.CompiledTrainStep``: one CUDA graph per batch shape,
-    as the JAX function returns its step jitted); it stays
-    :func:`train_step` on the CPU, with ``train.debug_nans`` (a host read
-    before the update) and on a mesh of several ranks (collectives).  The
-    state is replicated from rank 0, then split over 'model' where its
-    specs say so (:func:`state_shardings`): TP (``model > 1``) runs
-    ``parallel.tensor_parallel``'s loss, PP (``mesh.pipeline``)
-    ``parallel.pipeline``'s, SP ``parallel.seq_parallel``'s, DP
-    :func:`make_dp_loss_fn`."""
+    rank's block of the batch as tensors (:func:`local_batch`, its labels
+    cut on the global batch: ``batch_to_tensors(..., mesh=)``).  On a card
+    with one rank or with NCCL ranks, step_fn is the compiled step
+    (``train.graphs.CompiledTrainStep``: one CUDA graph per batch shape
+    of the eager mesh step, collectives included, as the JAX function
+    returns its step jitted on every mesh); it stays the eager
+    :func:`train_step` where :func:`eager_reason` says why (the CPU,
+    ``train.debug_nans``, gloo groups); the compiled step keeps the eager
+    one as ``step_fn.eager``.  The state is replicated from rank 0, then
+    split over 'model' where its specs say so (:func:`state_shardings`):
+    TP (``model > 1``) runs ``parallel.tensor_parallel``'s loss, PP
+    (``mesh.pipeline``) ``parallel.pipeline``'s, SP
+    ``parallel.seq_parallel``'s, DP :func:`make_dp_loss_fn`."""
     shape = mesh.shape
     tp = shape.get(AXIS_MODEL, 1) > 1 and not cfg.mesh.pipeline
     loss_closure = None
@@ -440,11 +477,11 @@ def make_train_step(cfg: Config, mesh: mesh_lib.Mesh, state: TrainState):
             reduce_grads = _all_reduce_grads
     eager = functools.partial(train_step, cfg=cfg, loss_closure=loss_closure,
                               reduce_grads=reduce_grads, norm_fn=norm_fn)
-    if (mesh.size > 1 or cfg.train.debug_nans
-            or next(state.model.parameters()).device.type != "cuda"):
+    device = next(state.model.parameters()).device
+    if eager_reason(cfg, mesh, device) is not None:
         return eager, state
     from tpu_ctc_torch.train.graphs import CompiledTrainStep
-    return CompiledTrainStep(cfg, state), state
+    return CompiledTrainStep(cfg, state, eager), state
 
 
 def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
@@ -456,11 +493,7 @@ def _pure_dp(mesh: mesh_lib.Mesh, cfg: Config) -> bool:
 
 def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh, device=None):
     """eval_fn(model, batch) on the global batch's tensors -> the whole
-    batch's {"hyp", "hyp_len", "nll"} on every rank.  On one rank on a
-    card (``device``, default ``cuda``) eval_fn is the compiled
-    :func:`eval_step` (``train.graphs.CompiledEvalStep``, one CUDA graph
-    per batch shape, as the JAX eval step is jitted); on the CPU the eager
-    one.  Under pure DP each
+    batch's {"hyp", "hyp_len", "nll"} on every rank.  Under pure DP each
     rank evaluates its rows and the outputs are gathered over 'data';
     under TP and PP each rank runs the split forward on its block (rows
     over 'data') with its shards, the logits are gathered over 'model'
@@ -468,7 +501,22 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh, device=None):
     the whole batch's log posteriors (``"log_probs"``: ``loop.evaluate``'s
     beam search decodes them, since the rank's loader featurized only its
     rows, :func:`eval_rows`, and under TP and PP the rank's model is not
-    the whole model); otherwise every rank evaluates the whole batch."""
+    the whole model); otherwise every rank evaluates the whole batch
+    (:func:`eval_step`).  On a card (``device``, default ``cuda``) with
+    one rank or with NCCL ranks eval_fn is compiled
+    (``train.graphs.CompiledEvalStep``: one CUDA graph per batch shape,
+    gathers included, as the JAX eval step is jitted on every mesh); it
+    stays eager on the CPU and on gloo groups (:func:`eager_reason`).  The
+    compiled step keeps the eager one as ``eval_fn.eager``."""
+    fn = _eval_fn(cfg, mesh)
+    if eager_reason(cfg, mesh, device, train=False):
+        return fn
+    from tpu_ctc_torch.train.graphs import CompiledEvalStep
+    return CompiledEvalStep(cfg, resolve_device(device), fn)
+
+
+def _eval_fn(cfg: Config, mesh: mesh_lib.Mesh):
+    """:func:`make_eval_step`'s eager function."""
     specs = batch_shardings(mesh)
     if cfg.mesh.pipeline or mesh.shape.get(AXIS_MODEL, 1) > 1:
         if cfg.mesh.pipeline:
@@ -491,9 +539,6 @@ def make_eval_step(cfg: Config, mesh: mesh_lib.Mesh, device=None):
             logits = mesh_lib.gather_blocks(mesh, logits, AXIS_DATA, 0)
             return eval_outputs(cfg, logits, batch, keep_log_probs=True)
         return split_eval
-    if mesh.size == 1 and resolve_device(device).type == "cuda":
-        from tpu_ctc_torch.train.graphs import CompiledEvalStep
-        return CompiledEvalStep(cfg, resolve_device(device))
     if not _pure_dp(mesh, cfg):
         return lambda model, batch: eval_step(model, cfg, batch)
 
