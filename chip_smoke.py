@@ -65,8 +65,8 @@ against its plain PyTorch version on the same inputs:
      frontend (``frontend/features.py``, preset 2's 40 mels and context 1)
      on 64 of them on the card and on the CPU against a float64 numpy
      oracle, with its times and the CPU rate of ``ManifestDataset``; the
-     frontend pool (``ManifestDataset(workers=host_workers())``: spawned
-     processes) bit-equal to the in-process dataset on every utterance;
+     frontend pool (``ManifestDataset(workers=host_workers())``: worker
+     processes forked by a fork server) bit-equal to the in-process dataset on every utterance;
      ``torch_tools/audio_path_breakdown.py`` at preset 2's shape and the
      accuracy chain's (reads, the frontend's operators and the rest,
      ``make_batch``, pin and copy, the consumer's wait, the step's host
@@ -107,17 +107,22 @@ against its plain PyTorch version on the same inputs:
      capture seconds; on one card SP2 as two gloo ranks sharing it, which
      stay eager (the phase prints why); each mesh's loss within 1e-3 of
      one card's, the parameters bit-equal across ranks, with the step
-     time and audio-s/s; then preset 2 from audio (96 WAV files)
-     under DP2 (two gloo ranks sharing one card, or NCCL ranks on two),
-     each rank's loader featurizing only its rows in its own frontend
-     pool: each rank's payload reads per epoch (about half of one
-     rank's), its blocks bit-equal to ``local_batch`` of one card's global
-     batches, the parameters bit-equal across ranks, the job's audio-s/s
-     beside one rank's from audio.
+     time and audio-s/s; then preset 2 from audio (96 WAV files, 32
+     more to evaluate) through ``train.loop.train`` under DP2, SP2 and
+     TP2 (two gloo ranks sharing one card, or NCCL ranks on two; one
+     spawn for the three), each rank's loader featurizing only its share
+     of the rows its step reads in its own frontend pool (on a 'seq' or
+     'model' line half of them, the other half exchanged over a gloo
+     group of the loader's own): each rank's payload reads per epoch and
+     per eval (about half of one rank's), its blocks bit-equal to
+     ``local_batch`` of one card's global batches, the parameters
+     bit-equal across ranks, the row exchanges' ms, the job's audio-s/s
+     beside the same mesh on the same blocks in memory.
  13. the benchmarks and the tools: ``tpu_ctc_torch.bench.bench`` at its
      defaults (the CPU reference on one utterance) with its JSON line (the
      compiled step's audio-s/s; the eager step's beside it on stderr) and
-     the step's MFU; ``bench_ctc`` at its defaults, its spot check and B3 +
+     the step's MFU; ``bench_ctc`` at its shape (3 calls a row, 2 of the
+     plain loop), its spot check and B3 +
      B4's device time within 20% of their CUDA-event time over runs of
      back-to-back launches at its shape (phase 6's single-call medians
      scaled to T = 1600 printed beside it);
@@ -153,7 +158,9 @@ against its plain PyTorch version on the same inputs:
      ranks stay eager, and the phase says so); the collective decode of
      preset 4 over 2 ranks with the length-balancing redistribution, its
      hypotheses on phase 4's posteriors bit-equal to the one-card decode;
-     ``python -m tpu_ctc_torch.dryrun`` under torchrun over 2 ranks.  The
+     ``python -m tpu_ctc_torch.dryrun`` under torchrun over 2 ranks (run
+     beside phase 15's ``eval_chain.py``, whose walls no check reads, so
+     that it shares the card with no timed part).  The
      wide instance's records (``birnn_fwd_wide``, ``birnn_bwd_wide``) are
      kernels of their own in the JSON line, and B1's and B2's records
      carry their ``wide_launches`` and ``wide_ms``.
@@ -163,7 +170,9 @@ against its plain PyTorch version on the same inputs:
      T = 320; B3/B4 at B = 16, T = 320, S <= 129; B5 at K = 64 with the
      trigram, the GRU and both, the walk; B6 at K = 200 with the trigram.
      Then ``torch_tools/eval_chain.py`` (each step a subprocess of the
-     port's tools and CLI) on 120 synthesized SPHERE utterances, preset 2
+     port's tools and CLI) on 120 synthesized SPHERE utterances (the
+     corpus and its manifests made in process and passed with
+     ``--data``), preset 2
      at H = 512 with 3 bidirectional layers trained 60 + 15 + 5 epochs in
      three runs at 0.02, 0.005 and 0.0015 (the later two resumed), 2 x 2
      dev sweeps of the trigram, the GRU char LM (50 Adam steps) and both,
@@ -193,11 +202,13 @@ frames its scores drift apart by float rounding: the GRU checks hold
 hypotheses equal on every utterance whose top-2 beam gap exceeds 1e-2 and
 scores within 1e-2, and explain every utterance that fails: its beams must
 first part where two candidates tied within that drift swap places at the
-beam boundary (bisected over the utterance's length).  Every check raises on failure, so
+beam boundary (searched over the utterance's length, the probes of every
+such utterance sharing one batch of the phase's B rows a pass).  Every check raises on failure, so
 the script exits non-zero and prints no result line.  Every time, of a
 kernel and of its plain version alike, is the median of CUDA-event times of
 single calls after a warm-up call (``REPS`` calls of a kernel,
-``PLAIN_REPS`` of a plain version).  The last two lines are the per-kernel
+``PLAIN_REPS`` of a plain version; a plain beam search's warm-up call is
+its check's own).  The last two lines are the per-kernel
 JSON record (B1's with ``h0_launches``, its launches from a carry on the
 sequence-parallel ranks) and ``{"ok": true, "device": {...}}``.
 
@@ -207,6 +218,10 @@ process orphaned anywhere below it (a pool's worker, a rank of torchrun,
 the multiprocessing resource tracker) becomes its child.  When the run has
 ended it waits up to ten seconds for such processes to end, kills the
 rest, and names each on stderr: no process it started outlives it.
+Each line of the run's log starts with its seconds since the start, and
+each phase (and each bench and tool of phase 13) ends with its wall
+time: the script must finish well inside the 1200 s that the card's
+check gives it.
 
     python3 chip_smoke.py                 # all fifteen phases, one card
 """
@@ -293,8 +308,13 @@ FEAT_TOL = 1e-3
 LOUD = 1e-6
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since this module was imported: the
+    run's clock, which tells where its time goes."""
+    print(f"[{time.time() - _T0:7.1f}] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -309,6 +329,12 @@ def time_ms(fn, reps: int) -> float:
     """Median time of one ``fn()`` call in ms, after one warm-up call:
     CUDA events around each of ``reps`` calls."""
     fn()
+    return warm_ms(fn, reps)
+
+
+def warm_ms(fn, reps: int) -> float:
+    """:func:`time_ms` of a ``fn`` that has just run once (its warm-up):
+    a plain beam search, whose check's call warms it, takes seconds."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -612,7 +638,7 @@ def phase_beam(reps: int, n_b=64, n_t=800, k=128, max_len=216, dev="cuda",
         lp_k, lens_k, k, max_len, lm=lm_k, lm_order=3, lm_alpha=1.25,
         lm_beta=1.5, prune_logp=-12.0), reps)
     walk_ms, walk_plain_ms = check_walk(phase, lp, lens, kw, reps)
-    plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
+    plain_ms = warm_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
     live = int(lens.sum())
     # the posteriors read and the backpointers written at live frames only
@@ -1204,24 +1230,98 @@ def gru_bound_ms(n_bytes, n_ops, n_fma):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def first_divergence(lp, lens, i, kw):
-    """Where the kernel's and the plain search's beams first part on
-    utterance i: bisection over the frames for the first after which some
-    slot's prefix, length or score (within 1e-3) differs.  Returns (that
-    frame or None, the largest difference of the two sides' sorted live
-    slot scores after it).  While the beams agree, every candidate's score
-    agrees within their drift, so the first parting can only swap
-    candidates tied within it at the beam boundary: the sorted scores
-    still agree.  A wrong score shows there.  Each probe runs the whole
-    batch cut to its first t frames: the plain search's matmuls round by
-    the batch's shape."""
+def walk_slots(bp, lens, max_len: int):
+    """Every slot's prefix in each row of the packed backpointers bp
+    [N, T, K] int32, walked from the row's last live frame (lens [N]):
+    [N, K, max_len] int32.  ``beam_cuda.reconstruct_plain``'s walk (a
+    gather a frame) for all the slots of all the rows at once."""
+    n, n_t, k = bp.shape
+    slot = torch.arange(k, device=bp.device).expand(n, k)
+    live = torch.arange(n_t, device=bp.device)[:, None] < lens.to(
+        bp.device)[None, :]                                     # [T, N]
+    chars = torch.full((n_t, n, k), -1, dtype=torch.int64, device=bp.device)
+    for t in range(n_t - 1, -1, -1):
+        entry = bp[:, t].gather(1, slot).to(torch.int64)
+        chars[t] = torch.where(live[t, :, None], entry // 256 - 1, -1)
+        slot = torch.where(live[t, :, None], entry % 256, slot)
+    emitted = chars >= 0
+    pos = torch.cumsum(emitted.to(torch.int64), dim=0) - 1
+    pos = torch.where(emitted, pos, torch.full_like(pos, max_len))
+    hyps = torch.zeros((n, k, max_len + 1), dtype=torch.int32,
+                       device=bp.device)
+    hyps.scatter_(2, pos.permute(1, 2, 0),
+                  torch.clamp(chars, min=0).permute(1, 2, 0).to(torch.int32))
+    return hyps[:, :, :max_len]
+
+
+def narrow(ends, n_b: int, probe, agree):
+    """The search of :func:`first_divergences`: for each utterance i of
+    ``ends`` (its frame count), the frames (lo, hi) between which its two
+    searches first part (agree(slots at lo), not at hi = lo + 1; lo = hi
+    where they never part), with every probe's slots ({(i, t): slots}).
+    ``probe(rows)`` returns the slots of up to ``n_b`` (i, t) at once."""
+    bounds = {i: (0, end) for i, end in ends.items()}
+    seen, first = {}, True
+    while first or any(hi - lo > 1 for lo, hi in bounds.values()):
+        open_ = [i for i, (lo, hi) in bounds.items() if first or hi - lo > 1]
+        per = max(n_b // len(open_), 1)
+        rows = []
+        for i in open_:
+            lo, hi = bounds[i]
+            pts = np.unique(np.linspace(lo, hi, per + 1).round()
+                            .astype(int)[1:])
+            rows += [(i, int(t)) for t in pts
+                     if lo < t and (i, int(t)) not in seen]
+        for at in range(0, len(rows), n_b):
+            seen.update(probe(rows[at:at + n_b]))
+        for i in open_:
+            lo, hi = bounds[i]
+            if first and agree(seen[i, hi]):
+                bounds[i] = (hi, hi)        # the beams never part
+                continue
+            ts = sorted(t for (j, t) in seen if j == i and lo < t <= hi)
+            parted = next(t for t in ts if not agree(seen[i, t]))
+            bounds[i] = (max([lo] + [t for t in ts if t < parted]), parted)
+        first = False
+    return bounds, seen
+
+
+def first_divergences(lp, lens, odd, kw):
+    """Where the kernel's and the plain search's beams first part on each
+    utterance i of ``odd``: a search over the frames for the first after
+    which some slot's prefix, length or score (within 1e-3) differs.
+    Returns {i: (that frame or None, the largest difference of the two
+    sides' sorted live slot scores after it)}.  While the beams agree,
+    every candidate's score agrees within their drift, so the first
+    parting can only swap candidates tied within it at the beam boundary:
+    the sorted scores still agree.  A wrong score shows there.
+
+    Each probe cuts an utterance to its first t frames, and the probes of
+    all the utterances share batches: a pass fills the batch's B rows
+    with copies of the utterances still open, each row cut at one of its
+    probe frames (its length set to t), and runs the kernel and the plain
+    search once on it.  A row's search reads no other row, and the batch
+    keeps its B rows, so every row rounds as the whole batch cut to its
+    first t frames does (the plain search's matmuls round by the batch's
+    shape).  A pass probes up to B / (open utterances) frames of each,
+    evenly over its interval (at first its last frame, where the two must
+    part), and narrows the interval to the first pair of adjacent probes
+    whose beams agree and part: a bisection with as many probes a pass as
+    the batch has rows."""
     from tpu_ctc_torch.decode import beam
     from tpu_ctc_torch.ops import beam_cuda
     k, max_len = kw["beam_width"], kw["max_len"]
+    n_b = lp.shape[0]
     pos = torch.arange(max_len, device=lp.device)
 
-    def slots(t):
-        x, n = lp[:, :t], lens.clamp(max=t)
+    def probe(rows):
+        """{(i, t): the kernel's and the plain search's slots of utterance
+        i cut at t frames} for up to B (i, t), in one batch."""
+        pad = rows + [rows[-1]] * (n_b - len(rows))
+        idx = torch.tensor([i for i, _ in pad], device=lp.device)
+        n = torch.tensor([t for _, t in pad], dtype=lens.dtype,
+                         device=lens.device)
+        x = lp[idx, :max(t for _, t in pad)]
         lp_k, lens_k, lm_k, thr, gru = beam_cuda.prepare(
             x, n, k, lm_table=kw["lm_table"], lm_order=kw["lm_order"],
             char_topk=kw.get("char_topk", 0), nlm_params=kw["nlm_params"])
@@ -1229,15 +1329,19 @@ def first_divergence(lp, lens, i, kw):
             lp_k, lens_k, k, max_len, lm=lm_k, lm_order=kw["lm_order"],
             lm_alpha=kw["lm_alpha"], lm_beta=kw["lm_beta"],
             prune_logp=kw["prune_logp"], thr=thr, gru=gru)
-        pre_k = beam_cuda.reconstruct_plain(bp[i:i + 1].expand(k, -1, -1),
-                                      torch.arange(k, device=lp.device),
-                                      max_len)
         want = beam.prefix_beam_search(x, n, return_beams=True, **kw)
-        return (beam._lse2(fin[i, 0], fin[i, 1]), fin[i, 2].int(), pre_k,
-                want[3][i], want[4][i], want[5][i])
+        pre = walk_slots(bp, n, max_len)
+        i, t = rows[0]      # the walk of every slot is the plain walk's
+        if not torch.equal(pre[0], beam_cuda.reconstruct_plain(
+                bp[:1, :t].expand(k, -1, -1),
+                torch.arange(k, device=lp.device), max_len)):
+            raise AssertionError("walk_slots differs from the plain walk")
+        return {(i, t): (beam._lse2(fin[r, 0], fin[r, 1]), fin[r, 2].int(),
+                         pre[r], want[3][r], want[4][r], want[5][r])
+                for r, (i, t) in enumerate(rows)}
 
-    def agree(t):
-        sk, nk, pre_k, sp, n_p, pre_p = slots(t)
+    def agree(slots):
+        sk, nk, pre_k, sp, n_p, pre_p = slots
         live = sp > -1e29
         if not (torch.equal(live, sk > -1e29)
                 and torch.equal(nk[live], n_p[live])):
@@ -1246,17 +1350,17 @@ def first_divergence(lp, lens, i, kw):
         return (torch.equal(pre_k * mask, pre_p * mask)
                 and float((sk - sp).abs()[live].max()) <= 1e-3)
 
-    lo, hi = 0, int(lens[i])
-    if agree(hi):
-        return None, 0.0
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if agree(mid) else (lo, mid)
-    sk, _, _, sp, _, _ = slots(hi)
-    sk, sp = sk[sk > -1e29].sort().values, sp[sp > -1e29].sort().values
-    if sk.numel() != sp.numel():
-        return hi - 1, float("inf")
-    return hi - 1, float((sk - sp).abs().max())
+    bounds, seen = narrow({i: int(lens[i]) for i in odd}, n_b, probe, agree)
+    out = {}
+    for i, (lo, hi) in bounds.items():
+        if lo == hi:
+            out[i] = (None, 0.0)
+            continue
+        sk, _, _, sp, _, _ = seen[i, hi]
+        sk, sp = sk[sk > -1e29].sort().values, sp[sp > -1e29].sort().values
+        out[i] = ((hi - 1, float("inf")) if sk.numel() != sp.numel() else
+                  (hi - 1, float((sk - sp).abs().max())))
+    return out
 
 
 def check_gru_search(phase, what, lp, lens, kw, got, want_beams):
@@ -1265,7 +1369,7 @@ def check_gru_search(phase, what, lp, lens, kw, got, want_beams):
     every utterance whose top-2 gap > GRU_GAP and scores within GRU_TOL.
     An utterance that fails either must be explained: its beams first part
     at a swap of candidates tied within rounding at the beam boundary
-    (:func:`first_divergence`), on at most a quarter of the utterances.
+    (:func:`first_divergences`), on at most a quarter of the utterances.
     Returns the max score error over the other utterances."""
     hyp, hyp_len, score = got
     ph, pl, ps, slots = want_beams[:4]
@@ -1288,8 +1392,13 @@ def check_gru_search(phase, what, lp, lens, kw, got, want_beams):
         f"with a top-2 gap > {GRU_GAP} ({hyp.shape[0]} in all); max score "
         f"err {err:.3e} (limit {GRU_TOL}) on the {hyp.shape[0] - len(odd)} "
         f"utterances without a boundary tie")
+    t0 = time.time()
+    parted = first_divergences(lp, lens, odd, kw) if odd else {}
+    if odd:
+        log(f"{phase}: {len(odd)} utterance(s) searched for where the beams "
+            f"part in {time.time() - t0:.1f} s")
     for i in odd:
-        frame, sorted_err = first_divergence(lp, lens, i, kw)
+        frame, sorted_err = parted[i]
         log(f"{phase}:   utt {i}: score err {float(diff[i]):.3e}; the beams "
             f"first part at frame {frame} of {int(lens[i])}, where the sorted "
             f"slot scores differ by {sorted_err:.3e}")
@@ -1341,7 +1450,7 @@ def phase_beam_gru(reps: int, phase: str, k: int, n_b=64, n_t=800,
                              f"inputs differ")
     log(f"{phase}: two launches give bit-equal backpointers and states")
     ms = time_ms(run_kernel, reps)
-    plain_ms = time_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
+    plain_ms = warm_ms(lambda: beam.prefix_beam_search(lp, lens, **kw),
                        PLAIN_REPS)
     n_bytes, n_ops, n_fma, ext, beams = gru_search_bound(bp, lens, a, k,
                                                          n_e, n_h)
@@ -1400,7 +1509,7 @@ def phase_wide_ngram(reps: int, k=256, n_b=64, n_t=800, max_len=216,
     if not same or err != 0.0:
         raise AssertionError("B6 disagrees with the plain search")
     ms = time_ms(run_kernel, reps)
-    plain_ms = time_ms(lambda: beam.prefix_beam_search(
+    plain_ms = warm_ms(lambda: beam.prefix_beam_search(
         lp, lens, beam_width=k, max_len=max_len, lm_table=lm, lm_order=3,
         **kw), PLAIN_REPS)
     live_f = int(lens.sum())
@@ -1701,7 +1810,7 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
             n_same += bool(np.array_equal(f, want_f) and f.dtype ==
                            want_f.dtype and np.array_equal(lab, want_l))
             n_all += 1
-    log(f"phase 11: frontend pool of host_workers() = {workers} spawned "
+    log(f"phase 11: frontend pool of host_workers() = {workers} worker "
         f"processes: {n_same} of {n_all} utterances bit-equal to the "
         f"in-process ManifestDataset")
     if n_same != n_all or not workers:
@@ -2430,169 +2539,273 @@ def phase_mesh_ranks(ref_losses):
 
 
 AUDIO_RANK_WORKER = r"""
-import faulthandler, hashlib, json, sys, time
+import faulthandler, hashlib, json, os, sys, time
 import torch, torch.distributed as dist
 faulthandler.dump_traceback_later(540, exit=True)   # a hang shows its stack
 sys.path.insert(0, sys.argv[6])
 import chip_smoke
 from tpu_ctc_torch.config import get_config
-from tpu_ctc_torch.data.bucketing import BucketedLoader
 from tpu_ctc_torch.data.manifest import ManifestDataset, host_workers
-from tpu_ctc_torch.data.prefetch import prefetch_to_device
 from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
-from tpu_ctc_torch.train import step
+from tpu_ctc_torch.train import loop, step
 
-coord, rank, world, backend, dev, _, corpus, epochs = sys.argv[1:9]
-rank, world, epochs = int(rank), int(world), int(epochs)
+coord, rank, world, backend, dev, _, corpus, spec = sys.argv[1:9]
+rank, world, spec = int(rank), int(world), json.loads(spec)
 dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
-cfg = get_config("timit_full_3layer", **{"mesh.data": world})
-mesh = mesh_lib.make_mesh(cfg.mesh)
-ds = ManifestDataset(corpus, cfg, workers=host_workers())
-loader = BucketedLoader(ds, cfg.data,
-                        rows=step.local_rows(mesh, cfg.data.batch_size))
-state = step.create_train_state(cfg, device=dev)
-step_fn, state = step.make_train_step(cfg, mesh, state)
-reads, hashes, walls, audio, losses = [], {}, [], [], []
-def run():
-    global state
-    for e in range(epochs):
-        r0, a = ds.payload_reads, 0.0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for cursor, batch, tb in prefetch_to_device(
-                loader.epoch(e), dev,
-                select=lambda arrays: step.local_batch(arrays, mesh)):
-            if e == 0:
-                h = hashlib.sha256()
-                for k in sorted(tb):
-                    h.update(tb[k].cpu().numpy().tobytes())
-                hashes[cursor] = h.hexdigest()
-            state, m = step_fn(state, tb)
-            if e == 0:
-                losses.append(float(m["loss"]))
-            a += batch.audio_seconds()
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        reads.append(ds.payload_reads - r0)
-        audio.append(a)
-try:
-    _, launches = chip_smoke.run_main_path(run)
-finally:
-    ds.close()
-h = hashlib.sha256()
-for p in state.model.parameters():
-    h.update(p.detach().cpu().numpy().tobytes())
-print("RANK " + json.dumps({"rank": rank, "mesh": mesh.shape,
-                            "workers": host_workers(), "reads": reads,
-                            "hashes": hashes, "walls": walls, "audio": audio,
-                            "losses": losses, "launches": launches,
-                            "params": h.hexdigest()}), flush=True)
-del step_fn         # its graphs hold NCCL's communicators
-dist.barrier()
+real = loop.prefetch_to_device
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+runs = []
+for name, overrides in spec["meshes"].items():
+    cfg = get_config("timit_full_3layer", **overrides, **spec["set"])
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    train = ManifestDataset(corpus, cfg, workers=host_workers())
+    valid = ManifestDataset(corpus, cfg, split="valid")
+    epochs, hashes, kept = [], {}, []
+
+    def traced(iterator, device, size=2, select=None):
+        # the loop's own prefetch, each epoch's payload reads recorded
+        epochs.append(train.payload_reads)
+        for cursor, batch, tb in real(iterator, device, size=size,
+                                      select=select):
+            if len(epochs) == 1:
+                hashes[cursor] = digest(tb[k] for k in sorted(tb))
+                kept.append((batch.audio_seconds(), tb))
+            yield cursor, batch, tb
+        epochs[-1] = train.payload_reads - epochs[-1]
+
+    loop.prefetch_to_device = traced
+    mesh_lib.RowExchange.calls, mesh_lib.RowExchange.seconds = 0, 0.0
+    work = os.path.join(spec["work"], name, str(rank))
+    (state, _), launches = chip_smoke.run_main_path(lambda: loop.train(
+        cfg, train, valid, work_dir=work, device=dev, mesh=mesh))
+    params = digest(step.full_state(state).model.parameters())
+    exchanged = [mesh_lib.RowExchange.seconds, mesh_lib.RowExchange.calls]
+    # the same mesh on the first epoch's blocks in memory: a fresh state,
+    # a pass to capture the graphs (NCCL ranks), then a timed one
+    mem = step.create_train_state(cfg, device=dev)
+    step_fn, mem = step.make_train_step(cfg, mesh, mem)
+    if hasattr(step_fn, "release"):
+        for _, tb in kept:
+            mem, _ = step_fn(mem, tb)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _, tb in kept:
+        mem, _ = step_fn(mem, tb)
+    torch.cuda.synchronize()
+    mem_s = time.time() - t0
+    if hasattr(step_fn, "release"):
+        step_fn.release()   # its graphs hold NCCL's communicators
+    # the loop's own windows (log_every=1: a step and its loader wait,
+    # without the evals), written by rank 0: the job's rate past epoch 1
+    logged, evals = [], 0
+    if rank == 0:
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            events = [json.loads(x) for x in f]
+        logged = [e for e in events if e["kind"] == "train"]
+        evals = sum(e["kind"] == "eval" for e in events)
+    late = logged[len(kept):]
+    runs.append({
+        "name": name, "rank": rank, "mesh": mesh.shape,
+        "workers": host_workers(), "epochs": epochs,
+        "eval_reads": valid.payload_reads, "evals": evals,
+        "hashes": hashes, "launches": launches, "params": params,
+        "losses": [e["loss"] for e in logged],
+        "rate": (sum(e["audio_s_per_s"] * e["step_time_s"] for e in late)
+                 / sum(e["step_time_s"] for e in late)) if late else None,
+        "step_s": sum(e["step_time_s"] for e in late) / max(len(late), 1),
+        "exchange_s": exchanged,
+        "memory_rate": sum(a for a, _ in kept) / mem_s})
+    del state, mem, kept
+    dist.barrier()
+print("RANK " + json.dumps({"rank": rank, "runs": runs}), flush=True)
 dist.destroy_process_group()
 """
 
+# phase 12 part 5's meshes from audio: a 'data', a 'seq' and a 'model' line
+AUDIO_MESHES = {name: {"mesh.data": d, "mesh.model": m, "mesh.seq": q}
+                for name, (d, m, q) in (("DP2", (2, 1, 1)), ("SP2", (1, 1, 2)),
+                                        ("TP2", (1, 2, 1)))}
 
-def phase_mesh_audio(seed: int, one_rank, epochs: int = 3):
-    """Phase 12, part 5: preset 2 from audio under DP2 (``mesh.data=2``):
-    NCCL ranks on two cards, or two gloo ranks sharing one, each with its
-    own frontend pool (``host_workers()`` under ``LOCAL_WORLD_SIZE=2``),
-    its loader featurizing only its rows (``local_rows``), the prefetch
-    copying its block and ``make_train_step``'s step, for ``epochs``
-    epochs of phase 11's 96 training waveforms (the first a warm-up).  Each
-    rank's payload reads per epoch, about half of one rank's; its arrays of
-    the first epoch bit-equal to ``local_batch`` of one card's global
-    batches; the parameters bit-equal across ranks; the job's audio-s/s
-    beside one rank's from audio (phase 11).  Returns the launches (ranks
-    summed)."""
+
+def hand_mesh(shape: dict, rank: int):
+    """Rank ``rank``'s view of a (data, model, seq) grid as ``make_mesh``
+    lays it out (data-major), without process groups."""
+    from tpu_ctc_torch.parallel import mesh as mesh_lib
+    dims = [shape[a] for a in mesh_lib.MESH_AXES]
+    grid = np.arange(int(np.prod(dims))).reshape(dims)
+    coord = tuple(int(c[0]) for c in np.nonzero(grid == rank))
+    lines = {axis: tuple(int(r) for r in
+                         grid[coord[:a] + (slice(None),) + coord[a + 1:]])
+             for a, axis in enumerate(mesh_lib.MESH_AXES)}
+    return mesh_lib.Mesh(dict(shape), rank, lines)
+
+
+def mesh_audio_reference(root: str, seed: int, meshes=AUDIO_MESHES):
+    """Phase 12, part 5's corpus under ``root`` (phase 11's 96 training
+    waveforms and 32 valid ones) and what its ranks must give: {(mesh
+    name, rank): {cursor: the sha256 of the rank's block of one card's
+    global batch of the first epoch}}, one rank's payload reads an epoch
+    and an eval's, and the epoch's batches."""
     import hashlib
-    import shutil
 
     from torch_tools import audio_path_breakdown as apb
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.data.bucketing import BucketedLoader, cut_labels
     from tpu_ctc_torch.data.manifest import ManifestDataset
-    from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
     from tpu_ctc_torch.train import step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_dp_audio")
-    shutil.rmtree(root, ignore_errors=True)
-    cfg = get_config("timit_full_3layer", **{"mesh.data": 2})
-    apb.tone_corpus(root, cfg.frontend, seed, splits=(("train", 96),))
-    # one card's global batches of the first epoch, each rank's block hashed
+    cfg = get_config("timit_full_3layer")
+    apb.tone_corpus(root, cfg.frontend, seed)
     whole = ManifestDataset(root, cfg)
-    want = [{}, {}]
-    for cursor, batch in BucketedLoader(whole, cfg.data).epoch(0):
+    batches = list(BucketedLoader(whole, cfg.data).epoch(0))
+    want = {}
+    for name, axes in meshes.items():
+        shape = {k.split(".")[1]: v for k, v in axes.items()}
         for r in range(2):
-            mesh = mesh_lib.Mesh({"data": 2, "model": 1, "seq": 1}, r,
-                                 {"data": (0, 1), "model": (r,),
-                                  "seq": (r,)})
-            block = step.local_batch(cut_labels(batch_to_device_dict(
-                batch)), mesh)
-            h = hashlib.sha256()
-            for k in sorted(block):
-                h.update(torch.as_tensor(block[k]).numpy().tobytes())
-            want[r][str(cursor)] = h.hexdigest()
-    one_reads = whole.payload_reads
-    count = card_count()
-    backend, devs = (("nccl", ["cuda:0", "cuda:1"]) if count >= 2 else
-                     ("gloo", ["cuda:0", "cuda:0"]))
-    here = os.path.dirname(os.path.abspath(__file__))
+            mesh = hand_mesh(shape, r)
+            want[name, r] = {}
+            for cursor, batch in batches:
+                block = step.local_batch(cut_labels(batch_to_device_dict(
+                    batch)), mesh)
+                h = hashlib.sha256()
+                for k in sorted(block):
+                    h.update(torch.as_tensor(block[k]).numpy().tobytes())
+                want[name, r][str(cursor)] = h.hexdigest()
+    one_eval = len(ManifestDataset(root, cfg, split="valid"))
+    return want, whole.payload_reads, one_eval, len(batches)
+
+
+def spawn_mesh_audio(root: str, tree: str, worker: str, meshes, epochs: int,
+                     steps: int):
+    """``worker`` (:data:`AUDIO_RANK_WORKER`) on two ranks importing the
+    package of the checkout ``tree``: NCCL ranks on two cards, or two gloo
+    ranks sharing one.  Returns (each rank's record, backend, devices)."""
+    from tpu_ctc_torch.parallel import distributed
+    backend, devs = (("nccl", ["cuda:0", "cuda:1"]) if card_count() >= 2
+                     else ("gloo", ["cuda:0", "cuda:0"]))
+    spec = json.dumps({
+        "meshes": meshes, "work": os.path.join(root, "work"),
+        "set": {"train.num_epochs": epochs, "train.log_every": 1,
+                "train.eval_every": steps, "train.checkpoint_every": 0}})
     coord = f"127.0.0.1:{distributed.free_port()}"
     recs = distributed.spawn_ranks(
-        [[sys.executable, "-c", AUDIO_RANK_WORKER, coord, str(r), "2",
-          backend, devs[r], here, root, str(epochs)] for r in range(2)],
-        cwd=here, env=dict(os.environ, PYTHONPATH=here,
+        [[sys.executable, "-c", worker, coord, str(r), "2", backend,
+          devs[r], tree, root, spec] for r in range(2)],
+        cwd=tree, env=dict(os.environ, PYTHONPATH=tree,
                            LOCAL_WORLD_SIZE="2"), timeout=600)
-    same = [rec["hashes"] == want[rec["rank"]] for rec in recs]
-    params_same = len({rec["params"] for rec in recs}) == 1
-    wall = float(np.sum(recs[0]["walls"][1:]))
-    rate = float(np.sum(recs[0]["audio"][1:])) / wall
-    steps = len(recs[0]["hashes"]) * (epochs - 1)
-    launches = {k: sum(rec["launches"][k] for rec in recs)
-                for k in recs[0]["launches"]}
-    log(f"phase 12: preset 2 from audio under DP2 ({backend} ranks on "
-        f"{devs}, {recs[0]['workers']} frontend workers each): payload "
-        f"reads per epoch {[rec['reads'] for rec in recs]} against one "
-        f"rank's {one_reads}; each rank's first-epoch blocks bit-equal to "
-        f"local_batch of one card's global batches: {same} "
-        f"({len(want[0])} batches); parameters bit-equal across ranks: "
-        f"{params_same}; losses {[round(x, 3) for x in recs[0]['losses']]}")
-    log(f"phase 12: DP2 from audio: the job {rate:.1f} audio-s/s (epochs "
-        f"2-{epochs}, {wall / steps * 1e3:.1f} ms a step); one rank from "
-        f"audio "
-        f"(phase 11): {one_rank}; launches on the path (both ranks) "
-        f"{launches}")
+    return recs, backend, devs
+
+
+def mesh_audio_report(phase: str, name: str, recs, reference, one_rank,
+                      epochs: int):
+    """Logs mesh ``name``'s run from audio against ``reference``
+    (:func:`mesh_audio_reference`'s) and returns (the checks it failed,
+    its launches with the ranks summed)."""
+    want, one_reads, one_eval, steps = reference
+    got = [run for rec in recs for run in rec["runs"] if run["name"] == name]
+    same = [rec["hashes"] == want[name, rec["rank"]] for rec in got]
+    params_same = len({rec["params"] for rec in got}) == 1
+    reads = [rec["epochs"] for rec in got]
+    evals = [rec["eval_reads"] / got[0]["evals"] for rec in got]
+    rate = got[0]["rate"]
+    launches = {k: sum(rec["launches"][k] for rec in got)
+                for k in got[0]["launches"]}
+    log(f"{phase}: {name} from audio: payload reads per epoch {reads} "
+        f"against one rank's {one_reads}, an eval's {evals} against "
+        f"{one_eval}; each rank's first-epoch blocks bit-equal to "
+        f"local_batch of one card's global batches: {same} ({steps} "
+        f"batches); parameters bit-equal across ranks: {params_same}; "
+        f"losses {[round(x, 3) for x in got[0]['losses']]}")
+    mem = got[0]["memory_rate"]
+    ex = [f"{s / max(n, 1) * 1e3:.1f} ms x {n}"
+          for s, n in (rec["exchange_s"] for rec in got)]
+    log(f"{phase}: {name} from audio: each rank's row exchanges {ex}")
+    log(f"{phase}: {name} from audio: the job {rate:.1f} audio-s/s "
+        f"(epochs 2-{epochs}, {got[0]['step_s'] * 1e3:.1f} ms a step, "
+        f"the loop's own windows); the same mesh on the first epoch's "
+        f"blocks in memory {mem:.1f} audio-s/s ({rate / mem:.3f} of it); "
+        f"one rank from audio (phase 11): {one_rank}; launches on the path "
+        f"(both ranks) {launches}")
+    failed = []
     if not all(same) or not params_same:
-        raise AssertionError("DP2 from audio: a rank's blocks differ from "
-                             "one card's, or the ranks' parameters differ")
-    if any(r > one_reads * 0.75 for rec in recs for r in rec["reads"]):
-        raise AssertionError("DP2 from audio: a rank read more than its "
-                             "rows")
+        failed.append(f"{name} from audio: a rank's blocks differ from "
+                      f"one card's, or the ranks' parameters differ")
+    if any(r > one_reads * 0.75 for rank in reads for r in rank) or \
+            any(e > one_eval * 0.75 for e in evals):
+        failed.append(f"{name} from audio: a rank read more than its "
+                      f"share of the rows")
     if not (launches.get("birnn_fwd") and launches.get("birnn_bwd")):
-        raise AssertionError("DP2 from audio launched no B1 or B2")
+        failed.append(f"{name} from audio launched no B1 or B2")
+    return failed, launches
+
+
+def phase_mesh_audio(seed: int, one_rank, epochs: int = 2,
+                     meshes=AUDIO_MESHES):
+    """Phase 12, part 5: preset 2 from audio on two ranks under DP2, SP2
+    and TP2 (``AUDIO_MESHES``), through ``train.loop.train`` as ``cli
+    train --data`` runs it: NCCL ranks on two cards, or two gloo ranks
+    sharing one, each with its own frontend pool (``host_workers()``
+    under ``LOCAL_WORLD_SIZE=2``), for ``epochs`` epochs of phase 11's 96
+    training waveforms (the first a warm-up), each followed by an eval of
+    its 32 valid ones.  Each rank's payload reads per epoch, and per eval,
+    at most 0.75 of one rank's: a rank featurizes its share of the rows
+    its step reads (on a 'model' or 'seq' line half of them, the other
+    half exchanged); its prefetched arrays of the first epoch bit-equal to
+    ``local_batch`` of one card's global batches; the parameters bit-equal
+    across ranks (gathered under TP); the job's audio-s/s past the first
+    epoch (the loop's own windows: a step and its loader wait, without
+    the evals) beside the same mesh's step on the first epoch's blocks in
+    memory.  One spawn of the two ranks runs the meshes in turn.  Returns
+    {mesh name: launches, ranks summed}."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_mesh_audio")
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    reference = mesh_audio_reference(root, seed, meshes)
+    t0 = time.time()
+    recs, backend, devs = spawn_mesh_audio(root, here, AUDIO_RANK_WORKER,
+                                           meshes, epochs, reference[3])
+    log(f"phase 12: preset 2 from audio on {', '.join(meshes)} ({backend} "
+        f"ranks on {devs}, {recs[0]['runs'][0]['workers']} frontend "
+        f"workers each): {time.time() - t0:.1f} s; one rank reads "
+        f"{reference[1]} payloads an epoch, {reference[2]} an eval")
+    out = {}
+    for name in meshes:
+        failed, out[name] = mesh_audio_report("phase 12", name, recs,
+                                              reference, one_rank, epochs)
+        if failed:
+            raise AssertionError("; ".join(failed))
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Phase 13: the benchmarks and the tools
 # ---------------------------------------------------------------------------
 
-def run_tool(what: str, main, argv):
+def run_tool(what: str, main, argv, phase: str = "phase 13"):
     """``main(argv)`` (a bench's or a tool's) with its stdout and stderr
-    logged line by line as ``phase 13: <what>: ...``; raises unless it
-    returns 0.  Returns its stdout's lines."""
+    logged line by line as ``<phase>: <what>: ...``, then its wall time;
+    raises unless it returns 0.  Returns its stdout's lines."""
     import io
     out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = main(argv)
     finally:
         for line in err.getvalue().splitlines() + out.getvalue().splitlines():
-            log(f"phase 13: {what}: {line}")
+            log(f"{phase}: {what}: {line}")
+        log(f"{phase}: {what} took {time.time() - t0:.1f} s")
     if rc != 0:
         raise AssertionError(f"{what} returned {rc}")
     return out.getvalue().splitlines()
@@ -2712,7 +2925,8 @@ def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
     ran = {}
 
     def ctc_bench(_):
-        ran["results"], cells = bench_ctc.run()
+        # at its shape, 3 calls a row (2 of the plain loop)
+        ran["results"], cells = bench_ctc.run(iters=3)
         print(json.dumps(bench_ctc.report(ran["results"], cells, dev)))
         return 0
     bench_json("bench_ctc", run_tool("bench_ctc", ctc_bench, []))
@@ -2736,7 +2950,8 @@ def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
         "bench_decode --preset4", bench_decode.main,
         ["--preset4", "--skip-plain"]), may_be_null=("vs_baseline",))
     bench_json("bench_decode", run_tool(
-        "bench_decode", bench_decode.main, ["--host-utts", "1"]))
+        "bench_decode", bench_decode.main,
+        ["--host-utts", "1"]))
     cpp_against_b5(dev)
     run_tool("smoke_cuda_decode", lambda _: smoke_cuda_decode.main(), [])
     for preset, extra in (("2", []), ("3", ["--batch", "8"])):
@@ -2949,65 +3164,78 @@ from tpu_ctc_torch.config import get_config
 from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
 from tpu_ctc_torch.train import step
 
-coord, rank, world, backend, dev, _, spec = sys.argv[1:8]
-rank, world, spec = int(rank), int(world), json.loads(spec)
+coord, rank, world, backend, dev, _, specs = sys.argv[1:8]
+rank, world, specs = int(rank), int(world), json.loads(specs)
 dev = distributed.initialize(coord, world, rank, device=dev, backend=backend)
-cfg = get_config(spec["preset"], **spec["overrides"])
-mesh = mesh_lib.make_mesh(cfg.mesh)
-rec = {"rank": rank, "mesh": mesh.shape}
-if spec["kind"] == "train":
-    batches = chip_smoke.synthetic_batches(cfg, spec["steps"], spec["batch"],
-                                           spec["frames"], spec["seed"])
-    tensors = [step.batch_to_tensors(b, dev, mesh) for b in batches]
-    rec2, state = chip_smoke.step_turns(
-        cfg, mesh, dev, tensors, spec.get("turns", ("graphs", "eager")))
-    rec.update(rec2)
-    if spec.get("out"):                 # the gathered parameters
-        whole = step.full_state(state)
+
+
+def run(spec):
+    cfg = get_config(spec["preset"], **spec["overrides"])
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    rec = {"rank": rank, "mesh": mesh.shape}
+    if spec["kind"] == "train":
+        batches = chip_smoke.synthetic_batches(
+            cfg, spec["steps"], spec["batch"], spec["frames"], spec["seed"])
+        tensors = [step.batch_to_tensors(b, dev, mesh) for b in batches]
+        rec2, state = chip_smoke.step_turns(
+            cfg, mesh, dev, tensors, spec.get("turns", ("graphs", "eager")))
+        rec.update(rec2)
+        if spec.get("out"):                 # the gathered parameters
+            whole = step.full_state(state)
+            if rank == 0:
+                torch.save({k: p.detach() for k, p in
+                            whole.model.named_parameters()}, spec["out"])
+    else:                               # the collective decode of preset 4
+        from tpu_ctc_torch.decode.collective import make_collective_decoder
+        from tpu_ctc_torch.models import birnn
+        model, lm, bd, max_len = chip_smoke.preset4_decode_inputs(cfg, dev)
+        dec = make_collective_decoder(cfg, mesh, lm=lm, use_beam=True,
+                                      max_len=max_len, redistribute=True,
+                                      device=dev)
+        dec(model, bd)                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        (hyps, lens), launches = chip_smoke.run_main_path(
+            lambda: dec(model, bd))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ref = torch.load(spec["posteriors"])
+        n = mesh.axis_size("data")
+        rows = slice(rank * len(ref["lp"]) // n,
+                     (rank + 1) * len(ref["lp"]) // n)
+        with torch.no_grad():
+            lp = birnn.log_posteriors(
+                model, cfg.model,
+                torch.as_tensor(bd["feats"][rows], device=dev),
+                torch.as_tensor(bd["frame_mask"][rows], device=dev))
+        same_lp = torch.equal(lp.cpu(), ref["lp"][rows])
+        h2, l2 = dec.from_posteriors(ref["lp"][rows].to(dev),
+                                     ref["lens"][rows].to(dev),
+                                     ref["mask"][rows].to(dev))
         if rank == 0:
-            torch.save({k: p.detach() for k, p in
-                        whole.model.named_parameters()}, spec["out"])
-else:                               # the collective decode of preset 4
-    from tpu_ctc_torch.decode.collective import make_collective_decoder
-    from tpu_ctc_torch.models import birnn
-    model, lm, bd, max_len = chip_smoke.preset4_decode_inputs(cfg, dev)
-    dec = make_collective_decoder(cfg, mesh, lm=lm, use_beam=True,
-                                  max_len=max_len, redistribute=True,
-                                  device=dev)
-    dec(model, bd)                                  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.time()
-    (hyps, lens), launches = chip_smoke.run_main_path(
-        lambda: dec(model, bd))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    ref = torch.load(spec["posteriors"])
-    n = mesh.axis_size("data")
-    rows = slice(rank * len(ref["lp"]) // n, (rank + 1) * len(ref["lp"]) // n)
-    with torch.no_grad():
-        lp = birnn.log_posteriors(
-            model, cfg.model, torch.as_tensor(bd["feats"][rows], device=dev),
-            torch.as_tensor(bd["frame_mask"][rows], device=dev))
-    same_lp = torch.equal(lp.cpu(), ref["lp"][rows])
-    h2, l2 = dec.from_posteriors(ref["lp"][rows].to(dev),
-                                 ref["lens"][rows].to(dev),
-                                 ref["mask"][rows].to(dev))
-    if rank == 0:
-        torch.save({"hyps": hyps.cpu(), "lens": lens.cpu(),
-                    "hyps_same_lp": h2.cpu(), "lens_same_lp": l2.cpu()},
-                   spec["out"])
-    rec.update(launches=launches, wall=wall, posteriors_bit_equal=same_lp)
-print("RANK " + json.dumps(rec), flush=True)
+            torch.save({"hyps": hyps.cpu(), "lens": lens.cpu(),
+                        "hyps_same_lp": h2.cpu(), "lens_same_lp": l2.cpu()},
+                       spec["out"])
+        rec.update(launches=launches, wall=wall,
+                   posteriors_bit_equal=same_lp)
+    return rec
+
+
+# one spec, or a list run in turn (one spawn of the ranks for all)
+recs = [run(spec) for spec in specs] if isinstance(specs, list) else \
+    run(specs)
+print("RANK " + json.dumps(recs), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
 
 
-def spawn_mesh14(world: int, spec: dict, timeout: int = 900):
-    """``world`` ranks of MESH14_WORKER on ``spec``: NCCL ranks one card
-    each when ``nvidia-smi -L`` lists enough cards, else gloo ranks sharing
-    card 0 (NCCL refuses two ranks on one device).  Returns (records,
-    backend)."""
+def spawn_mesh14(world: int, spec, timeout: int = 900):
+    """``world`` ranks of MESH14_WORKER on ``spec`` (or a list of specs,
+    run in turn by the same ranks): NCCL ranks one card each when
+    ``nvidia-smi -L`` lists enough cards, else gloo ranks sharing card 0
+    (NCCL refuses two ranks on one device).  Returns (each rank's record,
+    or its list of records, one a spec; backend)."""
     from tpu_ctc_torch.parallel import distributed
     count = card_count()
     if count >= world:
@@ -3102,21 +3330,25 @@ def phase_tp_preset5(steps=2):
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, "build", "chip_smoke_tp.pt")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    launches = {}
-    for dtype in ("bfloat16", "float32"):
+    launches, specs = {}, []
+    dtypes = ("bfloat16", "float32")
+    for dtype in dtypes:     # one spawn of the ranks runs both
+        specs.append(dict(kind="train", preset="5", steps=steps, batch=batch,
+                          frames=frames, seed=5, out=f"{out}.{dtype}",
+                          overrides={"mesh.data": 1, "mesh.model": world,
+                                     "model.compute_dtype": dtype}))
+    log(f"phase 14: preset 5 under TP, model = {world}, global B={batch} "
+        f"T={frames}, {steps} steps, in {' then '.join(dtypes)}")
+    ranks, backend = spawn_mesh14(world, specs)
+    for spec, dtype, recs in zip(specs, dtypes, zip(*ranks)):
         cfg = get_config("5", **{"model.compute_dtype": dtype})
-        batches = synthetic_batches(cfg, steps, batch, frames, seed=5)
-        spec = dict(kind="train", preset="5", steps=steps, batch=batch,
-                    frames=frames, seed=5, out=out,
-                    overrides={"mesh.data": 1, "mesh.model": world,
-                               "model.compute_dtype": dtype})
         log(f"phase 14: preset {cfg.name} (H={cfg.model.hidden_dim}, "
             f"{cfg.model.num_pre_layers} dense + {cfg.model.num_bi_layers} "
-            f"bidirectional layers, {dtype}) under TP, model = {world}, "
-            f"global B={batch} T={frames}, {steps} steps")
-        recs, backend = spawn_mesh14(world, spec)
-        gathered = torch.load(out)
-        os.remove(out)
+            f"bidirectional layers, {dtype}) under TP: against one card")
+        batches = synthetic_batches(cfg, steps, batch, frames, seed=5)
+        gathered = torch.load(spec["out"])
+        os.remove(spec["out"])
+        recs = list(recs)
         one = cfg.override(**{"mesh.model": 1})
         ref = one_card_reference(one, batches)
         limits = None
@@ -3249,23 +3481,42 @@ def phase_collective_decode(world=2, dev="cuda"):
     return launches
 
 
-def phase_dryrun(world=2):
-    """Phase 14, part 5: ``python -m tpu_ctc_torch.dryrun`` under torchrun
-    over 2 ranks: NCCL one card each, or gloo ranks sharing card 0."""
+def start_dryrun(world=2):
+    """Phase 14, part 5, started: ``python -m tpu_ctc_torch.dryrun`` under
+    torchrun over 2 ranks (NCCL one card each, or gloo ranks sharing card
+    0), in the background while phase 15's chain runs (nothing timed runs
+    beside it); :func:`check_dryrun` waits for it."""
+    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     extra = ([] if card_count() >= world
              else ["--device", "cuda:0", "--backend", "gloo"])
-    res = subprocess.run(
+    out = tempfile.TemporaryFile("w+")      # no pipe to fill meanwhile
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", str(world), "-m", "tpu_ctc_torch.dryrun",
-         *extra], capture_output=True, text=True, cwd=root,
-        env=dict(os.environ, PYTHONPATH=root), timeout=600)
-    lines = [x for x in res.stdout.splitlines()
-             if x.startswith("dryrun_multichip")]
+         *extra], stdout=out, stderr=subprocess.STDOUT, text=True,
+        cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    return proc, out
+
+
+def check_dryrun(started, timeout=600):
+    """The dry run's four ``dryrun_multichip`` lines, each logged; raises
+    unless it exits 0 with all four."""
+    proc, f = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    f.seek(0)
+    out, err = f.read(), ""
+    f.close()
+    lines = [x for x in out.splitlines() if x.startswith("dryrun_multichip")]
     for line in lines:
         log(f"phase 14: {line}")
-    if res.returncode != 0 or len(lines) != 4:
-        log(res.stdout[-3000:] + res.stderr[-3000:])
+    if proc.returncode != 0 or len(lines) != 4:
+        log(out[-3000:] + err[-3000:])
         raise AssertionError("the dry run failed")
 
 
@@ -3275,11 +3526,12 @@ def phase_dryrun(world=2):
 
 # torch_tools/eval_chain.py at its full widths (H = 512, 3 bidirectional
 # layers, B = 16, buckets (80, 160, 320)) on a cut corpus, epochs and GRU
-# training, with 2 x 2 grids, its independent stages six at a time; the
-# full chain is its defaults.  300 steps at the first rate take the model
+# training, with 2 x 2 grids, its independent stages nine at a time (the
+# nine scores in one wave); the full chain is its defaults.  300 steps at the first rate take the model
 # out of its blank phase (the full chain's eval CER is 0.45 at step 200),
 # so that every system decodes text and every pair is scored.
-CHAIN_CUT = ["--n", "120", "--jobs", "6", "--epochs", "60,75,80", "--lrs",
+CHAIN_N, CHAIN_SEED = 120, 1   # the cut chain's corpus, made in process
+CHAIN_CUT = ["--jobs", "9", "--epochs", "60,75,80", "--lrs",
              "0.02,0.005,0.0015", "--nlm-steps", "50", "--trigram-grid",
              "1.0,1.75/0.5,1.5", "--gru-grid", "1.0,1.5/0.5,1.5",
              "--both-grid", "0.75,1.0/0.0,0.5"]
@@ -3328,14 +3580,24 @@ def phase_chain(timeout=600):
     starts at 0), as paths: ``chain`` all but B5's, ``chain_ngram`` and
     ``chain_gru`` B5's n-gram and GRU instances."""
     import shutil
+    import importlib
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_chain")
     shutil.rmtree(out, ignore_errors=True)
     t0 = time.time()
+    # steps 1-2 (the corpus and its manifests) here, in process: two
+    # processes fewer to start; the chain takes them with --data
+    from torch_tools import eval_chain
+    man = os.path.join(out, "manifests")
+    for stage, target, argv in eval_chain.data_steps(
+            os.path.join(out, "tree"), man, CHAIN_N, CHAIN_SEED):
+        tool = importlib.import_module(
+            "torch_tools." + os.path.basename(target)[:-3])
+        run_tool(stage, tool.main, argv, phase="phase 15")
     # its own process group: a timeout stops the chain's subprocesses too
     proc = subprocess.Popen(
         [sys.executable, os.path.join("torch_tools", "eval_chain.py"),
-         "--out", out, *CHAIN_CUT],
+         "--out", out, "--data", man, *CHAIN_CUT],
         cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         start_new_session=True)
@@ -3501,7 +3763,8 @@ def main() -> int:
     paths["mesh_one"], ref_losses = phase_mesh_one()
     mesh_runs = phase_mesh_ranks(ref_losses)
     paths.update({f"mesh {name}": n for name, n in mesh_runs.items()})
-    paths["mesh_audio"] = phase_mesh_audio(seed=0, one_rank=one_rank)
+    paths.update({f"mesh_audio {name}": n for name, n in
+                  phase_mesh_audio(seed=0, one_rank=one_rank).items()})
     took("phase 12")
     phase_tools(records, kept)
     took("phase 13")
@@ -3509,11 +3772,16 @@ def main() -> int:
     paths["tp"] = phase_tp_preset5()
     paths["pp"] = phase_pp_preset2()
     paths["collective"] = phase_collective_decode()
-    phase_dryrun()
     took("phase 14")
     phase_chain_kernels(records, REPS)
-    paths.update(phase_chain())
-    took("phase 15")
+    dryrun = start_dryrun()     # phase 14's last part, beside the chain
+    try:
+        paths.update(phase_chain())
+    except BaseException:
+        dryrun[0].kill()    # its ranks are ended with the run's others
+        raise
+    check_dryrun(dryrun)
+    took("phase 15 (and the dry run)")
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
@@ -3533,7 +3801,7 @@ def main() -> int:
                              "the main paths")
     records.sort(key=lambda rec: KERNEL_ORDER.index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    log(card_line())
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "variant", "route", "source",
                              "replaces", "launches", "h0_launches",

@@ -471,6 +471,26 @@ def test_gru_lm_training_is_bit_reproducible(dev):
         assert torch.equal(p, runs[1][name]), name
 
 
+def test_gru_lm_graphed_training_is_the_eager_training(dev, monkeypatch):
+    """On a card ``train_char_rnn_lm`` replays the NLL's forward and
+    backward as CUDA graphs (``neural_lm.graphed_nll``): 30 Adam steps
+    give parameters and a last NLL bit-equal to the same steps with the
+    eager NLL."""
+    r = np.random.RandomState(7)
+    seqs = [r.randint(1, 29, r.randint(5, 60)).astype(np.int32)
+            for _ in range(200)]
+    cfg = neural_lm.CharRNNLMConfig(vocab_size=29, embed_dim=64,
+                                    hidden_dim=128)
+    graphed, nll = neural_lm.train_char_rnn_lm(seqs, cfg, steps=30,
+                                               device=dev)
+    monkeypatch.setattr(neural_lm, "graphed_nll", lambda *a: None)
+    eager, eager_nll = neural_lm.train_char_rnn_lm(seqs, cfg, steps=30,
+                                                   device=dev)
+    assert nll == eager_nll
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        assert torch.equal(p, q), name
+
+
 def _posteriors(seed, b, t, a, scale=2.0):
     r = np.random.RandomState(seed)
     lp = torch.log_softmax(

@@ -4,14 +4,23 @@ On ``tests/test_torch_data.py``'s corpus (WAV, SPHERE, ``.npy`` features,
 an 8 kHz mu-law file resampled to 16 kHz, a record without length
 metadata; B = 4, buckets (60, 120, 250), frame stride 2):
 
-* a rank's loader (``BucketedLoader(rows=train.step.local_rows(...))``) on
-  a mesh built by hand for each rank (no process group: the loader needs
-  only the rank's coordinates) reads the payloads of its rows' utterances
-  only: on data = 2 fewer than one rank's whole pass, whole rows under
-  data x seq, every row under seq alone.  The counterpart of
+* a rank's loader built with its share of the rows its step reads
+  (``BucketedLoader(rows=)`` of ``train.step.feature_rows``) on a mesh
+  built by hand for each rank (no process group: the share needs only
+  the rank's coordinates) reads the payloads of that share's utterances
+  only, fewer than one rank's whole pass, each row by one rank of a
+  'model' or 'seq' line, the ranks together every utterance, on DP2, SP2,
+  DP2 x SP2, TP2 and DP2 x TP2; the eval's share follows the eval step's
+  rows.  The counterpart of
   ``tests/test_streaming.py::test_host_shard_reads_only_its_items``,
   which the port does not copy: the reference's hosts take a strided
   share of the batch plan, and the port's ranks keep the global batches;
+* ``train.loop.rank_loader`` on 2 and 4 gloo ranks (one process each):
+  the shares exchanged over the loader's own group give every rank's
+  prefetched train tensors and eval rows bit-equal to those of the fully
+  featurized global batch (DP2, SP2, TP2, PP2; DP2 x SP2, DP2 x TP2,
+  SP4), a rank whose loader fails makes the others raise, and loaders
+  closed mid-epoch on every rank leave none waiting;
 * the arrays a rank copies (``local_batch`` of its loader's batch, and the
   tensors of ``prefetch_to_device`` with ``select``) are bit-equal to the
   block of the one-rank global batch under DP2, SP2 and DP2 x SP2, from
@@ -50,7 +59,9 @@ from tpu_ctc_torch.train.loop import batch_to_device_dict
 
 torch.set_num_threads(2)
 
-MESHES = {"dp2": (2, 1, 1), "sp2": (1, 1, 2), "dp2xsp2": (2, 1, 2)}
+MESHES = {"dp2": (2, 1, 1), "sp2": (1, 1, 2), "dp2xsp2": (2, 1, 2),
+          "tp2": (1, 2, 1), "dp2xtp2": (2, 2, 1)}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def hand_mesh(shape, rank):
@@ -98,7 +109,13 @@ class Recording(ManifestDataset):
 class TestRankRows:
     @pytest.mark.parametrize("name", list(MESHES))
     def test_rank_reads_only_its_rows(self, corpus, name):
+        """A rank's loader built with its share of the rows its step reads
+        (``step.feature_rows``) reads the payloads of that share's
+        utterances only: on a 'model' or 'seq' line each rank half of the
+        line's block, each row by one rank of the line, and the ranks
+        together every utterance of the epoch."""
         cfg = _cfgs()[0]
+        n_b = cfg.data.batch_size
         full = Recording(corpus, cfg)
         plan = BucketedLoader(full, cfg.data)._epoch_order(1)
         for _ in BucketedLoader(full, cfg.data).epoch(1):
@@ -107,19 +124,22 @@ class TestRankRows:
         covered = set()
         for rank in range(int(np.prod(shape))):
             mesh = hand_mesh(shape, rank)
-            rows = step.local_rows(mesh, cfg.data.batch_size)
+            read = step.local_rows(mesh, n_b)
+            ranks, shares = step.feature_rows(mesh, n_b, read)
+            assert len(ranks) == shape[1] * shape[2] and rank in ranks
+            mine = shares[ranks.index(rank)]
+            dealt = np.sort(np.concatenate(shares))
+            assert np.array_equal(dealt, np.arange(n_b) if read is None
+                                  else np.sort(read))     # each row once
             ds = Recording(corpus, cfg)
-            for _ in BucketedLoader(ds, cfg.data, rows=rows).epoch(1):
+            for _ in BucketedLoader(ds, cfg.data, rows=mine).epoch(1):
                 pass
-            if shape[0] == 1:          # seq alone: every rank every row
-                assert rows is None and ds.read == full.read
-                continue
             want = [ids[j] for _, ids in plan
-                    for j in sorted({r % len(ids) for r in rows})]
+                    for j in sorted({r % len(ids) for r in mine})]
             assert ds.read == want and ds.payload_reads == len(want)
             assert ds.payload_reads < full.payload_reads
             covered |= set(ds.read)
-        assert shape[0] == 1 or covered == set(full.read)
+        assert covered == set(full.read)
 
     @pytest.mark.parametrize("name", list(MESHES))
     @pytest.mark.parametrize("start", [0, 2])
@@ -188,20 +208,212 @@ class TestRankRows:
             assert torch.equal(got, want), rank
 
     def test_eval_rows_follow_the_eval_step(self):
-        """The rows an eval loader featurizes are the rows the mesh's eval
-        step reads: the rank's block under DP, TP and PP, every row (None)
-        where every rank evaluates the whole batch (SP, DP x SP)."""
+        """The rows a mesh's eval step reads (``step.eval_rows``): the
+        rank's block under DP, TP and PP (each rank evaluates its block and
+        the outputs are gathered), every row (None) where every rank
+        evaluates the whole batch (SP, DP x SP); and the share of them
+        that the rank's eval loader featurizes (``step.feature_rows``):
+        the block alone under pure DP, every other row of it over a TP or
+        PP line, and under SP the rows dealt over the whole mesh."""
         cfg = _cfgs()[0]
         pp = cfg.override(**{"mesh.pipeline": True})
-        for c, shape, rank, want in ((cfg, (2, 1, 1), 1, [2, 3]),
-                                     (cfg, (2, 2, 1), 2, [2, 3]),
-                                     (pp, (2, 2, 1), 1, [0, 1]),
-                                     (cfg, (1, 2, 1), 1, None),
-                                     (cfg, (2, 1, 2), 3, None),
-                                     (cfg, (1, 1, 2), 1, None)):
-            got = step.eval_rows(c, hand_mesh(shape, rank))
+        for c, shape, rank, want, share in (
+                (cfg, (2, 1, 1), 1, [2, 3], [2, 3]),
+                (cfg, (2, 2, 1), 2, [2, 3], [2]),
+                (pp, (2, 2, 1), 1, [0, 1], [1]),
+                (cfg, (1, 2, 1), 1, None, [1, 3]),
+                (cfg, (2, 1, 2), 3, None, [3]),
+                (cfg, (1, 1, 2), 1, None, [1, 3])):
+            mesh = hand_mesh(shape, rank)
+            got = step.eval_rows(c, mesh)
             assert (got is None if want is None
                     else list(got) == want), (shape, rank, got)
+            ranks, shares = step.feature_rows(mesh, c.data.batch_size, got)
+            assert list(shares[ranks.index(rank)]) == share, (shape, rank)
+
+
+EXCHANGE_WORKER = r"""
+import json, pickle, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from tpu_ctc_torch.data.bucketing import BucketedLoader, cut_labels
+from tpu_ctc_torch.data.manifest import ManifestDataset
+from tpu_ctc_torch.data.prefetch import prefetch_to_device
+from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
+from tpu_ctc_torch.train import loop, step
+from tpu_ctc_torch.train.loop import batch_to_device_dict
+
+coord, rank, world, work, corpus, meshes = sys.argv[1:7]
+rank, world = int(rank), int(world)
+distributed.initialize(coord, world, rank, device="cpu")
+with open(work + "/cfg.pkl", "rb") as f:
+    cfg = pickle.load(f)
+
+
+class Recording(ManifestDataset):
+    def __init__(self, *a, fail=None, **kw):
+        super().__init__(*a, **kw)
+        self.read, self.fail = [], fail
+
+    def __getitem__(self, i):
+        if i == self.fail:
+            raise FileNotFoundError(f"utterance {i} is gone")
+        self.read.append(i)
+        return super().__getitem__(i)
+
+
+out = {}
+for name, (d, m, s, pp) in json.loads(meshes).items():
+    c = cfg.override(**{"mesh.data": d, "mesh.model": m, "mesh.seq": s,
+                        "mesh.pipeline": pp})
+    mesh = mesh_lib.make_mesh(c.mesh)
+    for kind in ("train", "eval"):
+        ds = Recording(corpus, cfg)
+        loader = loop.rank_loader(ds, c, mesh, eval=kind == "eval")
+        mesh_lib.RowExchange.calls = 0
+        if kind == "train":   # the prefetch thread's batches, resumed at 1
+            got = [(cur, {k: t.numpy() for k, t in tens.items()})
+                   for cur, _, tens in prefetch_to_device(
+                       loader.epoch(1, 1), "cpu",
+                       select=lambda a: step.local_batch(a, mesh))]
+        else:                 # evaluate's: the global batch, unselected
+            got = [(cur, cut_labels(batch_to_device_dict(b)))
+                   for cur, b in loader.epoch(0)]
+        loader.close()
+        out[f"{name}/{kind}"] = {"reads": ds.read, "rows": loader.rows,
+                                 "batches": got,
+                                 "exchanges": mesh_lib.RowExchange.calls}
+# a rank whose loader fails makes its line's other ranks raise; a loader
+# closed mid-epoch on every rank (preemption, evaluate's max_batches)
+# leaves no rank waiting
+c = cfg.override(**{"mesh.data": 1, "mesh.model": world})
+mesh = mesh_lib.make_mesh(c.mesh)
+loader = loop.rank_loader(Recording(corpus, cfg), c, mesh)
+plan = loader._epoch_order(0)
+loader.dataset.fail = plan[1][1][rank % len(plan[1][1])] if rank == 1 else -1
+try:
+    for _ in prefetch_to_device(loader.epoch(0), "cpu"):
+        pass
+    raised = None
+except Exception as e:
+    raised = f"{type(e).__name__}: {e}"
+for _ in range(2):
+    for _ in loader.epoch(0):
+        break
+loader.close()
+out["abort"] = raised
+with open(f"{work}/out_{rank}.pkl", "wb") as f:
+    pickle.dump(out, f)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+print(f"OK rank {rank}", flush=True)
+"""
+
+# name: (data, model, seq, pipeline), by the ranks that run them
+EXCHANGE_MESHES = {
+    2: {"dp2": (2, 1, 1, False), "sp2": (1, 1, 2, False),
+        "tp2": (1, 2, 1, False), "pp2": (1, 2, 1, True)},
+    4: {"dp2xsp2": (2, 1, 2, False), "dp2xtp2": (2, 2, 1, False),
+        "sp4": (1, 1, 4, False)}}
+
+
+class TestRowExchange:
+    @pytest.mark.parametrize("world", [2, 4])
+    def test_each_row_featurized_once_and_blocks_bit_equal(self, corpus,
+                                                          tmp_path, world):
+        """``train.loop.rank_loader`` on ``world`` gloo ranks, one process
+        each, for each mesh: every rank featurizes only its share of the
+        rows its step reads, each row by exactly one rank of its line, the
+        line's reads together cover its block, and the shares exchanged
+        over the loader's own group make the prefetched train tensors
+        (resumed mid-epoch) bit-equal to ``local_batch`` of the fully
+        featurized global batch, and the eval loader's rows that the eval
+        step reads bit-equal to the global batch's.  Then a rank whose
+        loader fails makes the other raise (no wait), and loaders closed
+        mid-epoch on every rank leave none waiting."""
+        import pickle
+        import socket
+        import subprocess
+        import sys
+        cfg = _cfgs()[0]
+        n_b = cfg.data.batch_size
+        with open(tmp_path / "cfg.pkl", "wb") as f:
+            pickle.dump(cfg, f)
+        meshes = EXCHANGE_MESHES[world]
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", EXCHANGE_WORKER, coord, str(r),
+             str(world), str(tmp_path), corpus, json.dumps(meshes)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(world)]
+        outs = [p.communicate(timeout=240) for p in procs]
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"rank {r}:\n{out}\n{err[-4000:]}"
+        got = []
+        for r in range(world):
+            with open(tmp_path / f"out_{r}.pkl", "rb") as f:
+                got.append(pickle.load(f))
+        whole = ManifestDataset(corpus, cfg)
+        want = {"train": dict(BucketedLoader(whole, cfg.data).epoch(1, 1)),
+                "eval": dict(BucketedLoader(whole, cfg.data).epoch(0))}
+        for name, (d, m, s, pp) in meshes.items():
+            c = cfg.override(**{"mesh.pipeline": pp})
+            for kind, epoch, start in (("train", 1, 1), ("eval", 0, 0)):
+                plan = BucketedLoader(whole, cfg.data)._epoch_order(epoch)
+                reads = {}
+                for r in range(world):
+                    mesh = hand_mesh((d, m, s), r)
+                    read = (step.eval_rows(c, mesh) if kind == "eval"
+                            else step.local_rows(mesh, n_b))
+                    ranks, shares = step.feature_rows(mesh, n_b, read)
+                    rec = got[r][f"{name}/{kind}"]
+                    mine = shares[ranks.index(r)]
+                    assert rec["rows"] == list(mine), (name, kind, r)
+                    assert rec["reads"] == [
+                        ids[j] for _, ids in plan[start:]
+                        for j in sorted({q % len(ids) for q in mine})]
+                    line = reads.setdefault(ranks, [[], set(), shares])
+                    line[0].extend(rec["reads"])
+                    line[1] |= {ids[q % len(ids)] for _, ids in plan[start:]
+                                for q in (range(n_b) if read is None
+                                          else read)}
+                    if len(ranks) > 1:
+                        assert len(rec["reads"]) < sum(
+                            len(ids) for _, ids in plan[start:])
+                    for cur, arrays in rec["batches"]:
+                        full = cut_labels(batch_to_device_dict(
+                            want[kind][cur]))
+                        if kind == "train":
+                            block = step.local_batch(full, mesh)
+                        else:
+                            rows = np.arange(n_b) if read is None else read
+                            block = {k: v[rows] for k, v in full.items()}
+                            arrays = {k: v[rows] for k, v in arrays.items()}
+                        assert set(arrays) == set(block)
+                        for k, v in block.items():
+                            np.testing.assert_array_equal(
+                                arrays[k], v, f"{name} {kind} {r} {cur} {k}")
+                    assert [cur for cur, _ in rec["batches"]] == list(
+                        range(start, len(plan)))
+                    # one exchange a batch where a line shares the rows
+                    assert rec["exchanges"] == (len(rec["batches"])
+                                                if len(ranks) > 1 else 0)
+                # a line's reads cover its block's utterances, and each
+                # row of a full batch is read by one rank of the line
+                for ranks, (line, block, shares) in reads.items():
+                    assert set(line) == block, (name, kind, ranks)
+                    assert len(line) == sum(
+                        len({q % len(ids) for q in share})
+                        for _, ids in plan[start:] for share in shares)
+                    rows = np.sort(np.concatenate(shares))
+                    assert len(set(rows)) == len(rows), (name, kind)
+        assert got[1]["abort"].startswith("FileNotFoundError"), got[1]
+        assert all(got[r]["abort"].startswith("RuntimeError") and
+                   "[1]" in got[r]["abort"] for r in range(world)
+                   if r != 1), [g["abort"] for g in got]
 
 
 class TestPool:

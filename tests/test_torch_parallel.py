@@ -28,7 +28,8 @@ CUDA graph over collectives that run through the host).  Beside them:
 two-process ``initialize`` with ``local_batch_slice`` and one all-reduce, a
 checkpoint written under data = 2 and restored in one process, and ``cli
 train`` under ``torch.distributed.run`` (torchrun) with DP and with SP
-against the same command in one process, and DP from a WAV manifest.
+against the same command in one process, and DP, SP and TP from a WAV
+manifest (each rank featurizing its share of the rows).
 """
 import json
 import os
@@ -470,11 +471,15 @@ class TestCliUnderTorchrun:
         pytest.param("mesh.data=2", False, id="mesh.data=2"),
         pytest.param("mesh.seq=2", False, id="mesh.seq=2"),
         pytest.param("mesh.model=2", False, id="mesh.model=2"),
-        pytest.param("mesh.data=2", True, id="mesh.data=2-from-audio")])
+        pytest.param("mesh.data=2", True, id="mesh.data=2-from-audio"),
+        pytest.param("mesh.seq=2", True, id="mesh.seq=2-from-audio"),
+        pytest.param("mesh.model=2", True, id="mesh.model=2-from-audio")])
     def test_two_ranks_match_one_process(self, tmp_path, mesh, data):
         """``cli train`` under torchrun with 2 ranks (DP, or SP or TP with
-        data = 1), from synthetic features or (DP) from a WAV manifest,
-        where each rank featurizes only its rows: rank 0 alone prints and
+        data = 1), from synthetic features or from a WAV manifest, where
+        each rank featurizes only its share of the rows (under SP and TP
+        half of the batch, the other half exchanged, the eval's too): rank
+        0 alone prints and
         writes the metrics (3 steps, one eval) and the checkpoint, whose
         parameters agree with the same command in one process."""
         source = (("--data", _wav_corpus(str(tmp_path / "corpus"))) if data

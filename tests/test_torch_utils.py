@@ -86,6 +86,16 @@ def test_device_exec_ms_sums_device_events():
     assert devtime._device_exec_ms(events[:1]) == 0.0
 
 
+def test_device_events_of_a_host_trace_are_none():
+    """``_device_events`` reads the profiler's own records: a trace of
+    host work alone has no device event, and sums to 0 ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.randn(8, 8) @ torch.randn(8, 8)
+    assert devtime._device_events(prof) == []
+    assert devtime._device_exec_ms(devtime._device_events(prof)) == 0.0
+
+
 def test_device_time_ms_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = []

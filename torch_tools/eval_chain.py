@@ -32,16 +32,17 @@ and CLI with ``--device`` passed through:
 
 Beside them, in this process: the loader's batch plan (the step count
 the runs must reach), the train split read and featurized once by
-``ManifestDataset`` (the frontend's share of an epoch), and two trainings
-of the GRU char LM as the decodes train it, compared bit for bit.
+``ManifestDataset`` (the frontend's share of an epoch), and, while the
+sweeps run, two trainings of the GRU char LM as the decodes train it,
+compared bit for bit.
 
 Every CLI and sweep subprocess runs under :func:`counted_main`, which
 writes the process's kernel launch counts at exit; the JSON holds them by
-stage and summed.  The three sweeps, the five decodes and the scores are
-independent: ``--jobs N`` runs N of them at once (default 1, one stage at
-a time).  Progress goes to stderr, each subprocess's stdout and stderr to
-``OUT/logs/<stage>.out`` and ``.log``, and every number to
-``OUT/eval_chain.json``.
+stage and summed.  The export and the three sweeps, the five decodes and
+the scores are independent: ``--jobs N`` runs N of them at once (default
+1, one stage at a time).  Progress goes to stderr, each subprocess's
+stdout and stderr to ``OUT/logs/<stage>.out`` and ``.log``, and every
+number to ``OUT/eval_chain.json``.
 The ladder holds when greedy WER > trigram WER > GRU WER with each gap's
 paired 95% CI above 0 (the JSON's ``ladder``); the exit code is 0 either
 way, and non-zero only when a step fails.
@@ -63,6 +64,7 @@ import re
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -192,6 +194,17 @@ class Chain:
 
     def run(self, stage: str, target: str, argv, counted=True, check=True):
         return self.run_all([(stage, target, argv)], counted, check)[stage]
+
+
+def data_steps(tree: str, man: str, n: int, seed: int):
+    """Steps 1-2 as (stage, script, argv): the SPHERE corpus of ``n``
+    utterances from ``seed`` under ``tree``, and its train, dev and valid
+    manifests under ``man`` (what ``--data`` takes)."""
+    return [("corpus", "torch_tools/make_sample_corpus.py",
+             ["--out", tree, "--n", str(n), "--seed", str(seed)]),
+            ("manifest", "torch_tools/make_manifest.py",
+             ["--layout", "timit", "--src", tree, "--out", man, "--split",
+              "train", "--val-frac", "0.28", "--dev-frac", "0.09"])]
 
 
 def grid(spec: str):
@@ -390,13 +403,8 @@ def main(argv=None):
 
     # 1-2. the corpus and its manifests
     if not args.data:
-        chain.run("corpus", "torch_tools/make_sample_corpus.py",
-                  ["--out", tree, "--n", str(args.n), "--seed",
-                   str(args.seed)], counted=False)
-        chain.run("manifest", "torch_tools/make_manifest.py",
-                  ["--layout", "timit", "--src", tree, "--out", man,
-                   "--split", "train", "--val-frac", "0.28", "--dev-frac",
-                   "0.09"], counted=False)
+        for stage, target, argv in data_steps(tree, man, args.n, args.seed):
+            chain.run(stage, target, argv, counted=False)
     result["splits"] = {}
     for split in ("train", "dev", "valid"):
         with open(os.path.join(man, f"{split}.jsonl")) as f:
@@ -433,35 +441,48 @@ def main(argv=None):
         runs.append(run)
         log(f"[chain] train{i}: {json.dumps(run)}")
     result["train"] = runs
-    npz = os.path.join(out, "weights.npz")
-    stdout = chain.run("export", "tpu_ctc_torch.cli",
-                       ["export-weights", *common, "--checkpoint",
-                        os.path.join(work, "checkpoints"), "--out", npz,
-                        *dev])
-    final_step = int(re.search(r"\(step (\d+)\)", stdout).group(1))
-    result["final_step"] = final_step
-    result["steps_equal_plan"] = final_step == plan["steps_at_run_end"][-1]
 
-    # 4. the dev sweeps
+    # 4. the dev sweeps, and beside them (this process, a thread: the
+    # sweeps are subprocesses) the GRU char LM as each decode trains it,
+    # twice
+    twice = {}
+
+    def train_twice():
+        t0 = time.time()
+        try:
+            twice["result"] = gru_twice(man, cfg, args.device)
+        except BaseException as e:      # raised again below
+            twice["error"] = e
+        chain.wall_s["gru_twice"] = time.time() - t0
+
+    thread = threading.Thread(target=train_twice)
+    thread.start()
     ckpt = ["--checkpoint", os.path.join(work, "checkpoints")]
     grids = {"trigram": args.trigram_grid, "gru": args.gru_grid,
              "both": args.both_grid}
-    outs = chain.run_all([
-        (f"sweep_{name}", "torch_tools/sweep_decode.py",
-         [*common, *sets(nlm + SYSTEMS[name]), "--split", "dev", *ckpt,
-          "--alphas", grid(spec)[0], "--betas", grid(spec)[1], *dev])
-        for name, spec in grids.items()])
+    npz = os.path.join(out, "weights.npz")
+    try:        # the final checkpoint's export beside them
+        outs = chain.run_all([
+            ("export", "tpu_ctc_torch.cli",
+             ["export-weights", *common, *ckpt, "--out", npz, *dev])] + [
+            (f"sweep_{name}", "torch_tools/sweep_decode.py",
+             [*common, *sets(nlm + SYSTEMS[name]), "--split", "dev", *ckpt,
+              "--alphas", grid(spec)[0], "--betas", grid(spec)[1], *dev])
+            for name, spec in grids.items()])
+    finally:
+        thread.join()
+    if "error" in twice:
+        raise twice["error"]
+    final_step = int(re.search(r"\(step (\d+)\)", outs["export"]).group(1))
+    result["final_step"] = final_step
+    result["steps_equal_plan"] = final_step == plan["steps_at_run_end"][-1]
     result["sweeps"] = {}
     for name in grids:
         result["sweeps"][name] = json.loads(
             outs[f"sweep_{name}"].strip().splitlines()[-1])
         log(f"[chain] sweep_{name}: best "
             f"{result['sweeps'][name]['best']}")
-
-    # the GRU char LM as each decode trains it, twice
-    t0 = time.time()
-    result["gru_twice"] = gru_twice(man, cfg, args.device)
-    chain.wall_s["gru_twice"] = time.time() - t0
+    result["gru_twice"] = twice["result"]
     log(f"[chain] gru_twice: bit-equal {result['gru_twice']['bit_equal']}")
 
     # 5. the valid split, once a system

@@ -1,9 +1,9 @@
 """Decode benchmark: the batched beam search on the card against the host
-decoders.
+decoder.
 
 Counterpart of ``tpu_ctc.bench.bench_decode``.  The reference decoded per
 utterance on the CPU after copying posteriors off the device (SURVEY.md
-§3.3).  This bench measures three decoders on the same posteriors:
+§3.3).  This bench measures two decoders on the same posteriors:
 
   * device  -- ``ops.beam_cuda.beam_search``, the search that
                ``make_beam_decoder`` runs: kernel B5 for K <= 128 and B6 for
@@ -16,11 +16,9 @@ utterance on the CPU after copying posteriors off the device (SURVEY.md
                row of its own on stderr, never the JSON line's value;
   * cpp     -- the native host decoder (``cpp/ctc_beam.cpp`` through
                :mod:`tpu_ctc_torch.decode.cpp_decoder`), standing in for the
-               reference's compiled Cython decoder;
-  * host_py -- the dict-based Python search
-               (``decode.beam.prefix_beam_search_host``).
+               reference's compiled Cython decoder.
 
-The host decoders score the same n-gram LM (``--lm-order``); they take no
+The host decoder scores the same n-gram LM (``--lm-order``); it takes no
 GRU, ``--char-topk`` or ``--prune-logp``.  Prints ONE JSON line: the
 device's decode audio-s/s with ``vs_baseline`` = its speedup over the
 compiled host decoder (null only when no host utterance runs:
@@ -88,14 +86,13 @@ def main(argv=None):
         args.batch, args.frames, args.beam, args.lm_order = 64, 1600, 128, 3
         args.max_len = 256
     if args.host_utts is None:
-        # the host decoders take minutes at preset 4's shape
+        # the host decoder takes minutes at preset 4's shape
         args.host_utts = 0 if args.preset4 else 4
 
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.bench.bench import log_softmax_np, time_decode, unit_for
     from tpu_ctc_torch.decode import cpp_decoder, neural_lm
-    from tpu_ctc_torch.decode.beam import (prefix_beam_search,
-                                           prefix_beam_search_host)
+    from tpu_ctc_torch.decode.beam import prefix_beam_search
     from tpu_ctc_torch.ops import beam_cuda
     from tpu_ctc_torch.utils.profiling import card_line
 
@@ -184,13 +181,6 @@ def main(argv=None):
         cpp_thr = (args.frames / FRAMES_PER_SECOND) / cpp_s
         log(f"[decode-bench] cpp host: {cpp_s * 1e3:.1f} ms/utt "
             f"-> {cpp_thr:,.0f} audio-s/s")
-
-        t0 = time.time()
-        for i in range(min(2, n)):
-            prefix_beam_search_host(lp_np[i], beam_width=args.beam, lm=lm)
-        py_s = (time.time() - t0) / min(2, n)
-        log(f"[decode-bench] python host: {py_s * 1e3:.1f} ms/utt "
-            f"-> {(args.frames / FRAMES_PER_SECOND) / py_s:,.0f} audio-s/s")
 
     out = {
         "metric": "decode_throughput",

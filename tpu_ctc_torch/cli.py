@@ -22,7 +22,7 @@ Counterpart of ``tpu_ctc.cli`` with the same flags, plus:
 
 ``--data DIR`` reads a manifest directory (``data/manifest.py``, lazily:
 each batch's audio goes through the frontend on the CPU when the loader
-reaches it, on a card in a pool of ``manifest.host_workers()`` spawned
+reaches it, on a card in a pool of ``manifest.host_workers()`` worker
 processes, one batch ahead; with ``--device cpu`` in the process, whose
 step has the cores); ``--synthetic-audio N`` synthesizes N tone waveforms and runs
 them through the frontend on the CPU in batches of 32.

@@ -14,11 +14,14 @@ iterator exposes a cursor that the checkpoint can record (SURVEY.md §7.3-5).
 A lazy dataset (one with ``fetch``, ``ManifestDataset``) is asked for a
 batch's items at once, and for the next batch's before this one's are
 awaited, so a frontend pool works ahead of the consumer.  On a mesh a
-loader built with ``rows`` (this rank's rows of every global batch,
-``train.step.local_rows``) featurizes only the utterances of those rows:
-the other rows keep their lengths, labels and weights from the manifest
-and zero features, so the global batch's metadata is whole and the rank's
-block is bit-equal to the block of the fully featurized batch.
+loader built with ``rows`` (the rows of every global batch that this rank
+featurizes, ``train.step.feature_rows``) featurizes only the utterances of
+those rows: the other rows keep their lengths, labels and weights from the
+manifest and zero features, so the global batch's metadata is whole.
+Where several ranks read the same rows (a 'model' or 'seq' line), each
+featurizes a share of them and ``exchange`` (``parallel.mesh.RowExchange``)
+fills in the others' shares, so the rows the rank reads are bit-equal to
+those of the fully featurized batch and each is featurized once.
 """
 from __future__ import annotations
 
@@ -135,17 +138,20 @@ class BucketedLoader:
     deterministically takes a disjoint strided shard of every epoch's
     shuffled order (SURVEY.md §2.2 P1 "per-host input sharding").
     ``rows`` (row indices of a global batch; None for all) limits what a
-    lazy dataset featurizes to the utterances of those rows; in-memory
-    datasets ignore it.
+    lazy dataset featurizes to the utterances of those rows, and
+    ``exchange`` (called with each batch's features) fills in the rows
+    that other ranks featurized; in-memory datasets ignore both.
+    :meth:`close` releases the exchange.
     """
 
     def __init__(self, dataset: Sequence[Tuple[np.ndarray, np.ndarray]],
                  cfg: DataConfig, host_id: int = 0, num_hosts: int = 1,
-                 rows: Optional[Sequence[int]] = None):
+                 rows: Optional[Sequence[int]] = None, exchange=None):
         self.cfg = cfg
         self.host_id = host_id
         self.num_hosts = num_hosts
         self.rows = None if rows is None else [int(r) for r in rows]
+        self.exchange = exchange
         # Lazy datasets (ManifestDataset) are kept as-is: list() would read
         # every payload, defeating the streaming path.  Anything indexable
         # passes through; generators are materialized.
@@ -188,11 +194,15 @@ class BucketedLoader:
         return len(self._epoch_order(epoch))
 
     def epoch(self, epoch: int, start_batch: int = 0) -> Iterator[Tuple[int, Batch]]:
-        """Yield (cursor, Batch); ``start_batch`` resumes mid-epoch."""
+        """Yield (cursor, Batch); ``start_batch`` resumes mid-epoch.  With
+        an exchange, a failure while the batch is made, or a close before
+        the epoch's end, tells the other ranks (``exchange.abort``), which
+        then raise instead of waiting."""
         cfg = self.cfg
         plan = self._epoch_order(epoch)
         fetch = getattr(self.dataset, "fetch", None)
         rows = self.rows if fetch is not None else None
+        exchange = self.exchange if fetch is not None else None
         if fetch is None:           # in memory: items when they are awaited
             def fetch(ids):
                 return lambda: [self.dataset[i] for i in ids]
@@ -203,12 +213,7 @@ class BucketedLoader:
                     sorted({r % len(ids) for r in rows}))
             return mine, fetch([ids[j] for j in mine])
 
-        labels = self.dataset.labels if rows is not None else None
-        pending = request(start_batch) if start_batch < len(plan) else None
-        for cursor in range(start_batch, len(plan)):
-            b, ids = plan[cursor]
-            mine, wait = pending
-            pending = request(cursor + 1) if cursor + 1 < len(plan) else None
+        def make(cursor, ids, mine, wait):
             got = dict(zip(mine, wait()))
             if rows is not None:
                 for j, (f, _) in got.items():
@@ -219,11 +224,37 @@ class BucketedLoader:
                             f"rank's rows need the metadata's lengths")
             utts = [got[j] if j in got else (None, labels[ids[j]])
                     for j in range(len(ids))]
-            t_pad = cfg.bucket_boundaries[b]
+            t_pad = cfg.bucket_boundaries[plan[cursor][0]]
             l_pad = _label_pad_for(t_pad, cfg.max_label_len)
-            yield cursor, make_batch(utts, t_pad, l_pad, cfg.batch_size,
-                                     indices=ids,
-                                     lengths=self._lengths[ids])
+            return make_batch(utts, t_pad, l_pad, cfg.batch_size,
+                              indices=ids, lengths=self._lengths[ids])
+
+        labels = self.dataset.labels if rows is not None else None
+        pending = request(start_batch) if start_batch < len(plan) else None
+        cursor = start_batch
+        try:
+            for cursor in range(start_batch, len(plan)):
+                ids = plan[cursor][1]
+                try:
+                    mine, wait = pending
+                    pending = (request(cursor + 1) if cursor + 1 < len(plan)
+                               else None)
+                    batch = make(cursor, ids, mine, wait)
+                except BaseException:
+                    if exchange is not None:
+                        exchange.abort()
+                    raise
+                if exchange is not None:
+                    exchange(batch.feats)
+                yield cursor, batch
+        except GeneratorExit:           # closed at a yield, not at the end
+            if exchange is not None and cursor + 1 < len(plan):
+                exchange.abort()
+            raise
+
+    def close(self) -> None:
+        if self.exchange is not None:
+            self.exchange.close()
 
     def shape_keys(self) -> List[Tuple[int, int, int]]:
         """All (B, T_pad, L_pad) shapes jit will ever see (compile-cache bound)."""

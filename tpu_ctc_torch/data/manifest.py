@@ -20,17 +20,20 @@ reads no payload.  :func:`load_manifest_dataset` materializes a split.
 The frontend runs on the CPU, one utterance at a time, as the reference
 runs it on the host CPU backend: data preparation does not occupy the
 card.  ``ManifestDataset(workers=N)`` gives :meth:`ManifestDataset.fetch`
-(the loader's access, a batch's items at once) a pool of N spawned worker
+(the loader's access, a batch's items at once) a pool of N worker
 processes, each with a ``ManifestDataset`` of its own over the same split
 that computes ``[i]`` as this process does (one intra-op thread: the
 features do not depend on the thread count, which the tests hold), so an
-item's features are bit-equal whichever process made them.  The pool
-starts at the first fetch, lives across epochs (a spawned worker takes
-seconds to import torch), and stops at :meth:`ManifestDataset.close`; a
-worker's exception, or a pool that cannot start, raises in the caller of
-the fetch.  The workers are spawned, so they import the main module: a
-script that starts a pool runs its work under ``if __name__ ==
-"__main__":``, as the CLI and ``chip_smoke.py`` do.  :func:`host_workers`
+item's features are bit-equal whichever process made them.  The workers
+are forked by a fork server that this process starts once, with this
+module and torch imported (so the first pool waits for one import of
+torch and later pools for none); the server never touches a card.  The
+pool starts at the first fetch, lives across epochs, and stops at
+:meth:`ManifestDataset.close`; a worker's exception, or a pool that
+cannot start, raises in the caller of the fetch.  Each worker imports the
+main module, as a spawned one would: a script that starts a pool runs its
+work under ``if __name__ == "__main__":``, as the CLI and
+``chip_smoke.py`` do.  :func:`host_workers`
 is the pool size the CLI gives a loader that feeds a card.
 
 The reference pads each waveform to a quantum of samples to bound jit's
@@ -74,6 +77,17 @@ def host_workers() -> int:
 _WORKER_DATASET = None          # a pool worker's own in-process dataset
 
 
+def _pool_context():
+    """The pools' start method: a fork server, started once a process
+    with this module (and so torch) imported, which forks each worker: a
+    pool starts in a fraction of a second after the first, where spawned
+    workers each import torch anew.  The server never touches a card, so
+    its forks are as clean as spawned processes."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
+    return ctx
+
+
 def _worker_init(manifest_dir, cfg, alphabet, split):
     global _WORKER_DATASET
     torch.set_num_threads(1)
@@ -92,7 +106,7 @@ class ManifestDataset:
     labels live in memory; payloads are read per access (``payload_reads``
     counts them, in this process or in the pool).  ``cache_items`` keeps
     that many processed items.  ``workers`` > 0 featurizes
-    :meth:`fetch`'s items in that many spawned processes; 0 in this
+    :meth:`fetch`'s items in that many worker processes; 0 in this
     process."""
 
     def __init__(self, manifest_dir: str, cfg,
@@ -166,7 +180,7 @@ class ManifestDataset:
     def _started_pool(self) -> ProcessPoolExecutor:
         if self._pool is None:
             pool = ProcessPoolExecutor(
-                self.workers, mp_context=multiprocessing.get_context("spawn"),
+                self.workers, mp_context=_pool_context(),
                 initializer=_worker_init,
                 initargs=(self.manifest_dir, self.cfg, self.alphabet,
                           self.split))

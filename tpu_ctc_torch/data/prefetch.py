@@ -40,7 +40,8 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
     rank of a mesh gets the same label width, and so the same graph key
     (``train.graphs.shape_key``), at every step.  The cursor is the
     yielded batch's own, so a checkpoint taken while it is consumed
-    resumes at it."""
+    resumes at it.  Closing the returned iterator stops the thread and
+    waits for it to end."""
     from tpu_ctc_torch.train.loop import batch_to_device_dict
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -80,6 +81,10 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
         except Exception as e:  # raised again in the consumer
             err.append(e)
         finally:
+            # a loader stopped mid-epoch tells the ranks it exchanges rows
+            # with (``BucketedLoader`` with an exchange), here in its thread
+            if hasattr(iterator, "close"):
+                iterator.close()
             put(_END)
 
     thread = threading.Thread(target=worker, daemon=True)
@@ -100,3 +105,4 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
             yield cursor, batch, dev
     finally:
         stop.set()
+        thread.join()   # its loader's collectives end before the caller's

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -213,3 +215,77 @@ class ReplicatedSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class RowExchange:
+    """The features of a global batch's rows, featurized in shares by the
+    ranks of one set that all read those rows (``train.step.feature_rows``:
+    ``ranks`` and each one's ``shares``), gathered so that every rank of
+    the set holds all of them.  It runs in the loader (the prefetch
+    thread, or ``evaluate``'s loop) on host arrays over a gloo process
+    group of its own, never on the step's groups: a CUDA graph of the
+    step holds NCCL's communicators while the loader's thread runs, and
+    NCCL needs every rank to order its collectives on them alike.
+
+    Every rank of the mesh makes it, in the same order as its other group
+    constructions: its constructor makes one ``dist.new_group`` for each
+    of ``sets`` (this rank's among them).  Each batch begins with an
+    all-gather of a flag a rank: a rank whose loader fails or stops before
+    the epoch's end sends 0 (:meth:`abort`), and the others raise instead
+    of waiting for its rows.  ``RowExchange.calls`` and
+    ``RowExchange.seconds`` count every exchange of the process and its
+    wall time (set them to 0 to start a count)."""
+
+    calls = 0
+    seconds = 0.0
+    _count = threading.Lock()
+
+    def __init__(self, sets, ranks, shares, rank: int):
+        self.ranks = tuple(ranks)
+        self.shares = [np.asarray(s) for s in shares]
+        self.index = self.ranks.index(rank)
+        self.group = None
+        for s in sets:
+            group = dist.new_group(list(s), backend="gloo")
+            if tuple(s) == self.ranks:
+                self.group = group
+
+    def _flags(self, ok: bool):
+        flags = [torch.zeros(1, dtype=torch.int32) for _ in self.ranks]
+        dist.all_gather(flags, torch.tensor([int(ok)], dtype=torch.int32),
+                        group=self.group)
+        return [int(f) for f in flags]
+
+    def __call__(self, feats: np.ndarray) -> None:
+        """Fill the rows of ``feats`` [B, T, D] float32 that the other
+        ranks of the set featurized with theirs, in place; send this
+        rank's share."""
+        t0 = time.perf_counter()
+        flags = self._flags(True)
+        if not all(flags):
+            gone = [r for r, f in zip(self.ranks, flags) if not f]
+            raise RuntimeError(f"the loader of rank(s) {gone} failed or "
+                               f"stopped before this batch's row exchange")
+        mine = self.shares[self.index]
+        send = torch.zeros((max(len(s) for s in self.shares),)
+                           + feats.shape[1:], dtype=torch.float32)
+        send[:len(mine)] = torch.from_numpy(feats[mine])
+        got = [torch.empty_like(send) for _ in self.ranks]
+        dist.all_gather(got, send, group=self.group)
+        for k, rows in enumerate(self.shares):
+            if k != self.index:
+                feats[rows] = got[k][:len(rows)].numpy()
+        with RowExchange._count:
+            RowExchange.calls += 1
+            RowExchange.seconds += time.perf_counter() - t0
+
+    def abort(self) -> None:
+        """Tell the set that this rank sends no more rows this epoch."""
+        self._flags(False)
+
+    def close(self) -> None:
+        """Release the process group (every rank of the set, once its
+        loader's thread has ended)."""
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+            self.group = None

@@ -22,13 +22,18 @@ On a mesh of ranks (``cfg.mesh``, the process group of
 ``parallel.distributed.initialize``) every rank plans the same global
 batches and keeps its block (rows over 'data', frames over 'seq'), as the
 JAX loop shards one global batch: its loader featurizes only the
-utterances of its rows (``train.step.local_rows``; the eval loader those
-its eval step reads, ``train.step.eval_rows``), and the prefetch thread
-copies only the block to the rank's card, its labels cut to the global
-batch's width (so every rank replays the same graph at every step).  A
-lazy dataset's frontend pool is stopped when ``train`` returns or raises,
-and the compiled steps' graphs are released before it returns or raises
-(they keep NCCL's communicators alive).  Metrics, ``metrics.jsonl`` and
+utterances of the rows its step reads (``train.step.local_rows``; the
+eval loader those its eval step reads, ``train.step.eval_rows``), and
+where several ranks read the same rows (a 'model' or 'seq' line, or the
+whole mesh for SP's eval) each featurizes a share of them and the ranks
+exchange their shares over a gloo group of the loader's own
+(:func:`rank_loader`), so a host featurizes each row once.  The prefetch
+thread copies only the block to the rank's card, its labels cut to the
+global batch's width (so every rank replays the same graph at every
+step).  A lazy dataset's frontend pool is stopped when ``train`` returns
+or raises, and the compiled steps' graphs and the loaders' groups are
+released before it returns or raises (the graphs keep NCCL's
+communicators alive).  Metrics, ``metrics.jsonl`` and
 checkpoints are written by rank 0 while the others wait at a barrier; a
 state split over 'model' (TP, PP) is gathered first
 (``train.step.full_state``), so the file is the one-card file and a
@@ -58,13 +63,14 @@ from tpu_ctc_torch.data.prefetch import prefetch_to_device
 from tpu_ctc_torch.decode.beam import make_beam_decoder
 from tpu_ctc_torch.decode.lm import train_char_lm_from_data
 from tpu_ctc_torch.decode.wer import cer, score_corpus
-from tpu_ctc_torch.parallel.mesh import make_mesh
+from tpu_ctc_torch.parallel.mesh import RowExchange, make_mesh
 from tpu_ctc_torch.train import checkpoint
 from tpu_ctc_torch.train.step import (TrainState, batch_to_tensors,
                                       create_train_state, eager_reason,
-                                      eval_step, eval_rows, full_state,
-                                      local_batch, local_rows,
-                                      make_eval_step, make_train_step)
+                                      eval_step, eval_rows, feature_rows,
+                                      full_state, local_batch, local_rows,
+                                      make_eval_step, make_train_step,
+                                      reading_sets)
 
 
 class MetricsLogger:
@@ -173,6 +179,27 @@ def evaluate(model, cfg: Config, loader: BucketedLoader, device,
     return result
 
 
+def rank_loader(data, cfg: Config, mesh, eval: bool = False
+                ) -> BucketedLoader:
+    """This rank's loader of the global batches of ``data`` on ``mesh``,
+    for the train step (``eval`` False) or the eval step.  A lazy dataset
+    featurizes only the rank's share of the rows its step reads
+    (``train.step.feature_rows``); where that share is not all of them,
+    a :class:`parallel.mesh.RowExchange` over a gloo group of the
+    loader's own fills in the rest.  Every rank calls it in the same
+    order (it makes that group); :meth:`BucketedLoader.close` releases it.
+    An in-memory dataset is read whole."""
+    read = (eval_rows(cfg, mesh) if eval
+            else local_rows(mesh, cfg.data.batch_size))
+    ranks, shares = feature_rows(mesh, cfg.data.batch_size, read)
+    if len(ranks) == 1 or not hasattr(data, "fetch"):
+        return BucketedLoader(data, cfg.data, rows=read)
+    return BucketedLoader(
+        data, cfg.data, rows=shares[ranks.index(mesh.rank)],
+        exchange=RowExchange(reading_sets(mesh, read), ranks, shares,
+                             mesh.rank))
+
+
 def _agreed(mesh, flag: bool, device) -> bool:
     """``flag`` on any rank of the mesh (one all-reduce, read on the
     host); ``flag`` itself on one rank."""
@@ -208,17 +235,25 @@ def train(cfg: Config,
 
 def _train(cfg, train_data, eval_data, work_dir, resume, device, alphabet,
            mesh):
+    loaders = [rank_loader(train_data, cfg, mesh)]
+    if eval_data is not None:
+        loaders.append(rank_loader(eval_data, cfg, mesh, eval=True))
+    try:
+        return _run(cfg, train_data, work_dir, resume, device, alphabet,
+                    mesh, *loaders)
+    finally:
+        for loader in loaders:
+            loader.close()
+
+
+def _run(cfg, train_data, work_dir, resume, device, alphabet, mesh, loader,
+         eval_loader=None):
     lead = mesh.rank == 0
 
     def barrier():
         if mesh.size > 1:
             dist.barrier()
 
-    loader = BucketedLoader(train_data, cfg.data,
-                            rows=local_rows(mesh, cfg.data.batch_size))
-    eval_loader = (BucketedLoader(eval_data, cfg.data,
-                                  rows=eval_rows(cfg, mesh))
-                   if eval_data is not None else None)
     if loader.num_dropped and lead:
         print(f"[data] dropped {loader.num_dropped} utterances longer than "
               f"{cfg.data.bucket_boundaries[-1]} frames")

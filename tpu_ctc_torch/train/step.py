@@ -234,8 +234,8 @@ def local_batch(arrays: Dict[str, np.ndarray],
 def local_rows(mesh: mesh_lib.Mesh, batch_size: int) -> Optional[np.ndarray]:
     """The rows of a global batch of ``batch_size`` that :func:`local_batch`
     keeps on this rank (its block over 'data', every frame of them under
-    SP): the rows its loader featurizes (``BucketedLoader(rows=)``).  None
-    where the rank keeps every row."""
+    SP): the rows its train step reads.  None where the rank keeps every
+    row."""
     if mesh.axis_size(AXIS_DATA) == 1:
         return None
     return local_batch({"weights": np.arange(batch_size)}, mesh)["weights"]
@@ -250,6 +250,35 @@ def eval_rows(cfg: Config, mesh: mesh_lib.Mesh) -> Optional[np.ndarray]:
             or _pure_dp(mesh, cfg)):
         return local_rows(mesh, cfg.data.batch_size)
     return None
+
+
+def reading_sets(mesh: mesh_lib.Mesh,
+                 read: Optional[np.ndarray]) -> List[Tuple[int, ...]]:
+    """Every set of ranks whose steps read the same rows ``read`` (this
+    rank's :func:`local_rows` or :func:`eval_rows`) of a global batch, in
+    rank order: the whole mesh where every rank reads every row (``read``
+    None), else the ranks of each 'data' index (the 'model' line under TP
+    and PP, the 'seq' line under SP, the rank alone under pure DP)."""
+    grid = np.arange(mesh.size).reshape(
+        [mesh.axis_size(a) for a in mesh_lib.MESH_AXES])
+    if read is None:
+        return [tuple(range(mesh.size))]
+    return [tuple(int(r) for r in block.ravel()) for block in grid]
+
+
+def feature_rows(mesh: mesh_lib.Mesh, batch_size: int,
+                 read: Optional[np.ndarray]
+                 ) -> Tuple[Tuple[int, ...], List[np.ndarray]]:
+    """This rank's set of :func:`reading_sets` and the rows of a global
+    batch of ``batch_size`` that each rank of the set featurizes: the rows
+    ``read`` (None: every row) dealt in turn, the j-th to the set's
+    (j mod n)-th rank, so each row goes to exactly one rank of the set and
+    a length-sorted batch is shared evenly.  A function of the mesh and
+    the batch size alone; ``BucketedLoader(rows=, exchange=)`` featurizes
+    the rank's share and fills in the others' (``train.loop.rank_loader``)."""
+    ranks = next(s for s in reading_sets(mesh, read) if mesh.rank in s)
+    rows = np.arange(batch_size) if read is None else np.asarray(read)
+    return ranks, [rows[k::len(ranks)] for k in range(len(ranks))]
 
 
 def state_shardings(mesh: mesh_lib.Mesh, cfg: Config, state: TrainState):

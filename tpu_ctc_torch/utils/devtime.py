@@ -11,6 +11,7 @@ function's kernels, without the launch overhead between them.
 from __future__ import annotations
 
 import re
+import types
 from typing import Optional
 
 import torch
@@ -29,6 +30,21 @@ def _device_exec_ms(events, kernel: Optional[str] = None) -> float:
                 kernel is None or re.search(kernel, e.name)):
             total_us += e.time_range.elapsed_us()
     return total_us / 1e3
+
+
+def _device_events(prof) -> list:
+    """The device events of a finished ``torch.profiler`` trace, each with
+    the ``device_type``, ``name`` and ``time_range`` (us) that
+    ``prof.events()`` would give it, read from the profiler's own records
+    (``kineto_results``): ``prof.events()`` builds an object a host and a
+    device event, seconds for a trace of a loop's 10^5 launches."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Interval
+    return [types.SimpleNamespace(
+        device_type=e.device_type(), name=e.name(),
+        time_range=Interval(e.start_ns() / 1e3, e.end_ns() / 1e3))
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA]
 
 
 def device_time_ms(fn, *args, iters: int = 10,
@@ -51,7 +67,7 @@ def device_time_ms(fn, *args, iters: int = 10,
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
-    ms = _device_exec_ms(prof.events(), kernel)
+    ms = _device_exec_ms(_device_events(prof), kernel)
     if ms <= 0.0:
         raise RuntimeError(f"device_time_ms: the profiler recorded no device "
                            f"time{'' if kernel is None else ' for ' + kernel}")
