@@ -2575,8 +2575,8 @@ for name, overrides in spec["meshes"].items():
         epochs.append(train.payload_reads)
         for cursor, batch, tb in real(iterator, device, size=size,
                                       select=select):
-            if len(epochs) == 1:
-                hashes[cursor] = digest(tb[k] for k in sorted(tb))
+            if len(epochs) == 1:    # each array's own: a miss names it
+                hashes[cursor] = {k: digest([tb[k]]) for k in sorted(tb)}
                 kept.append((batch.audio_seconds(), tb))
             yield cursor, batch, tb
         epochs[-1] = train.payload_reads - epochs[-1]
@@ -2651,9 +2651,9 @@ def hand_mesh(shape: dict, rank: int):
 def mesh_audio_reference(root: str, seed: int, meshes=AUDIO_MESHES):
     """Phase 12, part 5's corpus under ``root`` (phase 11's 96 training
     waveforms and 32 valid ones) and what its ranks must give: {(mesh
-    name, rank): {cursor: the sha256 of the rank's block of one card's
-    global batch of the first epoch}}, one rank's payload reads an epoch
-    and an eval's, and the epoch's batches."""
+    name, rank): {cursor: {array: the sha256 of the rank's block of it
+    in one card's global batch of the first epoch}}}, one rank's payload
+    reads an epoch and an eval's, and the epoch's batches."""
     import hashlib
 
     from torch_tools import audio_path_breakdown as apb
@@ -2676,10 +2676,10 @@ def mesh_audio_reference(root: str, seed: int, meshes=AUDIO_MESHES):
             for cursor, batch in batches:
                 block = step.local_batch(cut_labels(batch_to_device_dict(
                     batch)), mesh)
-                h = hashlib.sha256()
-                for k in sorted(block):
-                    h.update(torch.as_tensor(block[k]).numpy().tobytes())
-                want[name, r][str(cursor)] = h.hexdigest()
+                want[name, r][str(cursor)] = {
+                    k: hashlib.sha256(torch.as_tensor(
+                        block[k]).numpy().tobytes()).hexdigest()
+                    for k in sorted(block)}
     one_eval = len(ManifestDataset(root, cfg, split="valid"))
     return want, whole.payload_reads, one_eval, len(batches)
 
@@ -2712,7 +2712,18 @@ def mesh_audio_report(phase: str, name: str, recs, reference, one_rank,
     its launches with the ranks summed)."""
     want, one_reads, one_eval, steps = reference
     got = [run for rec in recs for run in rec["runs"] if run["name"] == name]
-    same = [rec["hashes"] == want[name, rec["rank"]] for rec in got]
+    same, misses = [], {}
+    for rec in got:
+        w, h = want[name, rec["rank"]], rec["hashes"]
+        same.append(h == w)
+        miss = {}   # where a block differs: the batch's arrays that do
+        for c in sorted({*w, *h}):
+            got_c, want_c = h.get(c, {}), w.get(c, {})
+            if got_c != want_c:
+                miss[c] = sorted(k for k in {*got_c, *want_c}
+                                 if got_c.get(k) != want_c.get(k))
+        if miss:
+            misses[rec["rank"]] = miss
     params_same = len({rec["params"] for rec in got}) == 1
     reads = [rec["epochs"] for rec in got]
     evals = [rec["eval_reads"] / got[0]["evals"] for rec in got]
@@ -2725,6 +2736,9 @@ def mesh_audio_report(phase: str, name: str, recs, reference, one_rank,
         f"local_batch of one card's global batches: {same} ({steps} "
         f"batches); parameters bit-equal across ranks: {params_same}; "
         f"losses {[round(x, 3) for x in got[0]['losses']]}")
+    if misses:
+        log(f"{phase}: {name} from audio: the arrays that differ from one "
+            f"card's, by rank and batch: {misses}")
     mem = got[0]["memory_rate"]
     ex = [f"{s / max(n, 1) * 1e3:.1f} ms x {n}"
           for s, n in (rec["exchange_s"] for rec in got)]
