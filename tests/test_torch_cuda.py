@@ -34,7 +34,8 @@ trace over 8 steps on two bucket shapes and two label widths (with and
 without ``model.remat``), the eval step bit-equal to ``eval_step``, the
 launch counts of the replays those of the eager steps, a capture leaving
 the state as it was, replaced tensors refused, ``train.debug_nans``
-eager; B1/B2 captured as cooperative kernel nodes; ``train.loop.train``
+eager, a replay's first kernel inside its ``step.replay`` span on the
+profiler's clock; B1/B2 captured as cooperative kernel nodes; ``train.loop.train``
 through the graphs bit-equal to the eager steps; the label cut's CTC loss
 bit-equal.
 """
@@ -1606,6 +1607,54 @@ def test_graphed_train_step_refuses_replaced_tensors(dev):
     trace["out.w"] = trace["out.w"].clone()
     with pytest.raises(RuntimeError, match="not the one its CUDA graphs"):
         fn(state, bt)
+
+
+def test_replay_span_shares_the_cards_clock(dev):
+    """Under a CUDA profiler, the compiled step's spans are recorded
+    (``step.call`` around ``step.scalars``, ``step.copy_in``,
+    ``step.replay``, ``step.clone``) and the first device kernel of the
+    replay (the kernels correlated with its ``cudaGraphLaunch``) starts
+    after its ``step.replay`` span starts and no later than 100 ms after
+    the span ends: the port's spans and the card's events share one
+    clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_ctc_torch.parallel.mesh import make_mesh
+    from tpu_ctc_torch.utils import profiling
+    cfg = _graph_cfg()
+    bt = step.batch_to_tensors(_graph_batch(5, 96, 20), dev)
+    state = step.create_train_state(cfg, device=dev)
+    fn, state = step.make_train_step(cfg, make_mesh(cfg.mesh), state)
+    state, _ = fn(state, bt)                        # captured, replayed
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = fn(state, bt)
+        torch.cuda.synchronize()
+    found = {}
+    for s in profiling.spans():
+        found.setdefault(s.name, []).append(s)
+    profiling.reset()
+    assert sorted(found) == ["step.call", "step.clone", "step.copy_in",
+                             "step.replay", "step.scalars"]
+    assert all(len(v) == 1 for v in found.values())
+    assert {s.parent for n, (s,) in found.items() if n != "step.call"} == {
+        "step.call"}
+    (replay,) = found["step.replay"]
+    events = list(prof.profiler.kineto_results.events())
+    launches = {e.correlation_id() for e in events
+                if e.name() == "cudaGraphLaunch"}
+    assert len(launches) == 1, [e.name() for e in events
+                                if e.device_type() != DeviceType.CUDA]
+    kernels = sorted(
+        e.start_ns() for e in events if e.device_type() == DeviceType.CUDA
+        and not e.is_user_annotation()
+        and (e.correlation_id() in launches
+             or e.linked_correlation_id() in launches))
+    assert kernels, "no device event correlated with the graph's launch"
+    assert replay.start_ns <= kernels[0] <= replay.end_ns + 100_000_000, (
+        replay, kernels[0])
 
 
 def test_debug_nans_stays_eager_on_the_card(dev):

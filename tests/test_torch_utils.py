@@ -3,11 +3,10 @@ package's (``tpu_ctc.utils.profiling``, ``tpu_ctc.utils.devtime``).
 
 * ``flops_estimate`` gives the JAX function's count for presets 1-5 and
   two overrides; ``mfu`` divides by the H100 SXM's dense bf16 peak.
-* ``StepTimer.summary`` gives the JAX timer's dict on the same injected
-  times; ``stop`` takes a CPU result without a device sync.
 * ``_device_exec_ms`` sums device events (made-up ones here) and skips
   host events; ``device_time_ms`` raises without a card.
-* ``trace`` writes a Chrome trace.
+* ``trace`` writes a Chrome trace (the port's spans in it:
+  ``tests/test_torch_spans.py``).
 """
 import json
 import os
@@ -44,28 +43,6 @@ def test_mfu_uses_the_h100_peak():
     assert profiling.mfu(cfg, 32, 800, 0.06) == (
         profiling.flops_estimate(cfg, 32, 800) / 0.06 / 989e12)
     assert not hasattr(profiling, "TPU_V5E_BF16_PEAK_FLOPS")
-
-
-@pytest.mark.parametrize("skip", [0, 1, 3])
-def test_step_timer_summary_equals_jax(skip):
-    times = [0.5, 0.11, 0.1, 0.12, 0.09, 0.13]
-    audio = [12.8, 12.8, 12.8, 0.0, 12.8, 12.8]
-    ours, theirs = profiling.StepTimer(), jax_profiling.StepTimer()
-    for t in (ours, theirs):
-        t.times, t.audio_s = list(times), list(audio)
-    assert ours.summary(skip) == theirs.summary(skip)
-
-
-def test_step_timer_stop_takes_a_cpu_result():
-    timer = profiling.StepTimer()
-    for i in range(3):
-        timer.start()
-        timer.stop({"loss": torch.tensor(float(i)), "n": [1]},
-                   audio_seconds=2.0)
-    timer.start()
-    timer.stop()
-    out = timer.summary()
-    assert out["steps"] == 3 and out["audio_s_per_s"] > 0
 
 
 def _event(device_type, start, end, name="k"):

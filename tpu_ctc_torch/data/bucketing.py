@@ -31,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from tpu_ctc_torch.config import DataConfig
+from tpu_ctc_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -197,7 +198,9 @@ class BucketedLoader:
         """Yield (cursor, Batch); ``start_batch`` resumes mid-epoch.  With
         an exchange, a failure while the batch is made, or a close before
         the epoch's end, tells the other ranks (``exchange.abort``), which
-        then raise instead of waiting."""
+        then raise instead of waiting.  A batch's making (its utterances
+        awaited, then padded) is the span ``loader.make_batch``
+        (``utils.profiling``)."""
         cfg = self.cfg
         plan = self._epoch_order(epoch)
         fetch = getattr(self.dataset, "fetch", None)
@@ -239,7 +242,8 @@ class BucketedLoader:
                     mine, wait = pending
                     pending = (request(cursor + 1) if cursor + 1 < len(plan)
                                else None)
-                    batch = make(cursor, ids, mine, wait)
+                    with profiling.span("loader.make_batch"):
+                        batch = make(cursor, ids, mine, wait)
                 except BaseException:
                     if exchange is not None:
                         exchange.abort()

@@ -13,6 +13,11 @@ as used by that stream (``record_stream``), so the caching allocator does
 not hand the memory to another tensor while the step still reads it.  On
 the CPU the thread only converts the arrays.  An exception in the thread is
 raised in the consumer.
+
+Spans and counters (``utils.profiling``, recorded under a profiler): the
+thread's turn of a batch into device tensors is ``prefetch.stage``; the
+consumer's wait on the queue is ``prefetch.get_wait``, each get counted in
+``prefetch.gets`` and, where the queue was empty, in ``prefetch.empty``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu_ctc_torch.data.bucketing import cut_labels
+from tpu_ctc_torch.utils import profiling
 
 _END = object()
 
@@ -62,20 +68,21 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
             stream = (torch.cuda.Stream(device) if device.type == "cuda"
                       else None)
             for cursor, batch in iterator:
-                arrays = cut_labels(batch_to_device_dict(batch))
-                if select is not None:
-                    arrays = select(arrays)
-                if stream is None:
-                    dev = {k: torch.as_tensor(np.asarray(v), device=device)
-                           for k, v in arrays.items()}
-                    event = None
-                else:
-                    with torch.cuda.stream(stream):
-                        dev = {k: torch.from_numpy(np.ascontiguousarray(v))
-                               .pin_memory().to(device, non_blocking=True)
+                with profiling.span("prefetch.stage"):
+                    arrays = cut_labels(batch_to_device_dict(batch))
+                    if select is not None:
+                        arrays = select(arrays)
+                    if stream is None:
+                        dev = {k: torch.as_tensor(np.asarray(v), device=device)
                                for k, v in arrays.items()}
-                        event = torch.cuda.Event()
-                        event.record(stream)
+                        event = None
+                    else:
+                        with torch.cuda.stream(stream):
+                            dev = {k: torch.from_numpy(np.ascontiguousarray(v))
+                                   .pin_memory().to(device, non_blocking=True)
+                                   for k, v in arrays.items()}
+                            event = torch.cuda.Event()
+                            event.record(stream)
                 if not put((cursor, batch, dev, event)):
                     return
         except Exception as e:  # raised again in the consumer
@@ -91,7 +98,13 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
     thread.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("prefetch.get_wait"):
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    profiling.count("prefetch.empty")
+                    item = q.get()
+            profiling.count("prefetch.gets")
             if item is _END:
                 if err:
                     raise err[0]

@@ -32,6 +32,7 @@ import torch
 
 from tpu_ctc_torch.decode import neural_lm
 from tpu_ctc_torch.decode.lm import NGramCharLM
+from tpu_ctc_torch.utils import profiling
 
 NEG_INF = -1e30
 
@@ -397,7 +398,9 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     ``device`` (default ``cuda``).  ``decode(model, batch, log_probs=lp)``
     searches the batch's log posteriors ``lp`` [B, T, A] that the caller
     already has (a mesh's split eval gathers them) and does not run the
-    model.
+    model.  A call is the span ``decode.call`` (``utils.profiling``), with
+    ``decode.h2d`` (the inputs to the device), ``decode.forward`` and
+    ``decode.search`` inside it.
     """
     from tpu_ctc_torch import resolve_device
     from tpu_ctc_torch.models import birnn
@@ -406,16 +409,20 @@ def make_beam_decoder(cfg, lm: Optional[NGramCharLM] = None,
     dev = resolve_device(device)
 
     def decode(model, batch, log_probs=None):
-        feats = torch.as_tensor(batch["feats"], device=dev)
-        lengths = torch.as_tensor(batch["frame_lengths"], device=dev)
-        if log_probs is None:
-            mask = torch.as_tensor(batch["frame_mask"], device=dev)
-            with torch.no_grad():
-                log_probs = birnn.log_posteriors(model, cfg.model, feats,
-                                                 mask)
-        max_len = min(int(batch["labels"].shape[1]) * 2 + 16,
-                      int(feats.shape[1]))
-        hyps, lens, _ = search(log_probs, lengths, max_len)
+        with profiling.span("decode.call"):
+            with profiling.span("decode.h2d"):
+                feats = torch.as_tensor(batch["feats"], device=dev)
+                lengths = torch.as_tensor(batch["frame_lengths"], device=dev)
+                if log_probs is None:
+                    mask = torch.as_tensor(batch["frame_mask"], device=dev)
+            if log_probs is None:
+                with profiling.span("decode.forward"), torch.no_grad():
+                    log_probs = birnn.log_posteriors(model, cfg.model, feats,
+                                                     mask)
+            max_len = min(int(batch["labels"].shape[1]) * 2 + 16,
+                          int(feats.shape[1]))
+            with profiling.span("decode.search"):
+                hyps, lens, _ = search(log_probs, lengths, max_len)
         return hyps, lens
 
     return decode

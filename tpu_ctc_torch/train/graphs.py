@@ -41,6 +41,12 @@ captured (a ``_set_param``, a ``load_state_dict`` into new tensors): a
 replay would write to stale memory.  A checkpoint restored in place
 (``train.checkpoint.restore``) keeps them.
 
+Spans (``utils.profiling``, recorded under a profiler, never inside a
+capture): a train step's call is ``step.call``; inside it
+``step.scalars`` writes the step's scalars, and a replay
+(:meth:`Graph.run`, the eval step's too) is ``step.copy_in``,
+``step.replay`` and ``step.clone``.
+
 Memory: the graphs of one step object share one pool.  A replay may write
 any memory that another graph's capture freed, and shapes replay in any
 order, so no tensor that outlives a replay may live in the pool unless it
@@ -94,6 +100,7 @@ from tpu_ctc_torch.config import Config
 from tpu_ctc_torch.ops import kernels
 from tpu_ctc_torch.train import optim
 from tpu_ctc_torch.train.step import BATCH_KEYS, TrainState
+from tpu_ctc_torch.utils import profiling
 
 
 def shape_key(batch) -> Tuple:
@@ -127,13 +134,17 @@ class Graph:
 
     def run(self, batch) -> Dict[str, torch.Tensor]:
         """Copy ``batch`` in, replay, count the launches, and return a
-        clone of the outputs."""
-        for k in BATCH_KEYS:
-            self.inputs[k].copy_(batch[k])
-        self.graph.replay()
+        clone of the outputs (the spans ``step.copy_in``, ``step.replay``
+        and ``step.clone``)."""
+        with profiling.span("step.copy_in"):
+            for k in BATCH_KEYS:
+                self.inputs[k].copy_(batch[k])
+        with profiling.span("step.replay"):
+            self.graph.replay()
         for kern, n in zip(kernels(), self.launches):
             kern.launches += n
-        return {k: v.clone() for k, v in self.outputs.items()}
+        with profiling.span("step.clone"):
+            return {k: v.clone() for k, v in self.outputs.items()}
 
 
 class _Compiled:
@@ -269,10 +280,12 @@ class CompiledTrainStep(_Compiled):
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        graph = self.capture(state, batch)
-        optim.step_scalars(self.cfg.optim, state.opt_state.count,
-                           out=self.scalars)
-        metrics = graph.run(batch)
+        with profiling.span("step.call"):
+            graph = self.capture(state, batch)
+            with profiling.span("step.scalars"):
+                optim.step_scalars(self.cfg.optim, state.opt_state.count,
+                                   out=self.scalars)
+            metrics = graph.run(batch)
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=optim.OptState(
                                        state.opt_state.trace,
