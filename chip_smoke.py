@@ -28,7 +28,11 @@ against its plain PyTorch version on the same inputs:
   5. kernel B2 (``ops/birnn_cuda.py``, the backward delta sweep) at
      H = 1024, B = 32, T = 800, bf16, both directions, on states that B1
      computed at that shape (held against B1's plain version and timed
-     too: preset 2's B1);
+     too: preset 2's B1); then both directions of B1 and of B2 in one
+     launch each (``birnn_cuda.bi_grid``: preset 2's width fits twice on
+     the card) at that shape, bit-equal to one launch a direction, against
+     the plain loops of both directions, timed beside one direction and
+     twice it (records ``birnn_fwd_bi``, ``birnn_bwd_bi``);
   6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
      at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
      bit-equal to the plain sweeps, with ``torch.nn.functional.ctc_loss``
@@ -269,9 +273,9 @@ B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
 # The walk replaces the reference's jax.lax.scan, not a Pallas kernel.
 WALK_REPLACES = "tpu_ctc/ops/beam_pallas.py:1191"
-KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_bwd",
-                "birnn_bwd_wide", "ctc_alpha", "ctc_beta", "beam_search",
-                "beam_search_wide", "beam_reconstruct"]
+KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_fwd_bi", "birnn_bwd",
+                "birnn_bwd_wide", "birnn_bwd_bi", "ctc_alpha", "ctc_beta",
+                "beam_search", "beam_search_wide", "beam_reconstruct"]
 # f32 products on the FP32 pipe: the data sheet's 67 TFLOP/s counts an FMA
 # as two operations, as a product's 2 M N K does.
 F32_FMA_OPS = 67e12
@@ -869,6 +873,113 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
                 library_ms=None)
 
 
+def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
+                   phase="phase 5"):
+    """B1 and B2 of both directions in one launch each (``bi_grid``) at
+    preset 2's shape: bit-equal to one launch a direction, within B1's and
+    B2's limits of the plain loops of both directions, and timed beside one
+    direction's launch and twice it; the bound is both directions'."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = birnn_cuda.bi_grid(n_h, torch.bfloat16, n_sm)
+    if not grid:
+        raise AssertionError(f"H={n_h}: both directions do not fit the "
+                             f"{n_sm} SMs at once")
+    r = np.random.RandomState(6)
+    z = torch.from_numpy(3.0 * r.randn(n_t, n_b, n_h).astype(np.float32))
+    w = torch.from_numpy((0.5 / np.sqrt(n_h))
+                         * r.randn(2, n_h, n_h).astype(np.float32))
+    g = torch.from_numpy(r.randn(n_t, n_b, n_h).astype(np.float32))
+    lens = torch.from_numpy(r.randint(n_t // 2, n_t + 1, n_b).astype(np.int32))
+    lens[1] = 1
+    z, w, g, lens = (z.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+                     g.to(dev, torch.bfloat16), lens.to(dev))
+    wf, wb = w[0], w[1]
+    wft, wbt = wf.t().contiguous(), wb.t().contiguous()
+
+    def fused_fwd():
+        return birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+
+    def fused_bwd():
+        return birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt, clip=20.0)
+
+    def one_fwd():
+        return birnn_cuda.fwd_recurrence_cuda(z, wf, lens, reverse=False,
+                                              clip=20.0)
+
+    def one_bwd():
+        return birnn_cuda.bwd_recurrence_cuda(g, hs[0], wft, reverse=True,
+                                              clip=20.0)
+
+    def plain_fwd():
+        return birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0,
+                                            plain=True)
+
+    def plain_bwd():
+        return birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt, clip=20.0,
+                                            plain=True)
+    n0 = (birnn_cuda.FWD_BI_KERNEL.launches,
+          birnn_cuda.BWD_BI_KERNEL.launches)
+    hs = fused_fwd()
+    d = fused_bwd()
+    torch.cuda.synchronize()
+    if (birnn_cuda.FWD_BI_KERNEL.launches - n0[0],
+            birnn_cuda.BWD_BI_KERNEL.launches - n0[1]) != (1, 1):
+        raise AssertionError("the fused B1/B2 did not launch once each")
+    single = [birnn_cuda.fwd_recurrence_cuda(z, wd, lens, reverse=rev,
+                                             clip=20.0)
+              for wd, rev in ((wf, False), (wb, True))]
+    single += [birnn_cuda.bwd_recurrence_cuda(g, h, wt, reverse=rev,
+                                              clip=20.0)
+               for h, wt, rev in ((hs[0], wft, True), (hs[1], wbt, False))]
+    same = [bool(torch.equal(a, b)) for a, b in zip((*hs, *d), single)]
+    plain = (*plain_fwd(), *plain_bwd())
+    errs = {}
+    for what, got, want in zip(("B1", "B1", "B2", "B2"), (*hs, *d), plain):
+        diff = (got.float() - want.float()).abs()
+        # as phases 2 and 5: a stored bf16 value may round the other way
+        bad = int((diff > 2 ** -6 * want.float().abs() + 2e-2).sum())
+        if bad:
+            raise AssertionError(f"fused {what} disagrees with its plain "
+                                 f"version ({bad} beyond tolerance)")
+        errs[what] = max(errs.get(what, 0.0), float(diff.max()))
+    log(f"{phase}: B1, B2 both directions in one launch of {grid} blocks "
+        f"(H={n_h} B={n_b} T={n_t}): bit-equal to one launch a direction "
+        f"(hs_f, hs_b, d_f, d_b) {same}; max abs err against the plain "
+        f"loops B1 {errs['B1']:.3e}, B2 {errs['B2']:.3e}")
+    if not all(same):
+        raise AssertionError("a fused sweep differs from one launch a "
+                             "direction")
+    records = []
+    active = [(h.float() > 0) & (h.float() < 20.0) for h in hs]
+    for name, what, fused, one, plain_fn, bounds, replaces in (
+            ("birnn_fwd_bi", "B1", fused_fwd, one_fwd, plain_fwd,
+             [sweep_bound(hs[0], lens, n_h, 2, BF16_TENSOR_OPS),
+              sweep_bound(hs[1], lens, n_h, 2, BF16_TENSOR_OPS, flip=True)],
+             B1_REPLACES),
+            ("birnn_bwd_bi", "B2", fused_bwd, one_bwd, plain_bwd,
+             [sweep_bound(hs[0], lens, n_h, 2, BF16_TENSOR_OPS,
+                          bwd_active=active[0], d=d[0]),
+              sweep_bound(hs[1], lens, n_h, 2, BF16_TENSOR_OPS,
+                          bwd_active=active[1], d=d[1], flip=True)],
+             B2_REPLACES)):
+        ms = time_ms(fused, reps)
+        one_ms = time_ms(one, reps)
+        plain_ms = time_ms(plain_fn, PLAIN_REPS)
+        b_ms = sum(b[0] for b in bounds)
+        b_by = "+".join(sorted({b[1] for b in bounds}))
+        log(f"{phase}: {what} both directions in one launch {ms:.3f} ms "
+            f"({ms * 1e3 / n_t:.2f} us a step), one direction {one_ms:.3f} "
+            f"ms, twice it {2 * one_ms:.3f} ms (fused / one direction "
+            f"{ms / one_ms:.3f}), plain loops of both {plain_ms:.3f} ms, "
+            f"bound of both {b_ms:.4f} ms ({b_by})")
+        records.append(dict(name=name, route="cuda", source=BIRNN_SOURCE,
+                            replaces=replaces, max_abs_err=errs[what], ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None))
+    return records
+
+
 def dp_close(got, want, what, phase="phase 6"):
     """Max abs error over live states; raises unless the kernel's output
     is bit-equal to the plain sweep's, dead states (<= NEG_INF / 2) and
@@ -1009,6 +1120,7 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
     from tpu_ctc_torch.data.synthetic import SyntheticCorpus
     from tpu_ctc_torch.losses import ctc
     from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.ops import birnn_cuda
     from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train import graphs, step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
@@ -1076,8 +1188,13 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
         raise AssertionError("the compiled train step differs from the "
                              "eager train_step")
     n_bi = cfg.model.num_bi_layers
-    want_n = {"birnn_fwd": 2 * n_bi * steps, "birnn_bwd": 2 * n_bi * steps,
-              "birnn_fwd_wide": 0, "birnn_bwd_wide": 0,
+    # both directions of a layer in one launch where they fit at once
+    fused = bool(birnn_cuda.bi_grid(
+        cfg.model.hidden_dim, birnn._io_dtype(cfg.model),
+        torch.cuda.get_device_properties(dev).multi_processor_count))
+    one, two = (0, n_bi * steps) if fused else (2 * n_bi * steps, 0)
+    want_n = {"birnn_fwd": one, "birnn_bwd": one, "birnn_fwd_wide": 0,
+              "birnn_bwd_wide": 0, "birnn_fwd_bi": two, "birnn_bwd_bi": two,
               "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
               "beam_search_wide": 0, "beam_reconstruct": 0}
     for name, n in launches.items():
@@ -1885,12 +2002,14 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
         f"{rate:.1f} audio-s/s (each step synchronised by log_every=1); "
         f"eval {json.dumps({k: evals[0][k] for k in ('cer', 'beam_wer', 'beam_cer', 'num_utts')})}; "
         f"launches on the path {train_launches}")
+    sweeps = {**train_launches,
+              **birnn_cuda.direction_sweeps(train_launches)}
     for name in ("birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta",
                  "beam_search", "beam_reconstruct"):
-        if not train_launches.get(name):
+        if not sweeps.get(name):
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"audio training path")
-    if (train_launches["birnn_bwd"] != 2 * n_bi * n_steps
+    if (sweeps["birnn_bwd"] != 2 * n_bi * n_steps
             or train_launches["ctc_beta"] != n_steps):
         raise AssertionError(f"launches {train_launches} for {n_steps} steps")
     state0 = step.create_train_state(cfg2, device=dev)
@@ -1914,16 +2033,20 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
     # remat: one preset-2 step's loss and gradients, same batch, weights,
     # outside PyTorch's deterministic mode (the CTC glue's gather sums its
     # gradient in a fixed order: ops/ctc_cuda.EmitGather)
+    def fwd_sweeps():   # B1's direction sweeps: a fused launch sweeps two
+        return birnn_cuda.direction_sweeps(
+            {k.name: k.launches for k in all_kernels()})["birnn_fwd"]
+
     def loss_grads(remat):
         c = cfg2.override(**{"model.remat": remat})
         params = dict(state.model.named_parameters())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n0 = birnn_cuda.KERNEL.launches
+        n0 = fwd_sweeps()
         loss, _ = step.loss_fn(state.model, c, bt)
         grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
-        return (loss, grads, birnn_cuda.KERNEL.launches - n0,
+        return (loss, grads, fwd_sweeps() - n0,
                 torch.cuda.max_memory_allocated() / 2 ** 30)
     def bit_equal(a, b):
         return bool(torch.equal(a[0], b[0])) and all(
@@ -2496,6 +2619,7 @@ def phase_mesh_ranks(ref_losses):
     (data = 2, seq = 2) as well, the same way.  The losses against the one-card
     step's within LOSS_REL_TOL, the parameters bit-equal across ranks.
     Returns {mesh name: launches of its main run, ranks summed}."""
+    from tpu_ctc_torch.ops import birnn_cuda
     count = card_count()
     if count >= 2:
         backend = "nccl"
@@ -2532,7 +2656,7 @@ def phase_mesh_ranks(ref_losses):
             f"ranks) {launches}")
         if rel > LOSS_REL_TOL or not same:
             raise AssertionError(f"the multi-rank step on {name} disagrees")
-        if launches["birnn_fwd"] == 0 or launches["birnn_bwd"] == 0:
+        if 0 in birnn_cuda.direction_sweeps(launches).values():
             raise AssertionError(f"the step on {name} launched no B1 or B2")
         out[name] = launches
     return out
@@ -2710,6 +2834,7 @@ def mesh_audio_report(phase: str, name: str, recs, reference, one_rank,
     """Logs mesh ``name``'s run from audio against ``reference``
     (:func:`mesh_audio_reference`'s) and returns (the checks it failed,
     its launches with the ranks summed)."""
+    from tpu_ctc_torch.ops import birnn_cuda
     want, one_reads, one_eval, steps = reference
     got = [run for rec in recs for run in rec["runs"] if run["name"] == name]
     same, misses = [], {}
@@ -2757,7 +2882,7 @@ def mesh_audio_report(phase: str, name: str, recs, reference, one_rank,
             any(e > one_eval * 0.75 for e in evals):
         failed.append(f"{name} from audio: a rank read more than its "
                       f"share of the rows")
-    if not (launches.get("birnn_fwd") and launches.get("birnn_bwd")):
+    if 0 in birnn_cuda.direction_sweeps(launches).values():
         failed.append(f"{name} from audio launched no B1 or B2")
     return failed, launches
 
@@ -2990,16 +3115,22 @@ def phase_tools(phase6, checkpoint_dir: str, dev="cuda"):
 # collective decode and the dry run
 # ---------------------------------------------------------------------------
 
-def sweep_bound(hs, lens, n_h, itemsize, peak, bwd_active=None, d=None):
+def sweep_bound(hs, lens, n_h, itemsize, peak, bwd_active=None, d=None,
+                flip=False):
     """Bound of one timed sweep, as phases 2 and 5 count it: B1 reads z at
     live frames, writes hs, reads W once and multiplies h_{t-1} @ W over
     its nonzero entries at live frames; B2 (``bwd_active``, the units
     0 < h < clip, and its deltas ``d``, right to left) reads hs and g at
     active units, writes d and multiplies d_{t+1} @ W^T for the active
-    units over d_{t+1}'s nonzero entries."""
+    units over d_{t+1}'s nonzero entries.  ``flip``: the sweep runs in the
+    other time order (B1 reversed, B2 left to right)."""
     n_t, n_b = hs.shape[:2]
+    live = (torch.arange(n_t, device=hs.device)[:, None] < lens[None, :])
+    if flip:
+        hs, live = hs.flip(0), live.flip(0)
+        d = None if d is None else d.flip(0)
+        bwd_active = None if bwd_active is None else bwd_active.flip(0)
     if bwd_active is None:
-        live = (torch.arange(n_t, device=hs.device)[:, None] < lens[None, :])
         prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).ne(0).sum(2)
         n_bytes = ((int(live.sum()) + n_t * n_b) * n_h + n_h * n_h) \
             * itemsize + n_b * 4
@@ -3595,6 +3726,7 @@ def phase_chain(timeout=600):
     ``chain_gru`` B5's n-gram and GRU instances."""
     import shutil
     import importlib
+    from tpu_ctc_torch.ops import birnn_cuda
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_chain")
     shutil.rmtree(out, ignore_errors=True)
@@ -3679,8 +3811,12 @@ def phase_chain(timeout=600):
         f"bit-equal {gru['bit_equal']} (largest difference "
         f"{max(gru['max_abs_diff'].values()):.3g})")
     by = res["launches_by_stage"]
-    trained = {k: sum(by[s][k] for s in by if s.startswith("train"))
-               for k in ("birnn_fwd", "birnn_bwd", "ctc_alpha", "ctc_beta")}
+    trained = {k: sum(by[s].get(k, 0) for s in by if s.startswith("train"))
+               for k in ("birnn_fwd", "birnn_bwd", "birnn_fwd_bi",
+                         "birnn_bwd_bi", "ctc_alpha", "ctc_beta")}
+    trained = {**birnn_cuda.direction_sweeps(trained),
+               "ctc_alpha": trained["ctc_alpha"],
+               "ctc_beta": trained["ctc_beta"]}
     decoded = {"beam_search (n-gram)": res["beam_search_by_lm"]["ngram"],
                "beam_search (GRU)": res["beam_search_by_lm"]["gru"],
                "beam_search_wide (K=200)":
@@ -3756,7 +3892,8 @@ def main() -> int:
     took("phases 2-3")
     decode_launches, phase4 = phase_end_to_end(seed=0)
     took("phase 4")
-    records += [phase_birnn_bwd(REPS), *phase_ctc(REPS)]
+    records += [phase_birnn_bwd(REPS), *phase_birnn_bi(REPS),
+                *phase_ctc(REPS)]
     took("phases 5-6")
     train_launches, phase7 = phase_train(seed=0)
     took("phase 7")

@@ -488,3 +488,80 @@ class TestKernelGuards:
         assert birnn_cuda.wide_grid(1824, 113) == (57, 2)
         with pytest.raises(NotImplementedError, match="over the 60 SMs"):
             birnn_cuda.check_supported(64, 4096, torch.bfloat16, n_sm=60)
+
+    @pytest.mark.parametrize("h,dtype,bidirectional,n_sm,grid", [
+        (1024, torch.bfloat16, True, 132, 128),
+        (1056, torch.bfloat16, True, 132, 132),
+        (100, torch.bfloat16, True, 132, 14),
+        (1057, torch.bfloat16, True, 132, 0),
+        (1824, torch.bfloat16, True, 132, 0),
+        (1024, torch.float32, True, 132, 0),
+        (2560, torch.bfloat16, True, 132, 0),
+        (4096, torch.bfloat16, True, 132, 0),
+        (1024, torch.bfloat16, False, 132, 0),
+        (1024, torch.bfloat16, True, 100, 0),
+        (784, torch.bfloat16, True, 100, 98)])
+    def test_both_directions_in_one_launch(self, h, dtype, bidirectional,
+                                           n_sm, grid):
+        """``bi_grid``: one launch of 2 grid_size(H) blocks sweeps both
+        directions where the layer is bidirectional, bf16, narrow and both
+        halves fit one block a SM (H <= 1056 on 132 SMs); else 0 (f32, the
+        wide instance at 2560 and 4096, one direction, too few SMs)."""
+        assert birnn_cuda.bi_grid(h, dtype, n_sm,
+                                  bidirectional=bidirectional) == grid
+        if grid:
+            assert grid == 2 * birnn_cuda.grid_size(h) <= n_sm
+            assert birnn_cuda.instance(h, dtype, n_sm) == "narrow"
+
+    @pytest.mark.parametrize("name,fused", [
+        ("timit_subset_1layer", False), ("timit_full_3layer", True),
+        ("swbd_5layer_dp", False), ("swbd_beam_decode", False),
+        ("swbd_wide_tp", False)])
+    def test_which_presets_sweep_both_directions_at_once(self, name, fused):
+        """Preset 2 (bf16, H = 1024) takes the one launch on an H100 SXM;
+        preset 1 (f32), presets 3 and 4 (H = 1824: 2 x 114 blocks) and
+        preset 5 (the wide instance) launch a direction at a time."""
+        cfg = get_config(name).model
+        assert bool(birnn_cuda.bi_grid(
+            cfg.hidden_dim, getattr(torch, cfg.compute_dtype),
+            bidirectional=cfg.bidirectional)) == fused
+
+    def test_fused_kernels_share_b1_s_library(self):
+        """The fused launches are counted on kernels of their own, listed
+        by ``ops.kernels()`` and built from B1's source; a fused launch
+        counts as two direction sweeps."""
+        from tpu_ctc_torch.ops import kernels
+        by_name = {k.name: k for k in kernels()}
+        assert by_name["birnn_fwd_bi"] is birnn_cuda.FWD_BI_KERNEL
+        assert by_name["birnn_bwd_bi"] is birnn_cuda.BWD_BI_KERNEL
+        for name in ("birnn_fwd_bi", "birnn_bwd_bi"):
+            assert by_name[name].library == birnn_cuda.KERNEL.library
+            assert by_name[name].source == birnn_cuda.KERNEL.source
+        assert birnn_cuda.direction_sweeps(
+            {"birnn_fwd": 3, "birnn_fwd_bi": 6, "birnn_bwd_bi": 6,
+             "ctc_beta": 6}) == {"birnn_fwd": 15, "birnn_bwd": 12}
+
+    def test_cpu_tensors_sweep_both_directions_in_the_plain_loops(self):
+        """``fwd_bi_recurrence`` and ``bwd_bi_recurrence`` on CPU tensors
+        are the plain loops of each direction, and count no launch."""
+        z, wf, wb, lens, _ = (torch.from_numpy(a) for a in
+                              _recurrence_inputs(8, 7, 3, 8, 0.3))
+        g = z.flip(0)
+        before = (birnn_cuda.FWD_BI_KERNEL.launches,
+                  birnn_cuda.BWD_BI_KERNEL.launches,
+                  birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches)
+        hs_f, hs_b = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+        assert torch.equal(hs_f, birnn_cuda.fwd_recurrence_plain(
+            z, wf, lens, reverse=False, clip=20.0))
+        assert torch.equal(hs_b, birnn_cuda.fwd_recurrence_plain(
+            z, wb, lens, reverse=True, clip=20.0))
+        d_f, d_b = birnn_cuda.bwd_bi_recurrence(g, hs_f, hs_b, wf.t(), wb.t(),
+                                                clip=20.0)
+        assert torch.equal(d_f, birnn_cuda.bwd_recurrence_plain(
+            g, hs_f, wf.t(), reverse=True, clip=20.0))
+        assert torch.equal(d_b, birnn_cuda.bwd_recurrence_plain(
+            g, hs_b, wb.t(), reverse=False, clip=20.0))
+        assert (birnn_cuda.FWD_BI_KERNEL.launches,
+                birnn_cuda.BWD_BI_KERNEL.launches,
+                birnn_cuda.KERNEL.launches,
+                birnn_cuda.BWD_KERNEL.launches) == before

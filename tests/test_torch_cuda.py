@@ -16,7 +16,11 @@ plain version's matmuls), and two launches are bit-equal; the walk of
 the best slot's backpointers equals the plain walk to the bit.  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
-bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal.  Kernels
+bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal; both
+directions of a layer in one launch (``birnn_cuda.bi_grid``) are bit-equal
+to one launch a direction, also through ``BiRecurrence`` and replayed in a
+CUDA graph, and launch counts read direction sweeps (a fused launch sweeps
+two).  Kernels
 B3 and B4 do the plain sweeps' float steps in the same order with
 expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
 (f32 output) equals the f32 product of the same values up to the order of
@@ -75,6 +79,11 @@ def _recurrence_inputs(seed, t, b, h):
     if b > 1:
         lens[-1] = 0
     return torch.from_numpy(z), torch.from_numpy(w), torch.from_numpy(lens)
+
+
+def _fwd_sweeps():
+    """B1's narrow direction sweeps so far: a fused launch sweeps two."""
+    return birnn_cuda.KERNEL.launches + 2 * birnn_cuda.FWD_BI_KERNEL.launches
 
 
 def _launch_twice(kernel, launch):
@@ -220,9 +229,9 @@ def test_model_kernel_path_matches_plain(dev):
     feats = torch.from_numpy(r.randn(6, 50, 120).astype(np.float32)).to(dev)
     lens = torch.tensor([50, 44, 31, 50, 12, 1], device=dev)
     mask = (torch.arange(50, device=dev)[None] < lens[:, None]).float()
-    before = birnn_cuda.KERNEL.launches
+    before = _fwd_sweeps()
     got = birnn.log_posteriors(model, cfg.model, feats, mask)
-    assert birnn_cuda.KERNEL.launches == before + 4
+    assert _fwd_sweeps() == before + 4
     want = birnn.log_posteriors(
         model, dataclasses.replace(cfg.model, birnn_impl="scan"), feats, mask)
     assert got.shape == (6, 50, 29) and bool(torch.isfinite(got).all())
@@ -279,6 +288,84 @@ def test_bi_recurrence_grad_kernel_matches_plain(dev):
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def _bi_counts():
+    return (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
+            birnn_cuda.FWD_BI_KERNEL.launches,
+            birnn_cuda.BWD_BI_KERNEL.launches)
+
+
+def _bi_inputs(dev, t, b, h):
+    """z, wf, wb (bf16) and ragged lengths: the first row full, the second
+    one frame long, the last 0 (where there are three rows or more)."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if not birnn_cuda.bi_grid(h, torch.bfloat16, n_sm):
+        pytest.skip(f"H={h}: both directions do not fit this card at once")
+    z, wf, lens = _recurrence_inputs(t + b + h, t, b, h)
+    wb = _recurrence_inputs(t + b + h + 1, t, b, h)[1]
+    if b > 2:
+        lens[1] = 1
+    return (z.to(dev, torch.bfloat16), wf.to(dev, torch.bfloat16),
+            wb.to(dev, torch.bfloat16), lens.to(dev))
+
+
+# the train cell's shape (preset 2: T = 800, B = 32, H = 1024) and an odd one
+@pytest.mark.parametrize("t,b,h", [(800, 32, 1024), (37, 5, 100)])
+def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
+    """B1 and B2 of both directions in one launch (``bi_grid``) are
+    torch.equal to one launch a direction; a fused launch counts once on
+    its own kernel and none on B1's or B2's, and two are bit-equal."""
+    z, wf, wb, lens = _bi_inputs(dev, t, b, h)
+    g = torch.from_numpy(np.random.RandomState(h).randn(t, b, h).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    c0 = _bi_counts()
+    hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+    hs_again = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+    d = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
+    d_again = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
+    torch.cuda.synchronize()
+    assert [y - x for x, y in zip(c0, _bi_counts())] == [0, 0, 2, 2]
+    want_hs = [birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=rev,
+                                              clip=20.0)
+               for w, rev in ((wf, False), (wb, True))]
+    want_d = [birnn_cuda.bwd_recurrence_cuda(g, h_, w.t(), reverse=rev,
+                                             clip=20.0)
+              for h_, w, rev in ((hs[0], wf, True), (hs[1], wb, False))]
+    for got, again, want in zip((*hs, *d), (*hs_again, *d_again),
+                                (*want_hs, *want_d)):
+        assert torch.equal(got, again)
+        assert torch.equal(got, want)
+    for i, n in enumerate(lens.tolist()):
+        assert torch.all(hs[0][n:, i] == 0) and torch.all(hs[1][n:, i] == 0)
+    assert float(hs[0].float().abs().max()) > 0
+
+
+def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch):
+    """``BiRecurrence`` at preset 2's width in bf16: its output and its
+    three gradients bit-equal with both directions in one launch and with
+    the fused launch switched off (one launch a direction)."""
+    t, b, h = 60, 32, 1024
+    z, wf, wb, lens = _bi_inputs(dev, t, b, h)
+    g = torch.from_numpy(np.random.RandomState(3).randn(t, b, h).astype(
+        np.float32)).to(dev)
+
+    def run():
+        zz, wf_, wb_ = (x.float().requires_grad_(True) for x in (z, wf, wb))
+        c0 = _bi_counts()
+        out = birnn_cuda.bi_recurrence(zz, wf_, wb_, lens, clip=20.0,
+                                       compute_dtype=torch.bfloat16)
+        out.backward(g)
+        torch.cuda.synchronize()
+        n = [y - x for x, y in zip(c0, _bi_counts())]
+        return (out.detach(), zz.grad, wf_.grad, wb_.grad), n
+    fused, n_fused = run()
+    monkeypatch.setattr(birnn_cuda, "bi_grid", lambda *a, **k: 0)
+    unfused, n_unfused = run()
+    assert n_fused == [0, 0, 1, 1] and n_unfused == [2, 2, 0, 0]
+    for got, want in zip(fused, unfused):
+        assert torch.equal(got, want)
+    assert float(fused[2].abs().max()) > 0 and float(fused[3].abs().max()) > 0
 
 
 def _lattice(dev, seed, b, t, a, lmax, tl=None, ll=None):
@@ -937,11 +1024,11 @@ def test_remat_is_bit_equal_and_its_peak_memory(dev, io):
         params = dict(state.model.named_parameters())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = birnn_cuda.KERNEL.launches
+        before = _fwd_sweeps()
         loss, _ = step.loss_fn(state.model, c, bt)
         grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
-        return (loss, grads, birnn_cuda.KERNEL.launches - before,
+        return (loss, grads, _fwd_sweeps() - before,
                 torch.cuda.max_memory_allocated())
     run(False)                                     # warm-up
     # outside deterministic mode: the CTC glue's gather sums its gradient
@@ -1574,8 +1661,8 @@ def test_graphed_train_step_is_the_eager_step(dev, remat):
     for got, want in held:
         for k in want:
             assert torch.equal(got[k], want[k]), k
-    assert graph_n == eager_n and eager_n["birnn_fwd"] == (
-        (2 if remat else 1) * 4 * len(order))
+    assert graph_n == eager_n and birnn_cuda.direction_sweeps(
+        eager_n)["birnn_fwd"] == (2 if remat else 1) * 4 * len(order)
     assert fn.stats()["shapes"] == 4
 
 
@@ -1782,6 +1869,41 @@ def test_sweeps_are_captured_as_cooperative_nodes(dev, kind):
         assert torch.equal(out, want)
 
 
+def test_fused_sweeps_replay_in_a_graph(dev):
+    """B1 and B2 of both directions, each one cooperative launch, under
+    stream capture: two cooperative kernel nodes, and replays on new
+    inputs give the eager launches' outputs bit for bit (each direction's
+    exchange buffer and counter are zeroed by nodes of the graph)."""
+    t, b, h = 50, 32, 1024
+    z, wf, wb, lens = _bi_inputs(dev, t, b, h)
+    g = torch.zeros_like(z)
+    wft, wbt = wf.t().contiguous(), wb.t().contiguous()
+
+    def launch():
+        hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+        return (*hs, *birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt,
+                                                   clip=20.0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = launch()
+    nodes = _kernel_nodes(graph)
+    graph.instantiate()
+    assert nodes.count(True) == 2, nodes
+    for seed in (1, 2):
+        r = np.random.RandomState(seed)
+        z.copy_(torch.from_numpy(3.0 * r.randn(t, b, h).astype(np.float32)))
+        g.copy_(torch.from_numpy(r.randn(t, b, h).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(out, launch()):
+            assert torch.equal(got, want)
+
+
 def test_label_width_on_the_card(dev):
     """The host's label cut on the card: the CTC loss at the rounded width
     (32 columns) bit-equal to the cut at the longest label, the gradient
@@ -1835,6 +1957,7 @@ def test_train_loop_runs_the_compiled_step(dev, tmp_path):
         assert torch.equal(a, b)
     evals = n // cfg.train.eval_every
     fwd = 2 * cfg.model.num_bi_layers
-    assert c1["birnn_fwd"] - c0["birnn_fwd"] == fwd * (n + evals * len(
+    sweeps = [birnn_cuda.direction_sweeps(c)["birnn_fwd"] for c in (c0, c1)]
+    assert sweeps[1] - sweeps[0] == fwd * (n + evals * len(
         list(BucketedLoader(data[:8], cfg.data).epoch(0))))
     assert c1["ctc_beta"] - c0["ctc_beta"] == n

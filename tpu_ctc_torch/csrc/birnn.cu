@@ -73,6 +73,28 @@
 //   step, so every read of the buffer half that the next step overwrites,
 //   and every read of its own ring's partial, is done.
 //
+// Both directions in one launch (bf16, narrow; birnn_fwd_bi_launch and
+// birnn_bwd_bi_launch).  A direction's grid is G = H_pad / 16 blocks, one a
+// SM: at preset 2's H = 1024 that is 64 of an H100's 132 SMs, so launching a
+// bidirectional layer's two sweeps one after the other leaves 68 SMs idle
+// for the whole of both.  Where 2 G blocks fit at once (H <= 1056 on 132
+// SMs) one cooperative launch sweeps both: blocks [0, G) direction 0,
+// [G, 2 G) direction 1, each with its own swept input, W, third input,
+// output, time order, exchange buffer and counter (kCountStride apart), and
+// a step's barrier counts that direction's G n_mt arrivals alone, so
+// neither direction ever waits for the other.  A block does the arithmetic
+// of the one-direction launch in the same order, so each direction's output
+// is bit-equal to it.  What bounds a fused step: both grids read their
+// previous state from L2 at once, twice the bytes of one direction (2 x 64
+// blocks x 64 KB, 8.4 MB a step at B = 32, H = 1024), while each block's
+// fetch stays latency-bound as it is alone; the two grids share nothing on
+// the card but L2's bandwidth.  Two cooperative grids on two streams are not
+// guaranteed to be co-resident, so one launch holds both.  The direction
+// count is a template argument (mma_sweep_kernel<kBwd, kDirs>): with a
+// runtime count the one-direction kernel kept its operands in registers
+// and ran 7-13% slower a step at H = 1024 and 1824; with kDirs = 1 it is
+// the one-direction kernel as it was.
+//
 // The f32 instances (f32_sweep_kernel: preset 1 and the f32 card tests)
 // keep exact f32 products on the FP32 pipe, with no TF32: they keep the
 // scalar loop of the first design (the carry staged in k-chunks of 64
@@ -101,6 +123,7 @@ constexpr int kStages = 4;          // stages of a warp's cp.async ring
 constexpr int kStageBytes = 4096;
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kKc = 64;             // f32: k-chunk of the staged carry
+constexpr int kCountStride = 32;    // a fused launch's counters, 128 B apart
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -202,17 +225,22 @@ __device__ __forceinline__ void store8(bf16* p, const Pack8& v, int n,
     if (i < n) p[i] = v.h[i];
 }
 
-// x: z (B1) or g (B2); w: W (B1) or W^T (B2), [H, H]; lengths: B1 only;
-// hs: the stored forward states, B2 only; out: h (B1) or d (B2); xbuf:
-// [2, B_pad, H_pad], zeroed; count: one zeroed counter.  `vec`: H % 8 == 0
-// and x, hs, out 16-byte aligned, so their rows of 8 are single accesses.
-template <bool kBwd>
+// kDirs directions (1 or 2), gridDim.x / kDirs blocks each.  x: z (B1) or
+// g (B2), shared by the directions; w0, w1: W (B1) or W^T (B2), [H, H], of
+// direction 0 and 1; lengths: B1 only; hs0, hs1: the stored forward
+// states, B2 only; out0, out1: h (B1) or d (B2); xbuf: a zeroed [2, B_pad,
+// H_pad] exchange buffer a direction, one after the other; count: a zeroed
+// counter a direction, kCountStride apart; reverse: direction 0's time
+// order (direction 1 sweeps the other way).  `vec`: H % 8 == 0 and x, hs0,
+// hs1, out0, out1 16-byte aligned, so their rows of 8 are single accesses.
+template <bool kBwd, int kDirs>
 __global__ void __launch_bounds__(kThreads, 1)
-mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const int* __restrict__ lengths, const bf16* __restrict__ hs,
-                 bf16* __restrict__ out, bf16* xbuf, unsigned int* count,
-                 int n_t, int n_b, int n_h, int reverse, float clip,
-                 bool vec) {
+mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                 const bf16* __restrict__ w1, const int* __restrict__ lengths,
+                 const bf16* __restrict__ hs0, const bf16* __restrict__ hs1,
+                 bf16* __restrict__ out0, bf16* __restrict__ out1,
+                 bf16* xbuf0, unsigned int* count0, int n_t, int n_b,
+                 int n_h, int reverse0, float clip, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
   const int n_mt = b_pad / 16;          // m-tiles of the batch
@@ -220,7 +248,16 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   bf16* w_s = reinterpret_cast<bf16*>(smem + kWarps * kRingBytes);  // [16][w_ld]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.x * kCols;
+  const int n_blk = gridDim.x / kDirs;  // blocks of a direction
+  const int blk = blockIdx.x;
+  const bool second = kDirs == 2 && blk >= n_blk;
+  const bf16* w = second ? w1 : w0;
+  const bf16* hs = second ? hs1 : hs0;
+  bf16* out = second ? out1 : out0;
+  bf16* xbuf = second ? xbuf0 + (size_t)2 * b_pad * h_pad : xbuf0;
+  unsigned int* count = second ? count0 + kCountStride : count0;
+  const int reverse = second ? !reverse0 : reverse0;
+  const int j0 = (second ? blk - n_blk : blk) * kCols;
 
   // W's 16 columns, once: w_s[n][k] = w[k][j0 + n], zero past H
   for (int i = tid; i < h_pad * kCols; i += kThreads) {
@@ -255,7 +292,7 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const bool row_live = epi && eb < n_b;
   const int n_val = min(max(n_h - (j0 + c0), 0), 8);
   const int len_b = (!kBwd && row_live) ? lengths[eb] : 0;
-  const unsigned int per_step = gridDim.x * (unsigned int)n_mt;
+  const unsigned int per_step = n_blk * (unsigned int)n_mt;  // a direction's
   Pack8 xv, hv;  // the frame's x (and h, B2) values, loaded a step ahead
   xv.u = hv.u = make_uint4(0, 0, 0, 0);
   if (row_live) {
@@ -1094,6 +1131,42 @@ int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
   return 0;
 }
 
+// The bf16 narrow sweep of kDirs directions (w1, hs1, out1 are read only
+// where kDirs is 2): one cooperative launch of kDirs H_pad / 16 blocks.
+template <bool kBwd, int kDirs>
+int launch_sweeps(const void* x, const void* w0, const void* w1,
+                  const int* lengths, const void* hs0, const void* hs1,
+                  void* out0, void* out1, void* xbuf, unsigned int* count,
+                  int n_t, int n_b, int n_h, int reverse, float clip,
+                  cudaStream_t st) {
+  const uintptr_t addr = (uintptr_t)x | (uintptr_t)hs0 | (uintptr_t)hs1 |
+                         (uintptr_t)out0 | (uintptr_t)out1;
+  bool vec = n_h % 8 == 0 && addr % 16 == 0;
+  void* args[] = {(void*)&x,     (void*)&w0,      (void*)&w1,
+                  (void*)&lengths, (void*)&hs0,   (void*)&hs1,
+                  (void*)&out0,  (void*)&out1,    (void*)&xbuf,
+                  (void*)&count, (void*)&n_t,     (void*)&n_b,
+                  (void*)&n_h,   (void*)&reverse, (void*)&clip,
+                  (void*)&vec};
+  return launch_coop((const void*)mma_sweep_kernel<kBwd, kDirs>,
+                     kDirs * ceil_div(n_h, kCols), smem_bf16(n_h), args, st);
+}
+
+// Both directions of a layer in one launch (bf16, narrow): B1's direction 0
+// forward and 1 reversed, B2's (their deltas) 0 right to left and 1 left to
+// right; each its own exchange buffer, the two halves of xbuf, and counter.
+template <bool kBwd>
+int dispatch_bi(const void* x, const void* w0, const void* w1,
+                const int* lengths, const void* hs0, const void* hs1,
+                void* out0, void* out1, void* xbuf, unsigned int* count,
+                int n_t, int n_b, int n_h, float clip, void* stream) {
+  if (n_b < 1 || n_b > kMaxB || n_h < 1 || n_t < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_sweeps<kBwd, 2>(x, w0, w1, lengths, hs0, hs1, out0, out1,
+                                xbuf, count, n_t, n_b, n_h, kBwd ? 1 : 0,
+                                clip, static_cast<cudaStream_t>(stream));
+}
+
 template <bool kBwd>
 int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
              const void* h0, void* out, void* xbuf, unsigned int* count,
@@ -1118,6 +1191,9 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
   }
   // the wide kernels take their cached k-tiles (bf16) or chunks (f32)
   int cap = bf16_io && wide ? plan[2] / plan[1] : plan[2];
+  if (bf16_io && !wide)
+    return launch_sweeps<kBwd, 1>(x, w, w, lengths, hs, hs, out, out, xbuf,
+                                  count, n_t, n_b, n_h, reverse, clip, st);
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
     const bf16* wp = static_cast<const bf16*>(w);
@@ -1130,11 +1206,8 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
                     (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
                     (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
                     (void*)&vec, (void*)&cap};
-    if (wide)
-      return launch_coop((const void*)mma_wide_kernel<kBwd>, grid, plan[3],
-                         args, st);
-    return launch_coop((const void*)mma_sweep_kernel<kBwd>, grid,
-                       smem_bf16(n_h), args, st);
+    return launch_coop((const void*)mma_wide_kernel<kBwd>, grid, plan[3],
+                       args, st);
   }
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
@@ -1209,6 +1282,31 @@ int birnn_bwd_wide_launch(const void* g, const void* wt, const void* hs,
                           int bf16, void* stream) {
   return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
                         n_b, n_h, reverse, clip, bf16, true, stream);
+}
+
+// B1 of both directions of a bidirectional layer in one launch (bf16,
+// narrow instance; 2 H_pad / 16 blocks, which must be co-resident, else
+// cudaErrorCooperativeLaunchTooLarge and nothing runs).  z [T, B, H] and
+// lengths shared; wf, wb [H, H]; hs_f swept forward with wf, hs_b reversed
+// with wb; xbuf [2, 2, B_pad, H_pad] zeroed, an exchange buffer a
+// direction; count 2 x 32 zeroed uint32, direction i's counter at 32 i.
+int birnn_fwd_bi_launch(const void* z, const void* wf, const void* wb,
+                        const int* lengths, void* hs_f, void* hs_b,
+                        void* xbuf, unsigned int* count, int n_t, int n_b,
+                        int n_h, float clip, void* stream) {
+  return dispatch_bi<false>(z, wf, wb, lengths, nullptr, nullptr, hs_f, hs_b,
+                            xbuf, count, n_t, n_b, n_h, clip, stream);
+}
+
+// B2 of both directions in one launch: g [T, B, H] shared; wft, wbt the
+// transposed W's; d_f swept right to left over the stored states hs_f, d_b
+// left to right over hs_b; xbuf and count as for birnn_fwd_bi_launch.
+int birnn_bwd_bi_launch(const void* g, const void* wft, const void* wbt,
+                        const void* hs_f, const void* hs_b, void* d_f,
+                        void* d_b, void* xbuf, unsigned int* count, int n_t,
+                        int n_b, int n_h, float clip, void* stream) {
+  return dispatch_bi<true>(g, wft, wbt, nullptr, hs_f, hs_b, d_f, d_b, xbuf,
+                           count, n_t, n_b, n_h, clip, stream);
 }
 
 // The wide instances' plan (grid, tiles a block, cached pieces, shared

@@ -7,5 +7,6 @@ def kernels():
     ``launches`` count)."""
     from tpu_ctc_torch.ops import beam_cuda, birnn_cuda, ctc_cuda
     return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, birnn_cuda.WIDE_KERNEL,
-            birnn_cuda.WIDE_BWD_KERNEL, ctc_cuda.ALPHA, ctc_cuda.BETA,
+            birnn_cuda.WIDE_BWD_KERNEL, birnn_cuda.FWD_BI_KERNEL,
+            birnn_cuda.BWD_BI_KERNEL, ctc_cuda.ALPHA, ctc_cuda.BETA,
             beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL, beam_cuda.RECONSTRUCT)

@@ -34,7 +34,11 @@ instances, above it the wide ones (:func:`instance`), which deal the
 step for all of a block's tiles and stream the part of W that does not fit
 their shared memory; both compute the same values in the same order, and a
 wide launch is counted on its own kernel (``WIDE_KERNEL``,
-``WIDE_BWD_KERNEL``).
+``WIDE_BWD_KERNEL``).  Where both directions of a bf16 layer fit the card
+at once in the narrow instance (:func:`bi_grid`: H <= 1056 on an H100 SXM),
+:class:`BiRecurrence` sweeps them in one launch of B1 and one of B2, each
+direction on half the grid, bit-equal to the two launches and counted on
+``FWD_BI_KERNEL`` and ``BWD_BI_KERNEL``.
 
 The dense products outside the kernels have an f32 result.  On a card, a
 product of two bf16 operands (the dense forward at a bf16 compute dtype, dW
@@ -61,6 +65,10 @@ BWD_KERNEL = CudaKernel("birnn_bwd", source="birnn")
 WIDE_KERNEL = CudaKernel("birnn_fwd_wide", source="birnn")
 WIDE_BWD_KERNEL = CudaKernel("birnn_bwd_wide", source="birnn")
 _WIDE = {KERNEL.name: WIDE_KERNEL, BWD_KERNEL.name: WIDE_BWD_KERNEL}
+# Both directions of a layer in one narrow launch (:func:`bi_grid`): kernels
+# of their own in the same library, one count a launch of two sweeps.
+FWD_BI_KERNEL = CudaKernel("birnn_fwd_bi", source="birnn")
+BWD_BI_KERNEL = CudaKernel("birnn_bwd_bi", source="birnn")
 # The kernels' limits.  A block is 256 threads; the bf16 kernel keeps 8
 # m-tiles x 2 n-tiles of f32 accumulators a warp (B <= 128) and takes 172
 # registers a thread (ptxas, 0 spill bytes), within an SM's 64 K; its shared
@@ -72,6 +80,7 @@ _SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 _MAX_OWN = 4                       # kMaxOwn: column tiles a wide block owns
 H100_SMS = 132                     # SMs of an H100 SXM: one block each
 _COOP_TOO_LARGE = 720              # cudaErrorCooperativeLaunchTooLarge
+_COUNT_STRIDE = 32                 # kCountStride: a fused launch's counters
 # The JAX kernel's VMEM budget (tpu_ctc/ops/birnn_pallas.py:_VMEM_BUDGET):
 # the widths it admits are the widths the port takes.
 _JAX_VMEM_BUDGET = 80 * 1024 * 1024
@@ -134,6 +143,29 @@ def instance(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS) -> str:
     if grid_size(n_h) <= n_sm and smem_bytes(n_h, dtype) <= _SMEM_LIMIT:
         return "narrow"
     return "wide"
+
+
+def bi_grid(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS, *,
+            bidirectional: bool = True) -> int:
+    """Blocks of one launch that sweeps both directions of a layer, half
+    the grid each: 2 :func:`grid_size` where the layer is bidirectional,
+    the io dtype bf16, the instance narrow and both halves fit one block a
+    SM (H <= 1056 on 132 SMs); else 0, and the directions launch one after
+    the other."""
+    grid = 2 * grid_size(n_h)
+    if (bidirectional and dtype == torch.bfloat16 and grid <= n_sm
+            and instance(n_h, dtype, n_sm) == "narrow"):
+        return grid
+    return 0
+
+
+def direction_sweeps(launches: Dict[str, int]) -> Dict[str, int]:
+    """Narrow B1 and B2 sweeps of one direction each in a dict of launch
+    counts (kernel name -> launches): ``birnn_fwd`` + 2 ``birnn_fwd_bi``,
+    ``birnn_bwd`` + 2 ``birnn_bwd_bi``."""
+    pairs = ((KERNEL, FWD_BI_KERNEL), (BWD_KERNEL, BWD_BI_KERNEL))
+    return {k.name: launches.get(k.name, 0) + 2 * launches.get(bi.name, 0)
+            for k, bi in pairs}
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -279,16 +311,11 @@ def wide_weights(w: torch.Tensor) -> torch.Tensor:
         .contiguous()
 
 
-def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
-                third: torch.Tensor, *, reverse: bool, clip: float,
-                h0: torch.Tensor = None, wide: bool = None) -> torch.Tensor:
-    """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
-    ``third`` the lengths (B1) or the stored states (B2), ``h0`` B1's
-    initial carry [B, H] in x's dtype or None -> [T, B, H].  The instance
-    is :func:`instance`'s unless ``wide`` names it (the card tests hold
-    the wide one against the narrow one at narrow widths); a wide launch
-    is counted on the wide kernel (``WIDE_KERNEL``, ``WIDE_BWD_KERNEL``)."""
-    what = kernel.name
+def _checked(what: str, x: torch.Tensor, w: torch.Tensor,
+             third: torch.Tensor, h0: torch.Tensor = None) -> int:
+    """Raise on what a launch of B1 or B2 cannot take (x [T, B, H] swept
+    input, w [H, H], ``third`` and ``h0`` as :func:`_sweep_cuda` takes
+    them); the card's SMs."""
     if not (x.is_cuda and w.is_cuda and third.is_cuda
             and (h0 is None or h0.is_cuda)):
         raise ValueError(f"{what} kernel: tensors must be on a CUDA device")
@@ -302,9 +329,23 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
         raise NotImplementedError(
             f"{what} kernel: io dtype {x.dtype} with compute dtype "
             f"{w.dtype} (the kernel takes one dtype for both)")
-    n_t, n_b, n_h = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    check_supported(n_b, n_h, x.dtype, what, n_sm)
+    check_supported(x.shape[1], x.shape[2], x.dtype, what, n_sm)
+    return n_sm
+
+
+def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
+                third: torch.Tensor, *, reverse: bool, clip: float,
+                h0: torch.Tensor = None, wide: bool = None) -> torch.Tensor:
+    """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
+    ``third`` the lengths (B1) or the stored states (B2), ``h0`` B1's
+    initial carry [B, H] in x's dtype or None -> [T, B, H].  The instance
+    is :func:`instance`'s unless ``wide`` names it (the card tests hold
+    the wide one against the narrow one at narrow widths); a wide launch
+    is counted on the wide kernel (``WIDE_KERNEL``, ``WIDE_BWD_KERNEL``)."""
+    what = kernel.name
+    n_sm = _checked(what, x, w, third, h0)
+    n_t, n_b, n_h = x.shape
     if wide is None:
         wide = instance(n_h, x.dtype, n_sm) == "wide"
     x = x.contiguous()
@@ -337,6 +378,46 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _bi_sweep_cuda(kernel: CudaKernel, x: torch.Tensor, ws, thirds, *,
+                   clip: float):
+    """Both directions of a layer in one launch of :func:`bi_grid` blocks,
+    x [T, B, H] shared: B1 (``FWD_BI_KERNEL``; ws = (wf, wb), thirds the
+    lengths twice) sweeps direction 0 forward and 1 reversed, B2
+    (``BWD_BI_KERNEL``; ws = (wf^T, wb^T), thirds = (hs_f, hs_b)) direction
+    0 right to left and 1 left to right; each direction has its own zeroed
+    exchange buffer and counter -> the two outputs.  None where the launch
+    does not engage (:func:`bi_grid` is 0, or the card cannot hold the grid
+    at once): nothing ran, and the caller sweeps one direction at a
+    time."""
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if not bi_grid(x.shape[-1], x.dtype, n_sm):
+        return None
+    for w, third in zip(ws, thirds):
+        _checked(kernel.name, x, w, third)
+    n_t, n_b, n_h = x.shape
+    x = x.contiguous()
+    ws = [w.contiguous() for w in ws]
+    outs = [torch.empty_like(x) for _ in ws]
+    xbuf = torch.zeros((2,) + exchange_shape(n_b, n_h), dtype=x.dtype,
+                       device=x.device)
+    count = torch.zeros((2 * _COUNT_STRIDE,), dtype=torch.int32,
+                        device=x.device)
+    fn = getattr(kernel.lib(), kernel.name + "_launch")
+    fn.restype = ctypes.c_int
+    # B1 takes the shared lengths once, B2 each direction's states
+    third = thirds[:1] if kernel.name == FWD_BI_KERNEL.name else thirds
+    args = [ptr(t) for t in (x, *ws, *third, *outs, xbuf, count)]
+    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(*args, n_t, n_b, n_h, float(clip),
+             stream_of(kernel.name, x, *ws, *thirds, *outs, xbuf, count))
+    if err == _COOP_TOO_LARGE:
+        return None
+    check(err, kernel.name)
+    kernel.launches += 1
+    return tuple(outs)
+
+
 def fwd_recurrence_cuda(z: torch.Tensor, w: torch.Tensor,
                         lengths: torch.Tensor, *, reverse: bool,
                         clip: float, h0: torch.Tensor = None) -> torch.Tensor:
@@ -356,6 +437,23 @@ def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float, h0=None):
                                    h0=h0)
     return fwd_recurrence_plain(z, w, lengths, reverse=reverse, clip=clip,
                                 h0=h0)
+
+
+def fwd_bi_recurrence(z, wf, wb, lengths, *, clip: float,
+                      plain: bool = False):
+    """Both directions' states (hs_f swept forward with wf, hs_b reversed
+    with wb): one launch of B1 for the two on a card where :func:`bi_grid`
+    engages, else one a direction; the plain loops for CPU tensors and
+    with ``plain``."""
+    if z.is_cuda and not plain:
+        lengths = lengths.to(torch.int32).contiguous()
+        pair = _bi_sweep_cuda(FWD_BI_KERNEL, z, (wf, wb), (lengths, lengths),
+                              clip=clip)
+        if pair is not None:
+            return pair
+    fwd = fwd_recurrence_plain if plain else fwd_recurrence
+    return (fwd(z, wf, lengths, reverse=False, clip=clip),
+            fwd(z, wb, lengths, reverse=True, clip=clip))
 
 
 def bwd_recurrence_plain(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
@@ -380,11 +478,15 @@ def bwd_recurrence_cuda(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
                         *, reverse: bool, clip: float) -> torch.Tensor:
     """Launch kernel B2 for one direction.  Same contract as
     :func:`bwd_recurrence_plain`; g, hs and wt must share the io dtype."""
+    _check_states(g, hs)
+    return _sweep_cuda(BWD_KERNEL, g, wt, hs.contiguous(), reverse=reverse,
+                       clip=clip)
+
+
+def _check_states(g: torch.Tensor, hs: torch.Tensor) -> None:
     if hs.shape != g.shape or hs.dtype != g.dtype:
         raise ValueError(f"birnn_bwd kernel: hs {tuple(hs.shape)} {hs.dtype} "
                          f"does not match g {tuple(g.shape)} {g.dtype}")
-    return _sweep_cuda(BWD_KERNEL, g, wt, hs.contiguous(), reverse=reverse,
-                       clip=clip)
 
 
 def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
@@ -393,6 +495,25 @@ def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
     if g.is_cuda:
         return bwd_recurrence_cuda(g, hs, wt, reverse=reverse, clip=clip)
     return bwd_recurrence_plain(g, hs, wt, reverse=reverse, clip=clip)
+
+
+def bwd_bi_recurrence(g, hs_f, hs_b, wft, wbt, *, clip: float,
+                      plain: bool = False):
+    """Both directions' deltas (d_f right to left over hs_f with wft =
+    W_f^T, d_b left to right over hs_b with wbt): one launch of B2 for the
+    two on a card where :func:`bi_grid` engages, else one a direction; the
+    plain loops for CPU tensors and with ``plain``."""
+    if g.is_cuda and not plain:
+        for hs in (hs_f, hs_b):
+            _check_states(g, hs)
+        pair = _bi_sweep_cuda(BWD_BI_KERNEL, g, (wft, wbt),
+                              (hs_f.contiguous(), hs_b.contiguous()),
+                              clip=clip)
+        if pair is not None:
+            return pair
+    bwd = bwd_recurrence_plain if plain else bwd_recurrence
+    return (bwd(g, hs_f, wft, reverse=True, clip=clip),
+            bwd(g, hs_b, wbt, reverse=False, clip=clip))
 
 
 def _weight_grad(h_nb: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -412,19 +533,21 @@ class BiRecurrence(torch.autograd.Function):
     sweeps; the backward rounds g to the io dtype, runs the delta sweeps
     (right to left for the forward direction, left to right for the
     reversed one), forms dz = d_f + d_b in f32 and dwf = h_prev^T d_f,
-    dwb = h_next^T d_b with a zero state at the edge."""
+    dwb = h_next^T d_b with a zero state at the edge.  On a card the two
+    directions' sweeps are one launch where :func:`bi_grid` engages."""
 
     @staticmethod
     def forward(ctx, z, wf, wb, lengths, clip, cdt, io, bidirectional,
                 plain):
-        fwd = fwd_recurrence_plain if plain else fwd_recurrence
         z_io = z.to(io)
-        hs_f = fwd(z_io, wf.to(cdt), lengths, reverse=False, clip=clip)
-        out = hs_f.to(torch.float32)
-        hs_b = None
         if bidirectional:
-            hs_b = fwd(z_io, wb.to(cdt), lengths, reverse=True, clip=clip)
-            out = out + hs_b.to(torch.float32)
+            hs_f, hs_b = fwd_bi_recurrence(z_io, wf.to(cdt), wb.to(cdt),
+                                           lengths, clip=clip, plain=plain)
+            out = hs_f.to(torch.float32) + hs_b.to(torch.float32)
+        else:
+            fwd = fwd_recurrence_plain if plain else fwd_recurrence
+            hs_f = fwd(z_io, wf.to(cdt), lengths, reverse=False, clip=clip)
+            hs_b, out = None, hs_f.to(torch.float32)
         ctx.save_for_backward(hs_f, hs_b, wf, wb)
         ctx.opts = (clip, cdt, io, bidirectional, plain)
         return out
@@ -433,14 +556,18 @@ class BiRecurrence(torch.autograd.Function):
     def backward(ctx, g):
         hs_f, hs_b, wf, wb = ctx.saved_tensors
         clip, cdt, io, bidirectional, plain = ctx.opts
-        bwd = bwd_recurrence_plain if plain else bwd_recurrence
         g_io = g.to(io)
         zeros = torch.zeros_like(hs_f[:1])
-        d_f = bwd(g_io, hs_f, wf.to(cdt).t(), reverse=True, clip=clip)
+        if bidirectional:
+            d_f, d_b = bwd_bi_recurrence(g_io, hs_f, hs_b, wf.to(cdt).t(),
+                                         wb.to(cdt).t(), clip=clip,
+                                         plain=plain)
+        else:
+            bwd = bwd_recurrence_plain if plain else bwd_recurrence
+            d_f = bwd(g_io, hs_f, wf.to(cdt).t(), reverse=True, clip=clip)
         dz = d_f.to(torch.float32)
         dwf = _weight_grad(torch.cat([zeros, hs_f[:-1]]), d_f)
         if bidirectional:
-            d_b = bwd(g_io, hs_b, wb.to(cdt).t(), reverse=False, clip=clip)
             dz = dz + d_b.to(torch.float32)
             dwb = _weight_grad(torch.cat([hs_b[1:], zeros]), d_b).to(wb.dtype)
         else:
