@@ -359,8 +359,10 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 def all_kernels():
-    from tpu_ctc_torch.ops import kernels
-    return kernels()
+    """The kernels of ``ops.kernels()``, without the mesh's collectives
+    (counted there too, but built from no source)."""
+    from tpu_ctc_torch.ops import _build, kernels
+    return [k for k in kernels() if isinstance(k, _build.CudaKernel)]
 
 
 @contextlib.contextmanager

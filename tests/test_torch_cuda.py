@@ -1380,6 +1380,7 @@ for i in [0, 2, 1, 3, 2, 0, 3, 1]:
                 zip(tensors_of(state), tensors_of(ref))))
     rec["losses"].append(float(got["loss"]))
 rec["train_launches"] = [n_graph, n_eager]
+rec["names"] = [k.name for k in kernels()]
 rec["widths"] = sorted(dict((k, s) for k, s, _ in key)["labels"][1]
                        for key in fn.graphs)
 ev = step.make_eval_step(cfg, mesh, dev)
@@ -1457,6 +1458,12 @@ def test_two_card_compiled_mesh_step_is_the_eager_step(dev, tmp_path, mesh):
         assert rec["widths"] == [32, 32, 64, 64], rec["widths"]
     assert recs[0]["losses"] == recs[1]["losses"]
     if mesh == "dp2":
+        # the collectives are counted as the kernels are: one gradient sum
+        # and three loss sums a step, eager and replayed alike
+        for rec in recs:
+            got = dict(zip(rec["names"], zip(*rec["train_launches"])))
+            assert got["nccl_grad_sum"] == (8, 8)
+            assert got["nccl_loss_sum"] == (24, 24)
         assert recs[1]["own_widths"] == [32, 32, 32, 32]
         assert recs[0]["own_widths"] == [32, 64, 32, 64]
 

@@ -195,6 +195,26 @@ def shift(x: torch.Tensor, mesh: Mesh, axis: str, forward: bool = True,
     return buf[src] if 0 <= src < n else torch.zeros_like(x)
 
 
+class Collective:
+    """A collective of the mesh step, counted beside the kernels in
+    ``ops.kernels()``: ``launches`` is the number of times it was called,
+    whatever the backend.  It is counted where it is called, on the host;
+    ``train.graphs`` notes a capture's count and adds it at every replay,
+    as it does for a kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+# the flat all-reduce of a step's gradients (``train.step``), one a step
+# under DP
+GRAD_SUM = Collective("nccl_grad_sum")
+# an all-reduce of :func:`all_reduce_sum`: one for each of the loss's sums
+# (its backward is the identity and calls none)
+LOSS_SUM = Collective("nccl_loss_sum")
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``'s ranks, differentiable as
     :class:`ReplicatedSum`."""
@@ -209,6 +229,7 @@ class ReplicatedSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.detach().clone()
+        LOSS_SUM.launches += 1
         dist.all_reduce(y, group=group)
         return y
 

@@ -55,8 +55,10 @@ scalars are allocated outside it, and the outputs are cloned before the
 call returns.
 
 Launch counts: a replay does not pass through the kernels' Python
-wrappers, so each graph records, per kernel, the launches its capture made
-(``ops._build.CudaKernel.launches``) and adds them at every replay; the
+wrappers, nor call the mesh's collectives from Python, so each graph
+records, per entry of ``ops.kernels()``, the launches its capture made
+(``ops._build.CudaKernel.launches``; a collective's
+``parallel.mesh.Collective.launches``) and adds them at every replay; the
 warm-up and the capture count as none.  N replays count what N eager steps
 count.
 

@@ -341,10 +341,12 @@ def _place_state(state: TrainState, specs, mesh: mesh_lib.Mesh) -> None:
 
 def _flat_all_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
     """Each gradient summed over ``group`` (None: all ranks): one
-    all-reduce of the flattened gradients."""
+    all-reduce of the flattened gradients, counted on
+    ``parallel.mesh.GRAD_SUM``."""
     if not grads:
         return []
     flat = torch.cat([g.reshape(-1) for g in grads])
+    mesh_lib.GRAD_SUM.launches += 1
     dist.all_reduce(flat, group=group)
     return [t.view_as(g) for t, g in
             zip(flat.split([g.numel() for g in grads]), grads)]

@@ -26,6 +26,15 @@ compiled train step's call, with ``step.scalars``, ``step.copy_in``,
 ``decode.call`` around ``decode.beam.make_beam_decoder``'s decode, with
 ``decode.h2d``, ``decode.forward`` and ``decode.search`` inside it.
 None sits inside a captured CUDA graph or a kernel's launch wrapper.
+
+Beside these, and recorded whether or not a profiler runs, the launch
+counters of ``ops.kernels()``: each kernel's launches, and the mesh
+step's collectives as counted objects of ``parallel.mesh``:
+``nccl_grad_sum`` (each flat all-reduce of the gradients, one a DP step)
+and ``nccl_loss_sum`` (each all-reduce of the loss's sums, three a DP
+step).  They are counted where the collective is called, a graph's
+replay adding what its capture called (``train.graphs``); they do no
+work on the device, and a one-rank step counts neither.
 """
 from __future__ import annotations
 
