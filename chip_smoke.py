@@ -30,9 +30,12 @@ against its plain PyTorch version on the same inputs:
      computed at that shape (held against B1's plain version and timed
      too: preset 2's B1); then both directions of B1 and of B2 in one
      launch each (``birnn_cuda.bi_grid``: preset 2's width fits twice on
-     the card) at that shape, bit-equal to one launch a direction, against
-     the plain loops of both directions, timed beside one direction and
-     twice it (records ``birnn_fwd_bi``, ``birnn_bwd_bi``);
+     the card at 16 columns of W a block) at that shape, and at presets 3
+     and 4's H = 1824 with B = 64 and B = 16 (32 columns a block), each
+     bit-equal to one launch a direction, against the plain loops of both
+     directions, timed beside one direction and twice it (records
+     ``birnn_fwd_bi``, ``birnn_bwd_bi``, and at B = 64 ``birnn_fwd_bi32``,
+     ``birnn_bwd_bi32``);
   6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
      at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
      bit-equal to the plain sweeps, with ``torch.nn.functional.ctc_loss``
@@ -273,8 +276,9 @@ B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
 # The walk replaces the reference's jax.lax.scan, not a Pallas kernel.
 WALK_REPLACES = "tpu_ctc/ops/beam_pallas.py:1191"
-KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_fwd_bi", "birnn_bwd",
-                "birnn_bwd_wide", "birnn_bwd_bi", "ctc_alpha", "ctc_beta",
+KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_fwd_bi",
+                "birnn_fwd_bi32", "birnn_bwd", "birnn_bwd_wide",
+                "birnn_bwd_bi", "birnn_bwd_bi32", "ctc_alpha", "ctc_beta",
                 "beam_search", "beam_search_wide", "beam_reconstruct"]
 # f32 products on the FP32 pipe: the data sheet's 67 TFLOP/s counts an FMA
 # as two operations, as a product's 2 M N K does.
@@ -495,6 +499,27 @@ def run_main_path(run):
     return out, {k.name: k.launches for k in all_kernels()}
 
 
+def b1_launches(cfg, batches, dev="cuda"):
+    """{kernel name: launches} of B1 in one forward pass over each batch:
+    per layer one fused launch where ``bi_grid`` engages at the batch's
+    rows (``birnn_fwd_bi`` at 16 columns a block, ``birnn_fwd_bi32`` at
+    32), else one ``birnn_fwd`` a direction."""
+    from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.ops import birnn_cuda
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = {0: birnn_cuda.KERNEL.name, 16: birnn_cuda.FWD_BI_KERNEL.name,
+             32: birnn_cuda.FWD_BI32_KERNEL.name}
+    out = {}
+    for b in batches:
+        _, cols = birnn_cuda.bi_grid(
+            b.feats.shape[0], cfg.model.hidden_dim, birnn._io_dtype(cfg.model),
+            n_sm, bidirectional=cfg.model.bidirectional)
+        n = cfg.model.num_bi_layers * (
+            2 if cfg.model.bidirectional and not cols else 1)
+        out[names[cols]] = out.get(names[cols], 0) + n
+    return out
+
+
 def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda",
                 phase="phase 2"):
     """B1 against its plain loop: H = 1824, B = 64, T = 800, bf16."""
@@ -692,7 +717,7 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
     from tpu_ctc_torch.decode.lm import train_char_lm_from_data
     from tpu_ctc_torch.decode.wer import format_score_line, score_corpus
     from tpu_ctc_torch.models import birnn
-    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
+    from tpu_ctc_torch.ops import beam_cuda
     from tpu_ctc_torch.train.loop import batch_to_device_dict
 
     cfg = get_config("swbd_beam_decode", **overrides)
@@ -720,10 +745,11 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
     launches = {k: n for k, n in launches.items() if n}
     log(f"phase 4: decoded in {wall:.3f} s = {n_frames / 100 / wall:.1f} "
         f"audio-s/s; launches on the path {launches}")
-    for kern in (birnn_cuda.KERNEL, beam_cuda.KERNEL, beam_cuda.RECONSTRUCT):
-        if not launches.get(kern.name):
-            raise AssertionError(f"kernel {kern.name} was not launched on "
-                                 f"the main path")
+    want = {**b1_launches(cfg, batches, dev),
+            beam_cuda.KERNEL.name: len(batches),
+            beam_cuda.RECONSTRUCT.name: len(batches)}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
 
     refs, hyps = {}, {}
     checked = agree = 0
@@ -877,16 +903,19 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
 
 def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
                    phase="phase 5"):
-    """B1 and B2 of both directions in one launch each (``bi_grid``) at
-    preset 2's shape: bit-equal to one launch a direction, within B1's and
-    B2's limits of the plain loops of both directions, and timed beside one
-    direction's launch and twice it; the bound is both directions'."""
+    """B1 and B2 of both directions in one launch each (``bi_grid``: 16
+    columns of W a block at preset 2's shape, 32 at presets 3 and 4's H =
+    1824): bit-equal to one launch a direction, within B1's and B2's limits
+    of the plain loops of both directions, and timed beside one direction's
+    launch and twice it; the bound is both directions'.  Records named by
+    the fused kernel (``birnn_fwd_bi``, ``birnn_fwd_bi32`` and B2's)."""
     from tpu_ctc_torch.ops import birnn_cuda
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = birnn_cuda.bi_grid(n_h, torch.bfloat16, n_sm)
+    grid, cols = birnn_cuda.bi_grid(n_b, n_h, torch.bfloat16, n_sm)
     if not grid:
-        raise AssertionError(f"H={n_h}: both directions do not fit the "
-                             f"{n_sm} SMs at once")
+        raise AssertionError(f"H={n_h}, B={n_b}: both directions do not fit "
+                             f"the {n_sm} SMs at once")
+    kern_f, kern_b = (birnn_cuda._BI[bwd, cols] for bwd in (False, True))
     r = np.random.RandomState(6)
     z = torch.from_numpy(3.0 * r.randn(n_t, n_b, n_h).astype(np.float32))
     w = torch.from_numpy((0.5 / np.sqrt(n_h))
@@ -920,14 +949,13 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
     def plain_bwd():
         return birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt, clip=20.0,
                                             plain=True)
-    n0 = (birnn_cuda.FWD_BI_KERNEL.launches,
-          birnn_cuda.BWD_BI_KERNEL.launches)
+    n0 = (kern_f.launches, kern_b.launches)
     hs = fused_fwd()
     d = fused_bwd()
     torch.cuda.synchronize()
-    if (birnn_cuda.FWD_BI_KERNEL.launches - n0[0],
-            birnn_cuda.BWD_BI_KERNEL.launches - n0[1]) != (1, 1):
-        raise AssertionError("the fused B1/B2 did not launch once each")
+    if (kern_f.launches - n0[0], kern_b.launches - n0[1]) != (1, 1):
+        raise AssertionError(f"the fused B1/B2 ({kern_f.name}, "
+                             f"{kern_b.name}) did not launch once each")
     single = [birnn_cuda.fwd_recurrence_cuda(z, wd, lens, reverse=rev,
                                              clip=20.0)
               for wd, rev in ((wf, False), (wb, True))]
@@ -946,7 +974,8 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
                                  f"version ({bad} beyond tolerance)")
         errs[what] = max(errs.get(what, 0.0), float(diff.max()))
     log(f"{phase}: B1, B2 both directions in one launch of {grid} blocks "
-        f"(H={n_h} B={n_b} T={n_t}): bit-equal to one launch a direction "
+        f"of {cols} columns (H={n_h} B={n_b} T={n_t}): bit-equal to one "
+        f"launch a direction "
         f"(hs_f, hs_b, d_f, d_b) {same}; max abs err against the plain "
         f"loops B1 {errs['B1']:.3e}, B2 {errs['B2']:.3e}")
     if not all(same):
@@ -955,11 +984,11 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
     records = []
     active = [(h.float() > 0) & (h.float() < 20.0) for h in hs]
     for name, what, fused, one, plain_fn, bounds, replaces in (
-            ("birnn_fwd_bi", "B1", fused_fwd, one_fwd, plain_fwd,
+            (kern_f.name, "B1", fused_fwd, one_fwd, plain_fwd,
              [sweep_bound(hs[0], lens, n_h, 2, BF16_TENSOR_OPS),
               sweep_bound(hs[1], lens, n_h, 2, BF16_TENSOR_OPS, flip=True)],
              B1_REPLACES),
-            ("birnn_bwd_bi", "B2", fused_bwd, one_bwd, plain_bwd,
+            (kern_b.name, "B2", fused_bwd, one_bwd, plain_bwd,
              [sweep_bound(hs[0], lens, n_h, 2, BF16_TENSOR_OPS,
                           bwd_active=active[0], d=d[0]),
               sweep_bound(hs[1], lens, n_h, 2, BF16_TENSOR_OPS,
@@ -970,7 +999,8 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
         plain_ms = time_ms(plain_fn, PLAIN_REPS)
         b_ms = sum(b[0] for b in bounds)
         b_by = "+".join(sorted({b[1] for b in bounds}))
-        log(f"{phase}: {what} both directions in one launch {ms:.3f} ms "
+        log(f"{phase}: {what} both directions in one launch at H={n_h} "
+            f"B={n_b} ({cols} columns a block) {ms:.3f} ms "
             f"({ms * 1e3 / n_t:.2f} us a step), one direction {one_ms:.3f} "
             f"ms, twice it {2 * one_ms:.3f} ms (fused / one direction "
             f"{ms / one_ms:.3f}), plain loops of both {plain_ms:.3f} ms, "
@@ -1122,7 +1152,6 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
     from tpu_ctc_torch.data.synthetic import SyntheticCorpus
     from tpu_ctc_torch.losses import ctc
     from tpu_ctc_torch.models import birnn
-    from tpu_ctc_torch.ops import birnn_cuda
     from tpu_ctc_torch.parallel.mesh import make_mesh
     from tpu_ctc_torch.train import graphs, step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
@@ -1189,16 +1218,12 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
     if not same:
         raise AssertionError("the compiled train step differs from the "
                              "eager train_step")
-    n_bi = cfg.model.num_bi_layers
-    # both directions of a layer in one launch where they fit at once
-    fused = bool(birnn_cuda.bi_grid(
-        cfg.model.hidden_dim, birnn._io_dtype(cfg.model),
-        torch.cuda.get_device_properties(dev).multi_processor_count))
-    one, two = (0, n_bi * steps) if fused else (2 * n_bi * steps, 0)
-    want_n = {"birnn_fwd": one, "birnn_bwd": one, "birnn_fwd_wide": 0,
-              "birnn_bwd_wide": 0, "birnn_fwd_bi": two, "birnn_bwd_bi": two,
-              "ctc_alpha": steps, "ctc_beta": steps, "beam_search": 0,
-              "beam_search_wide": 0, "beam_reconstruct": 0}
+    # B1 as b1_launches says (both directions of a layer in one launch
+    # where they fit at once), B2 the same
+    want_n = {k: 0 for k in launches}
+    for k, n in b1_launches(cfg, batches[:1], dev).items():
+        want_n[k] = want_n[k.replace("fwd", "bwd")] = n * steps
+    want_n.update(ctc_alpha=steps, ctc_beta=steps)
     for name, n in launches.items():
         if want_n[name] and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1681,7 +1706,7 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
     from tpu_ctc_torch.decode import beam, neural_lm
     from tpu_ctc_torch.decode.lm import label_seqs_of
     from tpu_ctc_torch.models import birnn
-    from tpu_ctc_torch.ops import beam_cuda, birnn_cuda
+    from tpu_ctc_torch.ops import beam_cuda
 
     cfg, data, lm, model, batches, n_frames = gru_decode_setup(
         seed, n_utts, dev, **overrides)
@@ -1714,8 +1739,7 @@ def phase_gru_decode(seed: int, n_utts=64, dev="cuda", **overrides):
         rates[k] = n_frames / 100 / wall
         log(f"phase 10: K={k} decoded {n_frames} frames in {wall:.3f} s = "
             f"{rates[k]:.1f} audio-s/s; launches on the path {launches}")
-        want = {birnn_cuda.KERNEL.name: 2 * cfg.model.num_bi_layers
-                * len(batches), kern.name: len(batches),
+        want = {**b1_launches(cfg, batches, dev), kern.name: len(batches),
                 beam_cuda.RECONSTRUCT.name: len(batches)}
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
@@ -2459,6 +2483,7 @@ def phase_mesh_one(steps=3, dev="cuda"):
     deterministic mode: the CTC glue's gather sums its gradient in a fixed
     order)."""
     import torch.distributed as dist
+    from tpu_ctc_torch.ops import birnn_cuda
     from tpu_ctc_torch.parallel import distributed, mesh as mesh_lib
     from tpu_ctc_torch.train import graphs, step
     from tpu_ctc_torch.train.loop import batch_to_device_dict
@@ -2510,8 +2535,13 @@ def phase_mesh_one(steps=3, dev="cuda"):
         if not same:
             raise AssertionError("the one-rank mesh step differs from "
                                  "train_step")
-        if launches["birnn_fwd"] != 10 * steps:
-            raise AssertionError(f"launches {launches}")
+        # B2 launches as B1 does, each fused where B1 is
+        want = {name: n for k, n in b1_launches(cfg, batches, dev).items()
+                for name in (k, k.replace("fwd", "bwd"))}
+        sweeps = birnn_cuda.direction_sweeps(launches)
+        if (sweeps != {"birnn_fwd": 10 * steps, "birnn_bwd": 10 * steps}
+                or any(launches[k] != n for k, n in want.items())):
+            raise AssertionError(f"launches {launches}, expected {want}")
         captured_all_reduce(state, dev)
     finally:
         dist.destroy_process_group()
@@ -3583,6 +3613,7 @@ def phase_collective_decode(world=2, dev="cuda"):
     from tpu_ctc_torch.config import get_config
     from tpu_ctc_torch.decode.beam import make_beam_search
     from tpu_ctc_torch.models import birnn
+    from tpu_ctc_torch.ops import birnn_cuda
     cfg = get_config("swbd_beam_decode")
     model, lm, bd, max_len = preset4_decode_inputs(cfg, dev)
     feats, mask, lens = (torch.as_tensor(bd[k], device=dev) for k in (
@@ -3623,7 +3654,8 @@ def phase_collective_decode(world=2, dev="cuda"):
     if not same or (lp_equal and agree != len(hyps)):
         raise AssertionError("the collective decode disagrees with one "
                              "card's")
-    if not launches["beam_search"] or not launches["birnn_fwd"]:
+    if (not launches["beam_search"]
+            or not birnn_cuda.direction_sweeps(launches)["birnn_fwd"]):
         raise AssertionError("the collective decode launched no B1 or B5")
     return launches
 
@@ -3815,7 +3847,8 @@ def phase_chain(timeout=600):
     by = res["launches_by_stage"]
     trained = {k: sum(by[s].get(k, 0) for s in by if s.startswith("train"))
                for k in ("birnn_fwd", "birnn_bwd", "birnn_fwd_bi",
-                         "birnn_bwd_bi", "ctc_alpha", "ctc_beta")}
+                         "birnn_bwd_bi", "birnn_fwd_bi32", "birnn_bwd_bi32",
+                         "ctc_alpha", "ctc_beta")}
     trained = {**birnn_cuda.direction_sweeps(trained),
                "ctc_alpha": trained["ctc_alpha"],
                "ctc_beta": trained["ctc_beta"]}
@@ -3895,7 +3928,9 @@ def main() -> int:
     decode_launches, phase4 = phase_end_to_end(seed=0)
     took("phase 4")
     records += [phase_birnn_bwd(REPS), *phase_birnn_bi(REPS),
-                *phase_ctc(REPS)]
+                *phase_birnn_bi(REPS, n_b=64, n_h=1824)]
+    phase_birnn_bi(REPS, n_b=16, n_h=1824)    # a rank's rows under DP4
+    records += phase_ctc(REPS)
     took("phases 5-6")
     train_launches, phase7 = phase_train(seed=0)
     took("phase 7")

@@ -489,57 +489,82 @@ class TestKernelGuards:
         with pytest.raises(NotImplementedError, match="over the 60 SMs"):
             birnn_cuda.check_supported(64, 4096, torch.bfloat16, n_sm=60)
 
-    @pytest.mark.parametrize("h,dtype,bidirectional,n_sm,grid", [
-        (1024, torch.bfloat16, True, 132, 128),
-        (1056, torch.bfloat16, True, 132, 132),
-        (100, torch.bfloat16, True, 132, 14),
-        (1057, torch.bfloat16, True, 132, 0),
-        (1824, torch.bfloat16, True, 132, 0),
-        (1024, torch.float32, True, 132, 0),
-        (2560, torch.bfloat16, True, 132, 0),
-        (4096, torch.bfloat16, True, 132, 0),
-        (1024, torch.bfloat16, False, 132, 0),
-        (1024, torch.bfloat16, True, 100, 0),
-        (784, torch.bfloat16, True, 100, 98)])
-    def test_both_directions_in_one_launch(self, h, dtype, bidirectional,
-                                           n_sm, grid):
-        """``bi_grid``: one launch of 2 grid_size(H) blocks sweeps both
-        directions where the layer is bidirectional, bf16, narrow and both
-        halves fit one block a SM (H <= 1056 on 132 SMs); else 0 (f32, the
-        wide instance at 2560 and 4096, one direction, too few SMs)."""
-        assert birnn_cuda.bi_grid(h, dtype, n_sm,
-                                  bidirectional=bidirectional) == grid
-        if grid:
+    @pytest.mark.parametrize("b,h,dtype,bidirectional,n_sm,grid,cols", [
+        (32, 1024, torch.bfloat16, True, 132, 128, 16),
+        (32, 1056, torch.bfloat16, True, 132, 132, 16),
+        (32, 100, torch.bfloat16, True, 132, 14, 16),
+        (32, 1057, torch.bfloat16, True, 132, 68, 32),
+        (64, 1824, torch.bfloat16, True, 132, 114, 32),
+        (16, 1824, torch.bfloat16, True, 132, 114, 32),
+        (80, 1824, torch.bfloat16, True, 132, 0, 0),
+        (64, 1824, torch.bfloat16, True, 100, 0, 0),
+        (64, 1104, torch.bfloat16, True, 132, 70, 32),
+        (64, 2080, torch.bfloat16, True, 132, 130, 32),
+        (64, 2081, torch.bfloat16, True, 132, 0, 0),
+        (32, 1024, torch.float32, True, 132, 0, 0),
+        (64, 1824, torch.float32, True, 132, 0, 0),
+        (32, 2560, torch.bfloat16, True, 132, 0, 0),
+        (16, 4096, torch.bfloat16, True, 132, 0, 0),
+        (32, 1024, torch.bfloat16, False, 132, 0, 0),
+        (64, 1824, torch.bfloat16, False, 132, 0, 0),
+        (32, 1024, torch.bfloat16, True, 100, 64, 32),
+        (32, 784, torch.bfloat16, True, 100, 98, 16)])
+    def test_both_directions_in_one_launch(self, b, h, dtype, bidirectional,
+                                           n_sm, grid, cols):
+        """``bi_grid``: one launch sweeps both directions of a bidirectional
+        bf16 layer, 2 grid_size(H) blocks of 16 columns where both halves
+        fit one block a SM in the narrow instance (H <= 1056 on 132 SMs),
+        else 2 ceil(H / 32) blocks of 32 columns where B <= 64 and they fit
+        with a block's shared memory (H <= 2080 on 132 SMs; 1104: a last
+        block of 16 live columns); else (0, 0): B = 80, f32, the wide
+        instance at 2560 and 4096, one direction, too few SMs."""
+        assert birnn_cuda.bi_grid(b, h, dtype, n_sm,
+                                  bidirectional=bidirectional) == (grid, cols)
+        if cols == 16:
             assert grid == 2 * birnn_cuda.grid_size(h) <= n_sm
             assert birnn_cuda.instance(h, dtype, n_sm) == "narrow"
+        elif cols == 32:
+            assert 2 * birnn_cuda.grid_size(h) > n_sm
+            assert grid == 2 * -(-h // 32) <= n_sm and b <= 64
+            assert birnn_cuda.smem_bytes(h, dtype, 32) <= 232448
 
-    @pytest.mark.parametrize("name,fused", [
-        ("timit_subset_1layer", False), ("timit_full_3layer", True),
-        ("swbd_5layer_dp", False), ("swbd_beam_decode", False),
-        ("swbd_wide_tp", False)])
-    def test_which_presets_sweep_both_directions_at_once(self, name, fused):
-        """Preset 2 (bf16, H = 1024) takes the one launch on an H100 SXM;
-        preset 1 (f32), presets 3 and 4 (H = 1824: 2 x 114 blocks) and
-        preset 5 (the wide instance) launch a direction at a time."""
-        cfg = get_config(name).model
-        assert bool(birnn_cuda.bi_grid(
-            cfg.hidden_dim, getattr(torch, cfg.compute_dtype),
-            bidirectional=cfg.bidirectional)) == fused
+    @pytest.mark.parametrize("name,cols", [
+        ("timit_subset_1layer", 0), ("timit_full_3layer", 16),
+        ("swbd_5layer_dp", 32), ("swbd_beam_decode", 32),
+        ("swbd_wide_tp", 0)])
+    def test_which_presets_sweep_both_directions_at_once(self, name, cols):
+        """At the preset's batch on an H100 SXM, preset 2 (bf16, H = 1024)
+        takes the one launch at 16 columns a block; presets 3 and 4 (H =
+        1824, B = 64, and 16 a card under DP4: 2 x 114 blocks of 16 do not
+        fit) at 32; preset 1 (f32) and preset 5 (the wide instance) launch a
+        direction at a time."""
+        cfg = get_config(name)
+        for n_b in {cfg.data.batch_size, max(1, cfg.data.batch_size // 4)}:
+            assert birnn_cuda.bi_grid(
+                n_b, cfg.model.hidden_dim,
+                getattr(torch, cfg.model.compute_dtype),
+                bidirectional=cfg.model.bidirectional)[1] == cols
 
     def test_fused_kernels_share_b1_s_library(self):
-        """The fused launches are counted on kernels of their own, listed
-        by ``ops.kernels()`` and built from B1's source; a fused launch
-        counts as two direction sweeps."""
+        """The fused launches (16 and 32 columns a block) are counted on
+        kernels of their own, listed by ``ops.kernels()`` and built from
+        B1's source; a fused launch counts as two direction sweeps."""
         from tpu_ctc_torch.ops import kernels
         by_name = {k.name: k for k in kernels()}
         assert by_name["birnn_fwd_bi"] is birnn_cuda.FWD_BI_KERNEL
         assert by_name["birnn_bwd_bi"] is birnn_cuda.BWD_BI_KERNEL
-        for name in ("birnn_fwd_bi", "birnn_bwd_bi"):
+        assert by_name["birnn_fwd_bi32"] is birnn_cuda.FWD_BI32_KERNEL
+        assert by_name["birnn_bwd_bi32"] is birnn_cuda.BWD_BI32_KERNEL
+        for name in ("birnn_fwd_bi", "birnn_bwd_bi", "birnn_fwd_bi32",
+                     "birnn_bwd_bi32"):
             assert by_name[name].library == birnn_cuda.KERNEL.library
             assert by_name[name].source == birnn_cuda.KERNEL.source
         assert birnn_cuda.direction_sweeps(
             {"birnn_fwd": 3, "birnn_fwd_bi": 6, "birnn_bwd_bi": 6,
              "ctc_beta": 6}) == {"birnn_fwd": 15, "birnn_bwd": 12}
+        assert birnn_cuda.direction_sweeps(
+            {"birnn_fwd": 1, "birnn_fwd_bi32": 5, "birnn_bwd_bi32": 5,
+             "birnn_bwd_bi": 2}) == {"birnn_fwd": 11, "birnn_bwd": 14}
 
     def test_cpu_tensors_sweep_both_directions_in_the_plain_loops(self):
         """``fwd_bi_recurrence`` and ``bwd_bi_recurrence`` on CPU tensors
@@ -549,6 +574,8 @@ class TestKernelGuards:
         g = z.flip(0)
         before = (birnn_cuda.FWD_BI_KERNEL.launches,
                   birnn_cuda.BWD_BI_KERNEL.launches,
+                  birnn_cuda.FWD_BI32_KERNEL.launches,
+                  birnn_cuda.BWD_BI32_KERNEL.launches,
                   birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches)
         hs_f, hs_b = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
         assert torch.equal(hs_f, birnn_cuda.fwd_recurrence_plain(
@@ -563,5 +590,7 @@ class TestKernelGuards:
             g, hs_b, wb.t(), reverse=False, clip=20.0))
         assert (birnn_cuda.FWD_BI_KERNEL.launches,
                 birnn_cuda.BWD_BI_KERNEL.launches,
+                birnn_cuda.FWD_BI32_KERNEL.launches,
+                birnn_cuda.BWD_BI32_KERNEL.launches,
                 birnn_cuda.KERNEL.launches,
                 birnn_cuda.BWD_KERNEL.launches) == before

@@ -17,8 +17,9 @@ the best slot's backpointers equals the plain walk to the bit.  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
 bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal; both
-directions of a layer in one launch (``birnn_cuda.bi_grid``) are bit-equal
-to one launch a direction, also through ``BiRecurrence`` and replayed in a
+directions of a layer in one launch (``birnn_cuda.bi_grid``, 16 or 32
+columns of W a block) are bit-equal to one launch a direction, also
+through ``BiRecurrence`` and replayed in a
 CUDA graph, and launch counts read direction sweeps (a fused launch sweeps
 two).  Kernels
 B3 and B4 do the plain sweeps' float steps in the same order with
@@ -83,7 +84,11 @@ def _recurrence_inputs(seed, t, b, h):
 
 def _fwd_sweeps():
     """B1's narrow direction sweeps so far: a fused launch sweeps two."""
-    return birnn_cuda.KERNEL.launches + 2 * birnn_cuda.FWD_BI_KERNEL.launches
+    return birnn_cuda.direction_sweeps(
+        {k.name: k.launches for k in (birnn_cuda.KERNEL,
+                                      birnn_cuda.FWD_BI_KERNEL,
+                                      birnn_cuda.FWD_BI32_KERNEL)}
+    )["birnn_fwd"]
 
 
 def _launch_twice(kernel, launch):
@@ -293,15 +298,33 @@ def test_bi_recurrence_grad_kernel_matches_plain(dev):
 def _bi_counts():
     return (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
             birnn_cuda.FWD_BI_KERNEL.launches,
-            birnn_cuda.BWD_BI_KERNEL.launches)
+            birnn_cuda.BWD_BI_KERNEL.launches,
+            birnn_cuda.FWD_BI32_KERNEL.launches,
+            birnn_cuda.BWD_BI32_KERNEL.launches)
+
+
+def _bi_cols(dev, b, h):
+    """Columns of W a block of the fused launch at this shape on this card
+    (``bi_grid``): 16 or 32; skips where the directions do not fit at
+    once."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid, cols = birnn_cuda.bi_grid(b, h, torch.bfloat16, n_sm)
+    if not grid:
+        pytest.skip(f"H={h}, B={b}: both directions do not fit this card "
+                    "at once")
+    return cols
+
+
+def _fused_counts(cols, n):
+    """_bi_counts' change after n fused launches of B1 and of B2 at cols
+    columns a block."""
+    return [0, 0, n, n, 0, 0] if cols == 16 else [0, 0, 0, 0, n, n]
 
 
 def _bi_inputs(dev, t, b, h):
     """z, wf, wb (bf16) and ragged lengths: the first row full, the second
     one frame long, the last 0 (where there are three rows or more)."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if not birnn_cuda.bi_grid(h, torch.bfloat16, n_sm):
-        pytest.skip(f"H={h}: both directions do not fit this card at once")
+    _bi_cols(dev, b, h)
     z, wf, lens = _recurrence_inputs(t + b + h, t, b, h)
     wb = _recurrence_inputs(t + b + h + 1, t, b, h)[1]
     if b > 2:
@@ -310,13 +333,20 @@ def _bi_inputs(dev, t, b, h):
             wb.to(dev, torch.bfloat16), lens.to(dev))
 
 
-# the train cell's shape (preset 2: T = 800, B = 32, H = 1024) and an odd one
-@pytest.mark.parametrize("t,b,h", [(800, 32, 1024), (37, 5, 100)])
+# the train cell's shape (preset 2: T = 800, B = 32, H = 1024), an odd one;
+# at 32 columns a block presets 3 and 4 (H = 1824, B = 64 on one card, 16 a
+# card under DP4) and a width of 69 16-column tiles, whose last block of
+# 32 holds 16 live columns (H = 1104, over 2 x 66 blocks of 16 on 132 SMs)
+@pytest.mark.parametrize("t,b,h", [(800, 32, 1024), (37, 5, 100),
+                                   (800, 64, 1824), (800, 16, 1824),
+                                   (301, 37, 1104)])
 def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
-    """B1 and B2 of both directions in one launch (``bi_grid``) are
-    torch.equal to one launch a direction; a fused launch counts once on
-    its own kernel and none on B1's or B2's, and two are bit-equal."""
+    """B1 and B2 of both directions in one launch (``bi_grid``: 16 or 32
+    columns a block) are torch.equal to one launch a direction; a fused
+    launch counts once on its own kernel and none on B1's or B2's, and two
+    are bit-equal."""
     z, wf, wb, lens = _bi_inputs(dev, t, b, h)
+    cols = _bi_cols(dev, b, h)
     g = torch.from_numpy(np.random.RandomState(h).randn(t, b, h).astype(
         np.float32)).to(dev, torch.bfloat16)
     c0 = _bi_counts()
@@ -325,7 +355,8 @@ def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
     d = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
     d_again = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
     torch.cuda.synchronize()
-    assert [y - x for x, y in zip(c0, _bi_counts())] == [0, 0, 2, 2]
+    assert [y - x for x, y in zip(c0, _bi_counts())] == _fused_counts(cols,
+                                                                       2)
     want_hs = [birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=rev,
                                               clip=20.0)
                for w, rev in ((wf, False), (wb, True))]
@@ -341,12 +372,15 @@ def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
     assert float(hs[0].float().abs().max()) > 0
 
 
-def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch):
-    """``BiRecurrence`` at preset 2's width in bf16: its output and its
-    three gradients bit-equal with both directions in one launch and with
-    the fused launch switched off (one launch a direction)."""
-    t, b, h = 60, 32, 1024
+@pytest.mark.parametrize("t,b,h", [(60, 32, 1024), (60, 64, 1824)])
+def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch, t, b,
+                                                     h):
+    """``BiRecurrence`` at preset 2's width (16 columns a block) and at
+    presets 3 and 4's (32) in bf16: its output and its three gradients (dz,
+    dwf, dwb) bit-equal with both directions in one launch and with the
+    fused launch switched off (one launch a direction)."""
     z, wf, wb, lens = _bi_inputs(dev, t, b, h)
+    cols = _bi_cols(dev, b, h)
     g = torch.from_numpy(np.random.RandomState(3).randn(t, b, h).astype(
         np.float32)).to(dev)
 
@@ -360,12 +394,40 @@ def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch):
         n = [y - x for x, y in zip(c0, _bi_counts())]
         return (out.detach(), zz.grad, wf_.grad, wb_.grad), n
     fused, n_fused = run()
-    monkeypatch.setattr(birnn_cuda, "bi_grid", lambda *a, **k: 0)
+    monkeypatch.setattr(birnn_cuda, "bi_grid", lambda *a, **k: (0, 0))
     unfused, n_unfused = run()
-    assert n_fused == [0, 0, 1, 1] and n_unfused == [2, 2, 0, 0]
+    assert n_fused == _fused_counts(cols, 1)
+    assert n_unfused == [2, 2, 0, 0, 0, 0]
     for got, want in zip(fused, unfused):
         assert torch.equal(got, want)
     assert float(fused[2].abs().max()) > 0 and float(fused[3].abs().max()) > 0
+
+
+def test_fused_launch_takes_at_most_64_rows_at_32_columns(dev):
+    """At H = 1824 a layer of 80 rows (over the 32-column instance's 64)
+    sweeps one direction a launch, as ``bi_grid`` says: two launches of B1
+    and two of B2, none fused, and the sweeps equal the plain loops'
+    within B1's and B2's limits."""
+    t, b, h = 20, 80, 1824
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert birnn_cuda.bi_grid(b, h, torch.bfloat16, n_sm) == (0, 0)
+    z, wf, lens = _recurrence_inputs(t + b + h, t, b, h)
+    wb = _recurrence_inputs(t + b + h + 1, t, b, h)[1]
+    z, wf, wb, lens = (z.to(dev, torch.bfloat16), wf.to(dev, torch.bfloat16),
+                       wb.to(dev, torch.bfloat16), lens.to(dev))
+    g = z.flip(0).contiguous()
+    c0 = _bi_counts()
+    hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+    d = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
+    torch.cuda.synchronize()
+    assert [y - x for x, y in zip(c0, _bi_counts())] == [2, 2, 0, 0, 0, 0]
+    want = (*birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0,
+                                          plain=True),
+            *birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0,
+                                          plain=True))
+    for got, ref in zip((*hs, *d), want):
+        got, ref = got.float(), ref.float()
+        assert torch.all((got - ref).abs() <= 2 ** -6 * ref.abs() + 2e-2)
 
 
 def _lattice(dev, seed, b, t, a, lmax, tl=None, ll=None):

@@ -19,7 +19,15 @@ only there, never in the package.  Then it
      phase's time from the step's start (ns): the wait for the previous step
      passed, the first ring stage landed, the k loop done, the block barrier
      passed, the warp's arrival at the grid barrier (warps that store the
-     new state only), the step's end.
+     new state only), the step's end;
+  3. both directions of a layer in one launch of 32 columns of W a block
+     (``birnn_fwd_bi32``, ``birnn_bwd_bi32``) at presets 3 and 4's width
+     (H = 1824, T = 800, B = 64 and a DP4 rank's 16) and, forced, at
+     preset 2's shape (where the package takes 16 columns): their times
+     beside one direction's launch and the ratio r of the two (a fused
+     step over one direction's), then item 2's phases of a fused B1 step
+     at H = 1824, B = 64, the first block sweeping direction 0 and the
+     last direction 1.
 
     python3 torch_tools/birnn_step_breakdown.py [--parent OLD_BIRNN_CU]
 
@@ -438,6 +446,86 @@ def sweep(kern, x, w, third, bwd):
     return birnn_cuda._sweep_cuda(kern, x, w, third, reverse=bwd, clip=20.0)
 
 
+# T, B, H of item 3: presets 3 and 4 (the first is stamped), then preset 2
+FUSED_SHAPES = [(800, 64, 1824), (800, 16, 1824), (800, 32, 1024)]
+
+
+def fused_sweep(lib_kern, x, ws, thirds, bwd):
+    """Both directions in one 32-column launch through the library of
+    ``lib_kern`` (a CudaKernel of :func:`build`), at any width that fits
+    (``bi_grid``'s choice of 16 columns overridden)."""
+    kern = _build.CudaKernel("birnn_bwd_bi32" if bwd else "birnn_fwd_bi32",
+                             source="birnn")
+    kern.library, kern._lib = lib_kern.library, lib_kern._lib
+    saved = birnn_cuda._BI[bwd, 32], birnn_cuda.bi_grid
+    birnn_cuda._BI[bwd, 32] = kern
+    birnn_cuda.bi_grid = lambda n_b, n_h, *a, **k: (2 * -(-n_h // 32), 32)
+    try:
+        out = birnn_cuda._bi_sweep_cuda(bwd, x, ws, thirds, clip=20.0)
+    finally:
+        birnn_cuda._BI[bwd, 32], birnn_cuda.bi_grid = saved
+    if out is None:
+        raise RuntimeError("the 32-column launch of both directions did not "
+                           "engage at this shape on this card")
+    return out
+
+
+def print_stamps(lib_kern, what: str, n_store: int) -> None:
+    """Item 2's table from the stamped library's last launch: for the
+    first and the last block, warps 0, 3, 4, 7, each phase's ns from the
+    step's start (median of steps 100-115); arrivals of the n_store warps
+    that store the new state only."""
+    buf = np.zeros(2048, dtype=np.uint64)
+    read = lib_kern.lib().read_stamps
+    read.argtypes = [ctypes.c_void_p]
+    if read(buf.ctypes.data) != 0:
+        raise RuntimeError("reading the stamps failed")
+    st = buf.reshape(2, 16, 8, 8).astype(np.int64)
+    print(f"{what}: ns from the step's start, median of steps 100-115 "
+          f"({', '.join(PHASES[1:])})")
+    for blk, label in ((0, "first"), (1, "last")):
+        for wp in (0, 3, 4, 7):
+            rel = np.median(st[blk, :, wp, :7] - st[blk, :, wp, :1], 0)
+            cells = [f"{int(x):7d}" if (i != 5 or wp < n_store) else
+                     "      -" for i, x in enumerate(rel)][1:]
+            print(f"  {label} block, warp {wp}: {' '.join(cells)}")
+        period = np.median(np.diff(st[blk, :, 0, 0]))
+        print(f"  {label} block: step period {int(period)} ns")
+
+
+def main_fused(kernels) -> None:
+    """Item 3: the 32-column launch of both directions at FUSED_SHAPES."""
+    fwd, bwd = kernels["this"]
+    for t, b, h in FUSED_SHAPES:
+        z, wf, lens, g = inputs(t, b, h)
+        wb = wf.flip(0).contiguous()
+        ws_t = (wf.t().contiguous(), wb.t().contiguous())
+        hs = fused_sweep(fwd, z, (wf, wb), (lens, lens), False)
+        ms = {"B1": chip_smoke.time_ms(lambda: fused_sweep(
+                  fwd, z, (wf, wb), (lens, lens), False), 7),
+              "B2": chip_smoke.time_ms(lambda: fused_sweep(
+                  fwd, g, ws_t, hs, True), 7)}
+        one = {"B1": chip_smoke.time_ms(
+                   lambda: sweep(fwd, z, wf, lens, False), 7),
+               "B2": chip_smoke.time_ms(
+                   lambda: sweep(bwd, g, ws_t[0], hs[0], True), 7)}
+        for k in ms:
+            print(f"H={h} B={b} T={t} both directions, 32 columns a block: "
+                  f"{k} {ms[k]:.3f} ms ({ms[k] * 1e3 / t:.2f} us a step); "
+                  f"one direction {one[k]:.3f} ms, twice it "
+                  f"{2 * one[k]:.3f} ms; r = {ms[k] / one[k]:.3f}",
+                  flush=True)
+    t, b, h = FUSED_SHAPES[0]
+    z, wf, lens, g = inputs(t, b, h)
+    wb = wf.flip(0).contiguous()
+    stamped, _ = kernels["stamped"]
+    fused_sweep(stamped, z, (wf, wb), (lens, lens), False)
+    torch.cuda.synchronize()
+    print_stamps(stamped, f"H={h} B={b} both directions, 32 columns a block "
+                 f"(first block direction 0, last direction 1)",
+                 2 * -(-b // 16))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a birnn.cu of another commit to time")
@@ -473,23 +561,8 @@ def main() -> int:
         fwd, _ = kernels["stamped"]
         sweep(fwd, z, w, lens, False)
         torch.cuda.synchronize()
-        buf = np.zeros(2048, dtype=np.uint64)
-        read = fwd.lib().read_stamps
-        read.argtypes = [ctypes.c_void_p]
-        if read(buf.ctypes.data) != 0:
-            raise RuntimeError("reading the stamps failed")
-        st = buf.reshape(2, 16, 8, 8).astype(np.int64)
-        print(f"H={h} B={b}: ns from the step's start, median of steps "
-              f"100-115 ({', '.join(PHASES[1:])})")
-        n_store = -(-b // 16)          # warps that store the new state
-        for blk, label in ((0, "first"), (1, "last")):
-            for wp in (0, 3, 4, 7):
-                rel = np.median(st[blk, :, wp, :7] - st[blk, :, wp, :1], 0)
-                cells = [f"{int(x):7d}" if (i != 5 or wp < n_store) else
-                         "      -" for i, x in enumerate(rel)][1:]
-                print(f"  {label} block, warp {wp}: {' '.join(cells)}")
-            period = np.median(np.diff(st[blk, :, 0, 0]))
-            print(f"  {label} block: step period {int(period)} ns")
+        print_stamps(fwd, f"H={h} B={b}", -(-b // 16))
+    main_fused(kernels)
     return 0
 
 

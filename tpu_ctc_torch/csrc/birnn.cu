@@ -54,8 +54,9 @@
 //   H to multiples of 16 with zeros, so every row of the exchange buffer is
 //   16-byte aligned (H = 100 too).  Each warp streams its own k-range of
 //   the previous value from L2 with cp.async.cg (L2 only: other SMs wrote
-//   it) through a private ring of kStages 4 KB stages, waiting with
-//   cp.async.wait_group and __syncwarp: no block barrier in the k loop.
+//   it) through a private ring of 4 KB stages (4; 3 at 32 columns a
+//   block, below), waiting with cp.async.wait_group and __syncwarp: no
+//   block barrier in the k loop.
 //   The ring's chunks are XOR-swizzled so ldmatrix reads them without bank
 //   conflicts.
 // - One block barrier a step.  Each warp writes its split-K partial into
@@ -90,10 +91,31 @@
 // fetch stays latency-bound as it is alone; the two grids share nothing on
 // the card but L2's bandwidth.  Two cooperative grids on two streams are not
 // guaranteed to be co-resident, so one launch holds both.  The direction
-// count is a template argument (mma_sweep_kernel<kBwd, kDirs>): with a
+// count is a template argument (mma_sweep_kernel<kBwd, kDirs, kN>): with a
 // runtime count the one-direction kernel kept its operands in registers
 // and ran 7-13% slower a step at H = 1024 and 1824; with kDirs = 1 it is
 // the one-direction kernel as it was.
+//
+// 32 columns a block (kN = 32; birnn_fwd_bi32_launch, birnn_bwd_bi32_launch)
+// for both directions where 2 x 16-column grids do not fit the card (H >
+// 1056 on 132 SMs; presets 3 and 4 at H = 1824: 2 x 57 blocks, the grid one
+// direction takes at 16).  A block keeps 32 columns of W and streams the
+// whole previous state through the same rings, so each block reads the
+// bytes it reads at 16 columns and the card reads them once for both
+// directions, while its mma work a step doubles.  Each warp keeps the same
+// k-range (kt0, kt1) and mma order per column, and the partials are summed
+// in warp order, so each direction stays bit-equal to its one-direction
+// launch.  A warp's accumulators stay at 64 floats, [4 m-tiles][4 n-tiles],
+// so B <= 64; W's 32 columns (117 KB at H = 1824) leave room for rings of
+// 3 stages, and a warp's [64, 32] f32 partial (8 KB) fits its 12 KB ring.
+// Where H_pad is an odd number of 16-column tiles, the last block of a
+// direction holds 16 live columns and stores none past H_pad.  On an H100
+// SXM (700 W) a fused step at H = 1824 takes 0.95-0.97x one direction's
+// 16-column step at B = 64 and 0.92-0.93x at B = 16: every block still
+// reads the whole state, but the first stage lands and the k loop ends
+// sooner (torch_tools/birnn_step_breakdown.py).  Why is not measured: the
+// 114 readers split over two state buffers instead of one, and all 8
+// warps share the epilogue.
 //
 // The f32 instances (f32_sweep_kernel: preset 1 and the f32 card tests)
 // keep exact f32 products on the FP32 pipe, with no TF32: they keep the
@@ -119,14 +141,25 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 128;          // batch rows a launch takes
 constexpr int kPad = 16;            // B and H are padded to multiples of it
-constexpr int kStages = 4;          // stages of a warp's cp.async ring
-constexpr int kStageBytes = 4096;
-constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kStageBytes = 4096;   // a stage of a warp's cp.async ring
 constexpr int kKc = 64;             // f32: k-chunk of the staged carry
 constexpr int kCountStride = 32;    // a fused launch's counters, 128 B apart
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// The bf16 narrow instance by its columns of W a block (kN, 16 or 32):
+// stages of a warp's ring, its bytes, and the batch rows a launch takes
+// (a warp's accumulators are 64 floats: [8][2][4] at 16, [4][4][4] at 32).
+__host__ __device__ constexpr int ring_stages(int cols) {
+  return cols == 16 ? 4 : 3;
+}
+__host__ __device__ constexpr int ring_bytes(int cols) {
+  return ring_stages(cols) * kStageBytes;
+}
+__host__ __device__ constexpr int max_rows(int cols) {
+  return cols == 16 ? kMaxB : 64;
 }
 
 // ---- the grid barrier: one counter, arrivals with release semantics ------
@@ -225,15 +258,16 @@ __device__ __forceinline__ void store8(bf16* p, const Pack8& v, int n,
     if (i < n) p[i] = v.h[i];
 }
 
-// kDirs directions (1 or 2), gridDim.x / kDirs blocks each.  x: z (B1) or
-// g (B2), shared by the directions; w0, w1: W (B1) or W^T (B2), [H, H], of
-// direction 0 and 1; lengths: B1 only; hs0, hs1: the stored forward
-// states, B2 only; out0, out1: h (B1) or d (B2); xbuf: a zeroed [2, B_pad,
-// H_pad] exchange buffer a direction, one after the other; count: a zeroed
-// counter a direction, kCountStride apart; reverse: direction 0's time
-// order (direction 1 sweeps the other way).  `vec`: H % 8 == 0 and x, hs0,
-// hs1, out0, out1 16-byte aligned, so their rows of 8 are single accesses.
-template <bool kBwd, int kDirs>
+// kDirs directions (1 or 2), gridDim.x / kDirs blocks each, kN (16 or
+// 32) columns of W a block.  x: z (B1) or g (B2), shared by the
+// directions; w0, w1: W (B1) or W^T (B2), [H, H], of direction 0 and 1;
+// lengths: B1 only; hs0, hs1: the stored forward states, B2 only; out0,
+// out1: h (B1) or d (B2); xbuf: a zeroed [2, B_pad, H_pad] exchange buffer
+// a direction, one after the other; count: a zeroed counter a direction,
+// kCountStride apart; reverse: direction 0's time order (direction 1
+// sweeps the other way).  `vec`: H % 8 == 0 and x, hs0, hs1, out0, out1
+// 16-byte aligned, so their rows of 8 are single accesses.
+template <bool kBwd, int kDirs, int kN>
 __global__ void __launch_bounds__(kThreads, 1)
 mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                  const bf16* __restrict__ w1, const int* __restrict__ lengths,
@@ -241,11 +275,14 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                  bf16* __restrict__ out0, bf16* __restrict__ out1,
                  bf16* xbuf0, unsigned int* count0, int n_t, int n_b,
                  int n_h, int reverse0, float clip, bool vec) {
+  constexpr int kStages = ring_stages(kN), kRing = ring_bytes(kN);
+  constexpr int kMt = max_rows(kN) / 16;  // m-tiles a warp accumulates
+  constexpr int kNt = kN / 8;             // n-tiles of mma, 8 columns each
   extern __shared__ __align__(128) unsigned char smem[];
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
   const int n_mt = b_pad / 16;          // m-tiles of the batch
   const int w_ld = h_pad + 8;           // a row of w_s, padded by 16 bytes
-  bf16* w_s = reinterpret_cast<bf16*>(smem + kWarps * kRingBytes);  // [16][w_ld]
+  bf16* w_s = reinterpret_cast<bf16*>(smem + kWarps * kRing);  // [kN][w_ld]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_blk = gridDim.x / kDirs;  // blocks of a direction
@@ -257,11 +294,11 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   bf16* xbuf = second ? xbuf0 + (size_t)2 * b_pad * h_pad : xbuf0;
   unsigned int* count = second ? count0 + kCountStride : count0;
   const int reverse = second ? !reverse0 : reverse0;
-  const int j0 = (second ? blk - n_blk : blk) * kCols;
+  const int j0 = (second ? blk - n_blk : blk) * kN;
 
-  // W's 16 columns, once: w_s[n][k] = w[k][j0 + n], zero past H
-  for (int i = tid; i < h_pad * kCols; i += kThreads) {
-    const int k = i / kCols, n = i % kCols;
+  // W's kN columns, once: w_s[n][k] = w[k][j0 + n], zero past H
+  for (int i = tid; i < h_pad * kN; i += kThreads) {
+    const int k = i / kN, n = i % kN;
     w_s[n * w_ld + k] = (k < n_h && j0 + n < n_h)
                             ? w[(size_t)k * n_h + j0 + n]
                             : __float2bfloat16(0.f);
@@ -276,7 +313,7 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   const int tile_bytes = b_pad * 32;
   const int tps = max(1, kStageBytes / tile_bytes);
   const int n_st = (kt1 - kt0 + tps - 1) / tps;
-  unsigned char* ring = smem + warp * kRingBytes;
+  unsigned char* ring = smem + warp * kRing;
   const uint32_t ring_sa = smem_u32(ring);
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const uint32_t a_off =
@@ -285,14 +322,18 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       smem_u32(w_s) +
       ((((lane >> 4) & 1) * 8 + (lane & 7)) * w_ld + ((lane >> 3) & 1) * 8) * 2;
 
-  // The epilogue: thread tid < 2 b_pad owns row eb, columns j0 + c0 .. + 7.
-  // Those threads fill warps 0 .. n_mt - 1, which arrive at the barrier.
-  const bool epi = tid < 2 * b_pad;
-  const int eb = tid >> 1, c0 = (tid & 1) * 8;
+  // The epilogue: thread tid < (kN / 8) b_pad owns row eb, columns
+  // j0 + c0 .. + 7.  Those threads fill warps 0 .. n_mt kN / 16 - 1, which
+  // arrive at the barrier.
+  const bool epi = tid < kNt * b_pad;
+  const int eb = tid >> (kNt / 2), c0 = (tid & (kNt - 1)) * 8;
   const bool row_live = epi && eb < n_b;
   const int n_val = min(max(n_h - (j0 + c0), 0), 8);
+  // a block's columns past H_pad (the last block at 32) hold no state
+  const bool col_in = kN == 16 || j0 + c0 < h_pad;
   const int len_b = (!kBwd && row_live) ? lengths[eb] : 0;
-  const unsigned int per_step = n_blk * (unsigned int)n_mt;  // a direction's
+  const unsigned int per_step =  // a direction's arrivals a step
+      n_blk * (unsigned int)n_mt * (kN / 16);
   Pack8 xv, hv;  // the frame's x (and h, B2) values, loaded a step ahead
   xv.u = hv.u = make_uint4(0, 0, 0, 0);
   if (row_live) {
@@ -323,11 +364,11 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       }
     };
 
-    float acc[kMaxB / 16][2][4];
+    float acc[kMt][kNt][4];
 #pragma unroll
-    for (int mt = 0; mt < kMaxB / 16; ++mt)
+    for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
@@ -345,15 +386,20 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       const int n_in = min(tps, kt1 - k_first);
       const uint32_t slot = ring_sa + (st % kStages) * kStageBytes + a_off;
       for (int kk = 0; kk < n_in; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4(b, w_sa + (k_first + kk) * 32);
+        uint32_t b[kN / 16][4];  // 16 columns of W a load: two n-tiles
 #pragma unroll
-        for (int mt = 0; mt < kMaxB / 16; ++mt) {
+        for (int q = 0; q < kN / 16; ++q)
+          ldmatrix_x4(b[q], w_sa + q * 16 * w_ld * 2 + (k_first + kk) * 32);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
           if (mt < n_mt) {
             uint32_t a[4];
             ldmatrix_x4(a, slot + kk * tile_bytes + mt * 512);
-            mma_bf16(acc[mt][0], a, b[0], b[1]);
-            mma_bf16(acc[mt][1], a, b[2], b[3]);
+#pragma unroll
+            for (int q = 0; q < kN / 16; ++q) {
+              mma_bf16(acc[mt][2 * q], a, b[q][0], b[q][1]);
+              mma_bf16(acc[mt][2 * q + 1], a, b[q][2], b[q][3]);
+            }
           }
         }
       }
@@ -361,17 +407,17 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     cp_async_wait<0>();
     __syncwarp();  // every lane is done with the ring
 
-    // this warp's partial, [b_pad][16] f32, into its own ring
+    // this warp's partial, [b_pad][kN] f32, into its own ring
     float* part = reinterpret_cast<float*>(ring);
 #pragma unroll
-    for (int mt = 0; mt < kMaxB / 16; ++mt) {
+    for (int mt = 0; mt < kMt; ++mt) {
       if (mt < n_mt) {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
+        for (int nt = 0; nt < kNt; ++nt) {
           const int r = mt * 16 + (lane >> 2), c = nt * 8 + (lane & 3) * 2;
-          *reinterpret_cast<float2*>(part + r * 16 + c) =
+          *reinterpret_cast<float2*>(part + r * kN + c) =
               make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-          *reinterpret_cast<float2*>(part + (r + 8) * 16 + c) =
+          *reinterpret_cast<float2*>(part + (r + 8) * kN + c) =
               make_float2(acc[mt][nt][2], acc[mt][nt][3]);
         }
       }
@@ -385,7 +431,7 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 #pragma unroll
       for (int wi = 0; wi < kWarps; ++wi) {  // fixed order: bit-equal launches
         const float4* p = reinterpret_cast<const float4*>(
-            smem + wi * kRingBytes + (eb * 16 + c0) * 4);
+            smem + wi * kRing + (eb * kN + c0) * 4);
         const float4 lo = p[0], hi = p[1];
         v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
         v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
@@ -406,7 +452,7 @@ mma_sweep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
         }
         o.h[i] = __float2bfloat16(r);  // round to nearest even, as XLA
       }
-      if (eb < n_b)  // rows past B stay zero
+      if (eb < n_b && col_in)  // rows past B stay zero
         __stcg(reinterpret_cast<uint4*>(dst + (size_t)eb * h_pad + j0 + c0), o.u);
       __syncwarp();  // the lanes' stores come before lane 0's release
       if (lane == 0) arrive(count);
@@ -1064,10 +1110,10 @@ int f32_wide_rows(int n_b, int own) {
   return r <= 1 ? 1 : r <= 2 ? 2 : r <= 4 ? 4 : 8;
 }
 
-// Shared memory a block of each kernel takes.
-size_t smem_bf16(int n_h) {
-  return (size_t)kWarps * kRingBytes +
-         (size_t)kCols * (round_up(n_h, kPad) + 8) * sizeof(bf16);
+// Shared memory a block of each kernel takes (bf16: kN columns of W).
+size_t smem_bf16(int n_h, int cols) {
+  return (size_t)kWarps * ring_bytes(cols) +
+         (size_t)cols * (round_up(n_h, kPad) + 8) * sizeof(bf16);
 }
 size_t smem_f32(int n_h) {
   return ((size_t)n_h * kCols + (size_t)kMaxB * (kKc + 1)) * sizeof(float);
@@ -1132,8 +1178,9 @@ int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
 }
 
 // The bf16 narrow sweep of kDirs directions (w1, hs1, out1 are read only
-// where kDirs is 2): one cooperative launch of kDirs H_pad / 16 blocks.
-template <bool kBwd, int kDirs>
+// where kDirs is 2): one cooperative launch of kDirs ceil(H_pad / kN)
+// blocks.
+template <bool kBwd, int kDirs, int kN>
 int launch_sweeps(const void* x, const void* w0, const void* w1,
                   const int* lengths, const void* hs0, const void* hs1,
                   void* out0, void* out1, void* xbuf, unsigned int* count,
@@ -1148,23 +1195,25 @@ int launch_sweeps(const void* x, const void* w0, const void* w1,
                   (void*)&count, (void*)&n_t,     (void*)&n_b,
                   (void*)&n_h,   (void*)&reverse, (void*)&clip,
                   (void*)&vec};
-  return launch_coop((const void*)mma_sweep_kernel<kBwd, kDirs>,
-                     kDirs * ceil_div(n_h, kCols), smem_bf16(n_h), args, st);
+  return launch_coop((const void*)mma_sweep_kernel<kBwd, kDirs, kN>,
+                     kDirs * ceil_div(n_h, kN), smem_bf16(n_h, kN), args,
+                     st);
 }
 
 // Both directions of a layer in one launch (bf16, narrow): B1's direction 0
 // forward and 1 reversed, B2's (their deltas) 0 right to left and 1 left to
 // right; each its own exchange buffer, the two halves of xbuf, and counter.
-template <bool kBwd>
+// kN columns of W a block: 16, or 32 where two 16-column grids do not fit.
+template <bool kBwd, int kN>
 int dispatch_bi(const void* x, const void* w0, const void* w1,
                 const int* lengths, const void* hs0, const void* hs1,
                 void* out0, void* out1, void* xbuf, unsigned int* count,
                 int n_t, int n_b, int n_h, float clip, void* stream) {
-  if (n_b < 1 || n_b > kMaxB || n_h < 1 || n_t < 1)
+  if (n_b < 1 || n_b > max_rows(kN) || n_h < 1 || n_t < 1)
     return (int)cudaErrorInvalidValue;
-  return launch_sweeps<kBwd, 2>(x, w0, w1, lengths, hs0, hs1, out0, out1,
-                                xbuf, count, n_t, n_b, n_h, kBwd ? 1 : 0,
-                                clip, static_cast<cudaStream_t>(stream));
+  return launch_sweeps<kBwd, 2, kN>(x, w0, w1, lengths, hs0, hs1, out0, out1,
+                                    xbuf, count, n_t, n_b, n_h, kBwd ? 1 : 0,
+                                    clip, static_cast<cudaStream_t>(stream));
 }
 
 template <bool kBwd>
@@ -1192,8 +1241,9 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
   // the wide kernels take their cached k-tiles (bf16) or chunks (f32)
   int cap = bf16_io && wide ? plan[2] / plan[1] : plan[2];
   if (bf16_io && !wide)
-    return launch_sweeps<kBwd, 1>(x, w, w, lengths, hs, hs, out, out, xbuf,
-                                  count, n_t, n_b, n_h, reverse, clip, st);
+    return launch_sweeps<kBwd, 1, kCols>(x, w, w, lengths, hs, hs, out, out,
+                                         xbuf, count, n_t, n_b, n_h, reverse,
+                                         clip, st);
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
     const bf16* wp = static_cast<const bf16*>(w);
@@ -1294,8 +1344,9 @@ int birnn_fwd_bi_launch(const void* z, const void* wf, const void* wb,
                         const int* lengths, void* hs_f, void* hs_b,
                         void* xbuf, unsigned int* count, int n_t, int n_b,
                         int n_h, float clip, void* stream) {
-  return dispatch_bi<false>(z, wf, wb, lengths, nullptr, nullptr, hs_f, hs_b,
-                            xbuf, count, n_t, n_b, n_h, clip, stream);
+  return dispatch_bi<false, kCols>(z, wf, wb, lengths, nullptr, nullptr,
+                                   hs_f, hs_b, xbuf, count, n_t, n_b, n_h,
+                                   clip, stream);
 }
 
 // B2 of both directions in one launch: g [T, B, H] shared; wft, wbt the
@@ -1305,8 +1356,29 @@ int birnn_bwd_bi_launch(const void* g, const void* wft, const void* wbt,
                         const void* hs_f, const void* hs_b, void* d_f,
                         void* d_b, void* xbuf, unsigned int* count, int n_t,
                         int n_b, int n_h, float clip, void* stream) {
-  return dispatch_bi<true>(g, wft, wbt, nullptr, hs_f, hs_b, d_f, d_b, xbuf,
-                           count, n_t, n_b, n_h, clip, stream);
+  return dispatch_bi<true, kCols>(g, wft, wbt, nullptr, hs_f, hs_b, d_f,
+                                  d_b, xbuf, count, n_t, n_b, n_h, clip,
+                                  stream);
+}
+
+// The same two launches with 32 columns of W a block: 2 ceil(H_pad / 32)
+// blocks, B <= 64 (else cudaErrorInvalidValue), the arguments of
+// birnn_fwd_bi_launch and birnn_bwd_bi_launch.
+int birnn_fwd_bi32_launch(const void* z, const void* wf, const void* wb,
+                          const int* lengths, void* hs_f, void* hs_b,
+                          void* xbuf, unsigned int* count, int n_t, int n_b,
+                          int n_h, float clip, void* stream) {
+  return dispatch_bi<false, 32>(z, wf, wb, lengths, nullptr, nullptr, hs_f,
+                                hs_b, xbuf, count, n_t, n_b, n_h, clip,
+                                stream);
+}
+
+int birnn_bwd_bi32_launch(const void* g, const void* wft, const void* wbt,
+                          const void* hs_f, const void* hs_b, void* d_f,
+                          void* d_b, void* xbuf, unsigned int* count, int n_t,
+                          int n_b, int n_h, float clip, void* stream) {
+  return dispatch_bi<true, 32>(g, wft, wbt, nullptr, hs_f, hs_b, d_f, d_b,
+                               xbuf, count, n_t, n_b, n_h, clip, stream);
 }
 
 // The wide instances' plan (grid, tiles a block, cached pieces, shared

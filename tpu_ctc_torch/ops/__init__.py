@@ -13,6 +13,7 @@ def kernels():
     from tpu_ctc_torch.parallel import mesh
     return (birnn_cuda.KERNEL, birnn_cuda.BWD_KERNEL, birnn_cuda.WIDE_KERNEL,
             birnn_cuda.WIDE_BWD_KERNEL, birnn_cuda.FWD_BI_KERNEL,
-            birnn_cuda.BWD_BI_KERNEL, ctc_cuda.ALPHA, ctc_cuda.BETA,
+            birnn_cuda.BWD_BI_KERNEL, birnn_cuda.FWD_BI32_KERNEL,
+            birnn_cuda.BWD_BI32_KERNEL, ctc_cuda.ALPHA, ctc_cuda.BETA,
             beam_cuda.KERNEL, beam_cuda.WIDE_KERNEL, beam_cuda.RECONSTRUCT,
             mesh.GRAD_SUM, mesh.LOSS_SUM)

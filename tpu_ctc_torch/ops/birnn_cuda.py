@@ -35,10 +35,12 @@ step for all of a block's tiles and stream the part of W that does not fit
 their shared memory; both compute the same values in the same order, and a
 wide launch is counted on its own kernel (``WIDE_KERNEL``,
 ``WIDE_BWD_KERNEL``).  Where both directions of a bf16 layer fit the card
-at once in the narrow instance (:func:`bi_grid`: H <= 1056 on an H100 SXM),
-:class:`BiRecurrence` sweeps them in one launch of B1 and one of B2, each
-direction on half the grid, bit-equal to the two launches and counted on
-``FWD_BI_KERNEL`` and ``BWD_BI_KERNEL``.
+at once in the narrow instance (:func:`bi_grid`), :class:`BiRecurrence`
+sweeps them in one launch of B1 and one of B2, each direction on half the
+grid, bit-equal to the two launches: with 16 columns of W a block where
+that fits twice (H <= 1056 on an H100 SXM; counted on ``FWD_BI_KERNEL`` and
+``BWD_BI_KERNEL``), else with 32 at B <= 64 (H <= 2080; counted on
+``FWD_BI32_KERNEL`` and ``BWD_BI32_KERNEL``).
 
 The dense products outside the kernels have an f32 result.  On a card, a
 product of two bf16 operands (the dense forward at a bf16 compute dtype, dW
@@ -52,7 +54,7 @@ On the CPU every product is the f32 product of the same values.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -69,13 +71,22 @@ _WIDE = {KERNEL.name: WIDE_KERNEL, BWD_KERNEL.name: WIDE_BWD_KERNEL}
 # of their own in the same library, one count a launch of two sweeps.
 FWD_BI_KERNEL = CudaKernel("birnn_fwd_bi", source="birnn")
 BWD_BI_KERNEL = CudaKernel("birnn_bwd_bi", source="birnn")
+# ... with 32 columns of W a block, where two 16-column grids do not fit
+FWD_BI32_KERNEL = CudaKernel("birnn_fwd_bi32", source="birnn")
+BWD_BI32_KERNEL = CudaKernel("birnn_bwd_bi32", source="birnn")
+_BI = {(False, 16): FWD_BI_KERNEL, (True, 16): BWD_BI_KERNEL,
+       (False, 32): FWD_BI32_KERNEL, (True, 32): BWD_BI32_KERNEL}
 # The kernels' limits.  A block is 256 threads; the bf16 kernel keeps 8
 # m-tiles x 2 n-tiles of f32 accumulators a warp (B <= 128) and takes 172
 # registers a thread (ptxas, 0 spill bytes), within an SM's 64 K; its shared
 # memory (rings and W's columns, over half an SM's) allows one block a SM.
+# Its instance of 32 columns a block keeps 4 x 4 (B <= 64), 152-158
+# registers.
 MAX_BATCH = 128                    # kMaxB of the kernels
 _COLS, _PAD, _KC = 16, 16, 64      # kCols, kPad, kKc of the kernels
-_RING_BYTES = 8 * 4 * 4096         # bf16: kWarps rings of kStages x 4 KB
+_BI_COLS, _BI_ROWS = 32, 64        # the 32-column instance: max_rows(32)
+# bf16, by columns of W a block: kWarps rings of ring_stages x 4 KB
+_RING_BYTES = {_COLS: 8 * 4 * 4096, _BI_COLS: 8 * 3 * 4096}
 _SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 _MAX_OWN = 4                       # kMaxOwn: column tiles a wide block owns
 H100_SMS = 132                     # SMs of an H100 SXM: one block each
@@ -124,15 +135,16 @@ def wide_grid(n_h: int, n_sm: int = H100_SMS) -> tuple:
     return -(-tiles // own), own
 
 
-def smem_bytes(n_h: int, dtype: torch.dtype) -> int:
+def smem_bytes(n_h: int, dtype: torch.dtype, cols: int = _COLS) -> int:
     """Shared memory one narrow block takes: for bf16 the warps' copy rings
-    and W's 16 columns (a row padded by 16 bytes); for f32 W's columns and
-    the staged carry of up to 128 rows in k-chunks of 64.  A wide block
-    takes what the card allows (``birnn_wide_plan``): its rings (bf16: a
-    ring of 4 k-tiles a warp; f32: 4 chunks of 64 k a block), and W's
-    pieces cached as far as they fit."""
+    and W's ``cols`` columns (16, or 32 in a fused launch; a row padded by
+    16 bytes); for f32 W's 16 columns and the staged carry of up to 128
+    rows in k-chunks of 64.  A wide block takes what the card allows
+    (``birnn_wide_plan``): its rings (bf16: a ring of 4 k-tiles a warp;
+    f32: 4 chunks of 64 k a block), and W's pieces cached as far as they
+    fit."""
     if dtype == torch.bfloat16:
-        return _RING_BYTES + _COLS * (_round_up(n_h, _PAD) + 8) * 2
+        return _RING_BYTES[cols] + cols * (_round_up(n_h, _PAD) + 8) * 2
     return (n_h * _COLS + MAX_BATCH * (_KC + 1)) * 4
 
 
@@ -145,27 +157,35 @@ def instance(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS) -> str:
     return "wide"
 
 
-def bi_grid(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS, *,
-            bidirectional: bool = True) -> int:
-    """Blocks of one launch that sweeps both directions of a layer, half
-    the grid each: 2 :func:`grid_size` where the layer is bidirectional,
-    the io dtype bf16, the instance narrow and both halves fit one block a
-    SM (H <= 1056 on 132 SMs); else 0, and the directions launch one after
-    the other."""
+def bi_grid(n_b: int, n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS,
+            *, bidirectional: bool = True) -> Tuple[int, int]:
+    """(blocks, columns of W a block) of one launch that sweeps both
+    directions of a layer of ``n_b`` rows, half the grid each, where the
+    layer is bidirectional and the io dtype bf16: 16 columns where both
+    halves fit one block a SM in the narrow instance (H <= 1056 on 132
+    SMs); else 32 where B <= 64, both halves of ceil(H / 32) blocks fit and
+    a block's shared memory does (H <= 2080 on 132 SMs); else (0, 0), and
+    the directions launch one after the other."""
+    if not (bidirectional and dtype == torch.bfloat16):
+        return 0, 0
     grid = 2 * grid_size(n_h)
-    if (bidirectional and dtype == torch.bfloat16 and grid <= n_sm
-            and instance(n_h, dtype, n_sm) == "narrow"):
-        return grid
-    return 0
+    if grid <= n_sm and instance(n_h, dtype, n_sm) == "narrow":
+        return grid, _COLS
+    grid = 2 * -(-n_h // _BI_COLS)
+    if (n_b <= _BI_ROWS and grid <= n_sm
+            and smem_bytes(n_h, dtype, _BI_COLS) <= _SMEM_LIMIT):
+        return grid, _BI_COLS
+    return 0, 0
 
 
 def direction_sweeps(launches: Dict[str, int]) -> Dict[str, int]:
     """Narrow B1 and B2 sweeps of one direction each in a dict of launch
-    counts (kernel name -> launches): ``birnn_fwd`` + 2 ``birnn_fwd_bi``,
-    ``birnn_bwd`` + 2 ``birnn_bwd_bi``."""
-    pairs = ((KERNEL, FWD_BI_KERNEL), (BWD_KERNEL, BWD_BI_KERNEL))
-    return {k.name: launches.get(k.name, 0) + 2 * launches.get(bi.name, 0)
-            for k, bi in pairs}
+    counts (kernel name -> launches): ``birnn_fwd`` + 2 ``birnn_fwd_bi`` +
+    2 ``birnn_fwd_bi32``, and the same of B2."""
+    return {k.name: launches.get(k.name, 0)
+            + 2 * launches.get(_BI[bwd, 16].name, 0)
+            + 2 * launches.get(_BI[bwd, 32].name, 0)
+            for k, bwd in ((KERNEL, False), (BWD_KERNEL, True))}
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -378,23 +398,26 @@ def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _bi_sweep_cuda(kernel: CudaKernel, x: torch.Tensor, ws, thirds, *,
+def _bi_sweep_cuda(backward: bool, x: torch.Tensor, ws, thirds, *,
                    clip: float):
     """Both directions of a layer in one launch of :func:`bi_grid` blocks,
-    x [T, B, H] shared: B1 (``FWD_BI_KERNEL``; ws = (wf, wb), thirds the
-    lengths twice) sweeps direction 0 forward and 1 reversed, B2
-    (``BWD_BI_KERNEL``; ws = (wf^T, wb^T), thirds = (hs_f, hs_b)) direction
-    0 right to left and 1 left to right; each direction has its own zeroed
-    exchange buffer and counter -> the two outputs.  None where the launch
-    does not engage (:func:`bi_grid` is 0, or the card cannot hold the grid
-    at once): nothing ran, and the caller sweeps one direction at a
-    time."""
+    x [T, B, H] shared: B1 (ws = (wf, wb), thirds the lengths twice)
+    sweeps direction 0 forward and 1 reversed, B2 (``backward``; ws =
+    (wf^T, wb^T), thirds = (hs_f, hs_b)) direction 0 right to left and 1
+    left to right; each direction has its own zeroed exchange buffer and
+    counter -> the two outputs.  Counted on ``FWD_BI_KERNEL`` or
+    ``BWD_BI_KERNEL`` at 16 columns a block, ``FWD_BI32_KERNEL`` or
+    ``BWD_BI32_KERNEL`` at 32.  None where the launch does not engage
+    (:func:`bi_grid` is (0, 0), or the card cannot hold the grid at once):
+    nothing ran, and the caller sweeps one direction at a time."""
+    n_t, n_b, n_h = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    if not bi_grid(x.shape[-1], x.dtype, n_sm):
+    grid, cols = bi_grid(n_b, n_h, x.dtype, n_sm)
+    if not grid:
         return None
+    kernel = _BI[backward, cols]
     for w, third in zip(ws, thirds):
         _checked(kernel.name, x, w, third)
-    n_t, n_b, n_h = x.shape
     x = x.contiguous()
     ws = [w.contiguous() for w in ws]
     outs = [torch.empty_like(x) for _ in ws]
@@ -405,7 +428,7 @@ def _bi_sweep_cuda(kernel: CudaKernel, x: torch.Tensor, ws, thirds, *,
     fn = getattr(kernel.lib(), kernel.name + "_launch")
     fn.restype = ctypes.c_int
     # B1 takes the shared lengths once, B2 each direction's states
-    third = thirds[:1] if kernel.name == FWD_BI_KERNEL.name else thirds
+    third = thirds if backward else thirds[:1]
     args = [ptr(t) for t in (x, *ws, *third, *outs, xbuf, count)]
     fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
@@ -447,7 +470,7 @@ def fwd_bi_recurrence(z, wf, wb, lengths, *, clip: float,
     with ``plain``."""
     if z.is_cuda and not plain:
         lengths = lengths.to(torch.int32).contiguous()
-        pair = _bi_sweep_cuda(FWD_BI_KERNEL, z, (wf, wb), (lengths, lengths),
+        pair = _bi_sweep_cuda(False, z, (wf, wb), (lengths, lengths),
                               clip=clip)
         if pair is not None:
             return pair
@@ -506,7 +529,7 @@ def bwd_bi_recurrence(g, hs_f, hs_b, wft, wbt, *, clip: float,
     if g.is_cuda and not plain:
         for hs in (hs_f, hs_b):
             _check_states(g, hs)
-        pair = _bi_sweep_cuda(BWD_BI_KERNEL, g, (wft, wbt),
+        pair = _bi_sweep_cuda(True, g, (wft, wbt),
                               (hs_f.contiguous(), hs_b.contiguous()),
                               clip=clip)
         if pair is not None:
