@@ -29,13 +29,12 @@ against its plain PyTorch version on the same inputs:
      H = 1024, B = 32, T = 800, bf16, both directions, on states that B1
      computed at that shape (held against B1's plain version and timed
      too: preset 2's B1); then both directions of B1 and of B2 in one
-     launch each (``birnn_cuda.bi_grid``: preset 2's width fits twice on
-     the card at 16 columns of W a block) at that shape, and at presets 3
-     and 4's H = 1824 with B = 64 and B = 16 (32 columns a block), each
+     launch each (``birnn_cuda.plan``: 32 columns of W a block) at that
+     shape, and at presets 3 and 4's H = 1824 with B = 64 and B = 16, each
      bit-equal to one launch a direction, against the plain loops of both
      directions, timed beside one direction and twice it (records
-     ``birnn_fwd_bi``, ``birnn_bwd_bi``, and at B = 64 ``birnn_fwd_bi32``,
-     ``birnn_bwd_bi32``);
+     ``birnn_fwd_bi32``, ``birnn_bwd_bi32`` at H = 1024, B = 32 and at
+     H = 1824, B = 64);
   6. kernels B3 and B4 (``ops/ctc_cuda.py``, the CTC alpha and beta sweeps)
      at B = 32, T = 800, A = 29, labels of 50-100 characters (S <= 201),
      bit-equal to the plain sweeps, with ``torch.nn.functional.ctc_loss``
@@ -203,7 +202,9 @@ record is the sum over the paths that run it.  The profile of each
 path prints its dense GEMMs' device ms.  B5 has two records,
 told apart by ``variant``: ``trigram`` (phase 3, launched on phase 4's
 and phase 11's paths) and ``gru+trigram`` (phase 8, launched on phase
-10's).  The GRU's sums run in
+10's); so have the fused B1 and B2, by shape: ``H=1024,B=32`` (launched
+on the paths of preset 2 and the chain, H <= 1024) and ``H=1824,B=64``
+(on the others).  The GRU's sums run in
 another order in a kernel than in the plain version's matmuls, so over 800
 frames its scores drift apart by float rounding: the GRU checks hold
 hypotheses equal on every utterance whose top-2 beam gap exceeds 1e-2 and
@@ -246,6 +247,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM bandwidth and its operations
@@ -276,10 +278,9 @@ B2_REPLACES = "tpu_ctc/ops/birnn_pallas.py:167"
 B34_SOURCE = "tpu_ctc_torch/csrc/ctc_dp.cu"
 # The walk replaces the reference's jax.lax.scan, not a Pallas kernel.
 WALK_REPLACES = "tpu_ctc/ops/beam_pallas.py:1191"
-KERNEL_ORDER = ["birnn_fwd", "birnn_fwd_wide", "birnn_fwd_bi",
-                "birnn_fwd_bi32", "birnn_bwd", "birnn_bwd_wide",
-                "birnn_bwd_bi", "birnn_bwd_bi32", "ctc_alpha", "ctc_beta",
-                "beam_search", "beam_search_wide", "beam_reconstruct"]
+# The records' order after the recurrence's (B1's counters, then B2's)
+KERNEL_ORDER = ["ctc_alpha", "ctc_beta", "beam_search", "beam_search_wide",
+                "beam_reconstruct"]
 # f32 products on the FP32 pipe: the data sheet's 67 TFLOP/s counts an FMA
 # as two operations, as a product's 2 M N K does.
 F32_FMA_OPS = 67e12
@@ -369,18 +370,46 @@ def all_kernels():
     return [k for k in kernels() if isinstance(k, _build.CudaKernel)]
 
 
-@contextlib.contextmanager
-def f32_dense_products():
-    """The dense products as the parent commit ran them: each bf16 GEMM
-    replaced by the f32 GEMM (TF32 off) of the same values."""
+def kernel_order():
+    """Record names in print order: B1's counters and B2's, one a row of
+    ``birnn_cuda.INSTANCES``, then ``KERNEL_ORDER``."""
     from tpu_ctc_torch.ops import birnn_cuda
-    saved = birnn_cuda.matmul_bf16
-    birnn_cuda.matmul_bf16 = lambda a, b: birnn_cuda.matmul_f32(
-        a.to(torch.float32), b.to(torch.float32))
-    try:
-        yield
-    finally:
-        birnn_cuda.matmul_bf16 = saved
+    rows = birnn_cuda.INSTANCES.values()
+    return [r[1] for r in rows] + [r[2] for r in rows] + KERNEL_ORDER
+
+
+def b1_sweep(z, w, lens, **kw):
+    """One direction of B1 on the card under the plan for its shape: the
+    narrow instance, or the wide one above 16 columns a resident block."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    return birnn_cuda.fwd_recurrence(z, (w,), lens, **kw)[0]
+
+
+def b2_sweep(g, hs, wt, **kw):
+    """One direction of B2 on the card, as :func:`b1_sweep`."""
+    from tpu_ctc_torch.ops import birnn_cuda
+    return birnn_cuda.bwd_recurrence(g, (hs,), (wt,), **kw)[0]
+
+
+class f32_dense_products(TorchDispatchMode):
+    """The dense products as the parent commit ran them: each bf16 GEMM
+    with an f32 result (``birnn_cuda.matmul_bf16``, ``aten.mm.dtype``)
+    replaced by the f32 GEMM (TF32 off) of the same values, in every
+    operator under the ``with``, a backward's included (the autograd
+    engine's threads take the mode with the caller's thread-local
+    state).  Every operator under the mode passes through a Python
+    ``__torch_dispatch__``, so a profile under it has a larger idle share
+    than the same pass without it: read only its device times."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.mm.dtype and kwargs.get(
+                "out_dtype", args[2] if len(args) > 2 else None) \
+                == torch.float32:
+            from tpu_ctc_torch.ops import birnn_cuda
+            return birnn_cuda.matmul_f32(args[0].to(torch.float32),
+                                         args[1].to(torch.float32))
+        return func(*args, **kwargs)
 
 
 @contextlib.contextmanager
@@ -500,23 +529,22 @@ def run_main_path(run):
 
 
 def b1_launches(cfg, batches, dev="cuda"):
-    """{kernel name: launches} of B1 in one forward pass over each batch:
-    per layer one fused launch where ``bi_grid`` engages at the batch's
-    rows (``birnn_fwd_bi`` at 16 columns a block, ``birnn_fwd_bi32`` at
-    32), else one ``birnn_fwd`` a direction."""
+    """{counter name: launches} of B1 in one forward pass over each batch:
+    per layer the launches of ``birnn_cuda.plan`` at the batch's rows (one
+    ``birnn_fwd_bi32`` where both directions fit one launch, else one a
+    direction)."""
     from tpu_ctc_torch.models import birnn
     from tpu_ctc_torch.ops import birnn_cuda
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    names = {0: birnn_cuda.KERNEL.name, 16: birnn_cuda.FWD_BI_KERNEL.name,
-             32: birnn_cuda.FWD_BI32_KERNEL.name}
+    directions = 1 + cfg.model.bidirectional
     out = {}
     for b in batches:
-        _, cols = birnn_cuda.bi_grid(
-            b.feats.shape[0], cfg.model.hidden_dim, birnn._io_dtype(cfg.model),
-            n_sm, bidirectional=cfg.model.bidirectional)
-        n = cfg.model.num_bi_layers * (
-            2 if cfg.model.bidirectional and not cols else 1)
-        out[names[cols]] = out.get(names[cols], 0) + n
+        p = birnn_cuda.plan(b.feats.shape[0], cfg.model.hidden_dim,
+                            birnn._io_dtype(cfg.model),
+                            directions=directions, n_sm=n_sm)
+        name = p.counters[0]
+        out[name] = out.get(name, 0) + (cfg.model.num_bi_layers * directions
+                                        // p.directions)
     return out
 
 
@@ -533,8 +561,7 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda",
                   lens.to(dev))
     err, states = 0.0, []
     for d, reverse in enumerate((False, True)):
-        got = birnn_cuda.fwd_recurrence_cuda(z, w[d], lens, reverse=reverse,
-                                             clip=20.0).float()
+        got = b1_sweep(z, w[d], lens, reverse=reverse, clip=20.0).float()
         states.append(got)
         torch.cuda.synchronize()
         want = birnn_cuda.fwd_recurrence_plain(z, w[d], lens,
@@ -553,7 +580,7 @@ def phase_birnn(reps: int, n_t=800, n_b=64, n_h=1824, dev="cuda",
             f"max |h| {float(want.abs().max()):.2f}")
         if bad:
             raise AssertionError("B1 disagrees with its plain version")
-    ms = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+    ms = time_ms(lambda: b1_sweep(
         z, w[0], lens, reverse=False, clip=20.0), reps)
     plain_ms = time_ms(lambda: birnn_cuda.fwd_recurrence_plain(
         z, w[0], lens, reverse=False, clip=20.0), PLAIN_REPS)
@@ -696,13 +723,13 @@ def phase_beam(reps: int, n_b=64, n_t=800, k=128, max_len=216, dev="cuda",
         f"none (no PyTorch call follows backpointers)")
     return [dict(name="beam_search", variant="trigram",
                  paths=("decode", "audio_train", "audio_decode",
-                        "collective", "chain_ngram"),
+                        "audio_decode4", "collective", "chain_ngram"),
                  route="cuda", source=B5_SOURCE, replaces=B5_REPLACES,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None),
             dict(name="beam_reconstruct",
                  paths=("decode", "gru", "audio_train", "audio_decode",
-                        "collective", "chain"),
+                        "audio_decode4", "collective", "chain"),
                  route="cuda", source=B5_SOURCE, replaces=WALK_REPLACES,
                  max_abs_err=0.0, ms=walk_ms, plain_ms=walk_plain_ms,
                  bound_ms=w_ms, bound_by=w_by, library_ms=None)]
@@ -816,7 +843,8 @@ def phase_end_to_end(seed: int, n_utts=64, dev="cuda", **overrides):
         prune_logp=cfg.decode.prune_logp))
     bd = device_breakdown(run, "phase 4")
     with f32_dense_products():
-        device_breakdown(run, "phase 4 with the f32 GEMMs")
+        device_breakdown(run, "phase 4 with the f32 GEMMs (idle share with "
+                         "the dispatch mode's Python work)")
     return launches, {"rate": n_frames / 100 / wall,
                       "idle": None if bd is None else round(
                           1 - bd[1] / bd[0], 3)}
@@ -839,8 +867,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
     err, states, deltas = 0.0, {}, {}
     # the forward direction's deltas run right to left over its states
     for reverse in (True, False):
-        hs = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=not reverse,
-                                            clip=20.0)
+        hs = b1_sweep(z, w, lens, reverse=not reverse, clip=20.0)
         torch.cuda.synchronize()
         hs_want = birnn_cuda.fwd_recurrence_plain(
             z, w, lens, reverse=not reverse, clip=20.0).float()
@@ -853,8 +880,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
         if bad_h:
             raise AssertionError("B1 disagrees with its plain version")
         states[reverse] = hs
-        got = birnn_cuda.bwd_recurrence_cuda(g, hs, wt, reverse=reverse,
-                                             clip=20.0).float()
+        got = b2_sweep(g, hs, wt, reverse=reverse, clip=20.0).float()
         deltas[reverse] = got
         torch.cuda.synchronize()
         want = birnn_cuda.bwd_recurrence_plain(g, hs, wt, reverse=reverse,
@@ -871,7 +897,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
         if bad:
             raise AssertionError("B2 disagrees with its plain version")
     hs = states[True]
-    ms = time_ms(lambda: birnn_cuda.bwd_recurrence_cuda(
+    ms = time_ms(lambda: b2_sweep(
         g, hs, wt, reverse=True, clip=20.0), reps)
     plain_ms = time_ms(lambda: birnn_cuda.bwd_recurrence_plain(
         g, hs, wt, reverse=True, clip=20.0), PLAIN_REPS)
@@ -887,7 +913,7 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
                + n_h * n_h * 2)
     n_ops = 2 * int((act.sum(2) * next_nnz).sum())
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS)
-    fwd_ms = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+    fwd_ms = time_ms(lambda: b1_sweep(
         z, w, lens, reverse=False, clip=20.0), reps)
     log(f"{phase}: B2 one direction {ms:.3f} ms ({ms * 1e3 / n_t:.2f} us a "
         f"step), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
@@ -903,19 +929,20 @@ def phase_birnn_bwd(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
 
 def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
                    phase="phase 5"):
-    """B1 and B2 of both directions in one launch each (``bi_grid``: 16
-    columns of W a block at preset 2's shape, 32 at presets 3 and 4's H =
-    1824): bit-equal to one launch a direction, within B1's and B2's limits
-    of the plain loops of both directions, and timed beside one direction's
-    launch and twice it; the bound is both directions'.  Records named by
-    the fused kernel (``birnn_fwd_bi``, ``birnn_fwd_bi32`` and B2's)."""
+    """B1 and B2 of both directions in one launch each (``birnn_cuda.plan``:
+    32 columns of W a block): bit-equal to one launch a direction, within
+    B1's and B2's limits of the plain loops of both directions, and timed
+    beside one direction's launch and twice it; the bound is both
+    directions'.  Records named by the plan's counters (``birnn_fwd_bi32``,
+    ``birnn_bwd_bi32``), the shape in ``variant``."""
     from tpu_ctc_torch.ops import birnn_cuda
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid, cols = birnn_cuda.bi_grid(n_b, n_h, torch.bfloat16, n_sm)
-    if not grid:
+    p = birnn_cuda.plan(n_b, n_h, torch.bfloat16, directions=2, n_sm=n_sm)
+    if p.directions != 2:
         raise AssertionError(f"H={n_h}, B={n_b}: both directions do not fit "
                              f"the {n_sm} SMs at once")
-    kern_f, kern_b = (birnn_cuda._BI[bwd, cols] for bwd in (False, True))
+    grid, cols = p.grid, p.cols
+    kern_f, kern_b = p.counter(False), p.counter(True)
     r = np.random.RandomState(6)
     z = torch.from_numpy(3.0 * r.randn(n_t, n_b, n_h).astype(np.float32))
     w = torch.from_numpy((0.5 / np.sqrt(n_h))
@@ -929,26 +956,26 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
     wft, wbt = wf.t().contiguous(), wb.t().contiguous()
 
     def fused_fwd():
-        return birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+        return birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                         clip=20.0, plan=p)
 
     def fused_bwd():
-        return birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt, clip=20.0)
+        return birnn_cuda.bwd_recurrence(g, hs, (wft, wbt), reverse=True,
+                                         clip=20.0, plan=p)
 
     def one_fwd():
-        return birnn_cuda.fwd_recurrence_cuda(z, wf, lens, reverse=False,
-                                              clip=20.0)
+        return b1_sweep(z, wf, lens, reverse=False, clip=20.0)
 
     def one_bwd():
-        return birnn_cuda.bwd_recurrence_cuda(g, hs[0], wft, reverse=True,
-                                              clip=20.0)
+        return b2_sweep(g, hs[0], wft, reverse=True, clip=20.0)
 
     def plain_fwd():
-        return birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0,
-                                            plain=True)
+        return birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                         clip=20.0, plan=birnn_cuda.PLAIN)
 
     def plain_bwd():
-        return birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt, clip=20.0,
-                                            plain=True)
+        return birnn_cuda.bwd_recurrence(g, hs, (wft, wbt), reverse=True,
+                                         clip=20.0, plan=birnn_cuda.PLAIN)
     n0 = (kern_f.launches, kern_b.launches)
     hs = fused_fwd()
     d = fused_bwd()
@@ -956,11 +983,9 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
     if (kern_f.launches - n0[0], kern_b.launches - n0[1]) != (1, 1):
         raise AssertionError(f"the fused B1/B2 ({kern_f.name}, "
                              f"{kern_b.name}) did not launch once each")
-    single = [birnn_cuda.fwd_recurrence_cuda(z, wd, lens, reverse=rev,
-                                             clip=20.0)
+    single = [b1_sweep(z, wd, lens, reverse=rev, clip=20.0)
               for wd, rev in ((wf, False), (wb, True))]
-    single += [birnn_cuda.bwd_recurrence_cuda(g, h, wt, reverse=rev,
-                                              clip=20.0)
+    single += [b2_sweep(g, h, wt, reverse=rev, clip=20.0)
                for h, wt, rev in ((hs[0], wft, True), (hs[1], wbt, False))]
     same = [bool(torch.equal(a, b)) for a, b in zip((*hs, *d), single)]
     plain = (*plain_fwd(), *plain_bwd())
@@ -1005,7 +1030,8 @@ def phase_birnn_bi(reps: int, n_t=800, n_b=32, n_h=1024, dev="cuda",
             f"ms, twice it {2 * one_ms:.3f} ms (fused / one direction "
             f"{ms / one_ms:.3f}), plain loops of both {plain_ms:.3f} ms, "
             f"bound of both {b_ms:.4f} ms ({b_by})")
-        records.append(dict(name=name, route="cuda", source=BIRNN_SOURCE,
+        records.append(dict(name=name, variant=f"H={n_h},B={n_b}",
+                            route="cuda", source=BIRNN_SOURCE,
                             replaces=replaces, max_abs_err=errs[what], ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=None))
@@ -1318,7 +1344,8 @@ def phase_train(seed: int, steps=6, n_utts=64, chars=(50, 100), dev="cuda",
                           "phase 7 compiled")
     with f32_dense_products():
         device_breakdown(lambda: eager(ref, tensors[1]),
-                         "phase 7 eager with the f32 GEMMs")
+                         "phase 7 eager with the f32 GEMMs (idle share with "
+                         "the dispatch mode's Python work)")
 
     def idle(b):
         return None if b is None else round(1 - b[1] / b[0], 3)
@@ -2201,9 +2228,8 @@ def phase_audio(seed: int, phase7, phase4, keep_checkpoint: str,
     shutil.rmtree(root, ignore_errors=True)
     one_rank = {f"workers={run['workers']}": run["rate"]
                 for run in parts["preset2"]["runs"]}
-    return {"audio_train": train_launches,
-            "audio_decode": {k: dec_launches.get(k, 0) + p4_launches.get(k, 0)
-                             for k in dec_launches}}, one_rank
+    return {"audio_train": train_launches, "audio_decode": dec_launches,
+            "audio_decode4": p4_launches}, one_rank
 
 
 def chunk_chain(z, w, lens, reverse, n_chunks, plain_check):
@@ -2221,8 +2247,7 @@ def chunk_chain(z, w, lens, reverse, n_chunks, plain_check):
     for s in (starts[::-1] if reverse else starts):
         local = torch.clamp(lens - s, 0, size).to(torch.int32)
         zc = z[s:s + size]
-        got = birnn_cuda.fwd_recurrence_cuda(zc, w, local, reverse=reverse,
-                                             clip=20.0, h0=carry)
+        got = b1_sweep(zc, w, local, reverse=reverse, clip=20.0, h0=carry)
         if plain_check:
             want = birnn_cuda.fwd_recurrence_plain(
                 zc, w, local, reverse=reverse, clip=20.0, h0=carry).float()
@@ -2256,8 +2281,7 @@ def phase_carry(reps: int, dev="cuda"):
             np.int32)).to(dev)
         lens[0] = n_t
         for d, reverse in enumerate((False, True)):
-            whole = birnn_cuda.fwd_recurrence_cuda(z, w[d], lens,
-                                                   reverse=reverse, clip=20.0)
+            whole = b1_sweep(z, w[d], lens, reverse=reverse, clip=20.0)
             chain, err, bad, middle = chunk_chain(z, w[d], lens, reverse,
                                                   n_chunks, True)
             torch.cuda.synchronize()
@@ -2271,9 +2295,9 @@ def phase_carry(reps: int, dev="cuda"):
                 raise AssertionError("B1 from h0 disagrees with its plain "
                                      "version or with one sweep")
         zc, local, h0 = middle
-        ms_h0 = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+        ms_h0 = time_ms(lambda: b1_sweep(
             zc, w[1], local, reverse=True, clip=20.0, h0=h0), reps)
-        ms_zero = time_ms(lambda: birnn_cuda.fwd_recurrence_cuda(
+        ms_zero = time_ms(lambda: b1_sweep(
             zc, w[1], local, reverse=True, clip=20.0), reps)
         log(f"phase 12: B1 chunk of {zc.shape[0]} frames at H={n_h}, "
             f"B={n_b}: {ms_h0:.3f} ms from h0, {ms_zero:.3f} ms from zero")
@@ -3196,12 +3220,13 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
         z, w, g, h0 = (x.to(dtype) for x in (z, w, g, h0))
         wt = w.t().contiguous()
         name = str(dtype).removeprefix("torch.")
-        if bc.instance(n_h, dtype, torch.cuda.get_device_properties(
-                0).multi_processor_count) != "wide":
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        wide = bc.plan(n_b, n_h, dtype, n_sm=n_sm)
+        if wide.code != "wide":
             raise AssertionError(f"H={n_h} {name} does not take the wide "
                                  f"instance")
         plan = bc.wide_plan(n_b, n_h, dtype)
-        counts = (bc.WIDE_KERNEL.launches, bc.WIDE_BWD_KERNEL.launches)
+        counts = (wide.counter(False).launches, wide.counter(True).launches)
 
         def check(what, got, want):
             got, want = got.float(), want.float()
@@ -3219,8 +3244,8 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
         states = {}
         for reverse in (False, True):
             for carry in (None, h0):
-                got = bc.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                             clip=20.0, h0=carry)
+                got = b1_sweep(z, w, lens, reverse=reverse, clip=20.0,
+                               h0=carry)
                 torch.cuda.synchronize()
                 want = bc.fwd_recurrence_plain(z, w, lens, reverse=reverse,
                                                clip=20.0, h0=carry)
@@ -3228,15 +3253,12 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
                     f"B1 {'reversed' if reverse else 'forward'} from "
                     f"{'h0' if carry is not None else 'zero'}", got, want))
             states[reverse] = got
-        again = bc.fwd_recurrence_cuda(z, w, lens, reverse=True, clip=20.0,
-                                       h0=h0)
+        again = b1_sweep(z, w, lens, reverse=True, clip=20.0, h0=h0)
         same_f = torch.equal(again, states[True])
         deltas = {}
         for reverse in (True, False):   # the forward direction's: right to left
-            hs = bc.fwd_recurrence_cuda(z, w, lens, reverse=not reverse,
-                                        clip=20.0)
-            got = bc.bwd_recurrence_cuda(g, hs, wt, reverse=reverse,
-                                         clip=20.0)
+            hs = b1_sweep(z, w, lens, reverse=not reverse, clip=20.0)
+            got = b2_sweep(g, hs, wt, reverse=reverse, clip=20.0)
             torch.cuda.synchronize()
             want = bc.bwd_recurrence_plain(g, hs, wt, reverse=reverse,
                                            clip=20.0)
@@ -3245,18 +3267,18 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
                 got, want))
             deltas[reverse] = (hs, got)
         hs_f, d_f = deltas[True]
-        same_b = torch.equal(bc.bwd_recurrence_cuda(
+        same_b = torch.equal(b2_sweep(
             g, hs_f, wt, reverse=True, clip=20.0), d_f)
         log(f"phase 14: wide {name}: two launches bit-equal: B1 {same_f}, "
             f"B2 {same_b}")
         if not (same_f and same_b):
             raise AssertionError("two launches of the wide instance differ")
-        if (bc.WIDE_KERNEL.launches == counts[0]
-                or bc.WIDE_BWD_KERNEL.launches == counts[1]):
+        if (wide.counter(False).launches == counts[0]
+                or wide.counter(True).launches == counts[1]):
             raise AssertionError("the wide instance was not launched")
-        ms_f = time_ms(lambda: bc.fwd_recurrence_cuda(
+        ms_f = time_ms(lambda: b1_sweep(
             z, w, lens, reverse=False, clip=20.0), reps)
-        ms_b = time_ms(lambda: bc.bwd_recurrence_cuda(
+        ms_b = time_ms(lambda: b2_sweep(
             g, hs_f, wt, reverse=True, clip=20.0), reps)
         plain_f = time_ms(lambda: bc.fwd_recurrence_plain(
             z, w, lens, reverse=False, clip=20.0), 1)
@@ -3299,12 +3321,11 @@ def phase_wide_birnn(reps: int, n_t=1600, n_b=16, n_h=4096, dev="cuda"):
         dev, torch.bfloat16)
     w = torch.from_numpy((0.5 / np.sqrt(1824)) * r.randn(1824, 1824).astype(
         np.float32)).to(dev, torch.bfloat16)
-    counts = (bc.KERNEL.launches, bc.WIDE_KERNEL.launches)
-    bc.fwd_recurrence_cuda(z, w, torch.full((64,), 64, dtype=torch.int32,
-                                            device=dev), reverse=False,
-                           clip=20.0)
-    narrow = (bc.KERNEL.launches - counts[0], bc.WIDE_KERNEL.launches
-              - counts[1])
+    kerns = bc.COUNTERS["birnn_fwd"], bc.COUNTERS["birnn_fwd_wide"]
+    counts = [k.launches for k in kerns]
+    b1_sweep(z, w, torch.full((64,), 64, dtype=torch.int32, device=dev),
+             reverse=False, clip=20.0)
+    narrow = tuple(k.launches - n for k, n in zip(kerns, counts))
     log(f"phase 14: B1 at H=1824: narrow launches {narrow[0]}, wide "
         f"{narrow[1]}")
     if narrow != (1, 0):
@@ -3846,9 +3867,7 @@ def phase_chain(timeout=600):
         f"{max(gru['max_abs_diff'].values()):.3g})")
     by = res["launches_by_stage"]
     trained = {k: sum(by[s].get(k, 0) for s in by if s.startswith("train"))
-               for k in ("birnn_fwd", "birnn_bwd", "birnn_fwd_bi",
-                         "birnn_bwd_bi", "birnn_fwd_bi32", "birnn_bwd_bi32",
-                         "ctc_alpha", "ctc_beta")}
+               for k in (*birnn_cuda.COUNTERS, "ctc_alpha", "ctc_beta")}
     trained = {**birnn_cuda.direction_sweeps(trained),
                "ctc_alpha": trained["ctc_alpha"],
                "ctc_beta": trained["ctc_beta"]}
@@ -3927,8 +3946,9 @@ def main() -> int:
     took("phases 2-3")
     decode_launches, phase4 = phase_end_to_end(seed=0)
     took("phase 4")
-    records += [phase_birnn_bwd(REPS), *phase_birnn_bi(REPS),
-                *phase_birnn_bi(REPS, n_b=64, n_h=1824)]
+    records.append(phase_birnn_bwd(REPS))
+    records += phase_birnn_bi(REPS)           # preset 2's shape
+    records += phase_birnn_bi(REPS, n_b=64, n_h=1824)
     phase_birnn_bi(REPS, n_b=16, n_h=1824)    # a rank's rows under DP4
     records += phase_ctc(REPS)
     took("phases 5-6")
@@ -3970,6 +3990,14 @@ def main() -> int:
         raise
     check_dryrun(dryrun)
     took("phase 15 (and the dry run)")
+    # the fused B1/B2 records: preset 2's shape counts the paths at its
+    # width or below (preset 2's, the chain's), H = 1824's the others
+    narrow = ["train", "audio_train", "audio_decode", "pp", "chain",
+              *(p for p in paths if p.startswith("mesh_audio "))]
+    for rec in records:
+        if rec["name"].endswith("_bi32"):
+            rec["paths"] = (narrow if rec["variant"].startswith("H=1024")
+                            else [p for p in paths if p not in narrow])
     for rec in records:  # a variant counts the paths that run it
         rec["launches"] = sum(paths[p].get(rec["name"], 0)
                               for p in rec.pop("paths", paths))
@@ -3987,7 +4015,8 @@ def main() -> int:
     if not all(rec["launches"] for rec in wide.values()):
         raise AssertionError("a wide B1/B2 instance was not launched on "
                              "the main paths")
-    records.sort(key=lambda rec: KERNEL_ORDER.index(rec["name"]))
+    order = kernel_order()
+    records.sort(key=lambda rec: order.index(rec["name"]))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [

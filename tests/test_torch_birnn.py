@@ -24,6 +24,7 @@ compute dtype (checked against ``jax.vjp`` exactly, up to f32 order).
 import dataclasses
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -352,42 +353,68 @@ def _preset_shape(name):
             getattr(torch, cfg.model.compute_dtype))
 
 
+_BF16, _F32 = torch.bfloat16, torch.float32
+_COUNTERS = birnn_cuda.COUNTERS
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tpu_ctc_torch", "csrc", "birnn.cu")
+
+
+def _launches():
+    return {name: k.launches for name, k in _COUNTERS.items()}
+
+
 class TestKernelGuards:
     def test_cpu_tensors_use_the_plain_loop(self):
         z, wf, _, lens, _ = _recurrence_inputs(6, 5, 2, 8, 0.3)
-        before = birnn_cuda.KERNEL.launches
-        a = birnn_cuda.fwd_recurrence(torch.from_numpy(z),
-                                      torch.from_numpy(wf),
-                                      torch.from_numpy(lens), reverse=False,
-                                      clip=20.0)
+        before = _launches()
+        a, = birnn_cuda.fwd_recurrence(torch.from_numpy(z),
+                                       (torch.from_numpy(wf),),
+                                       torch.from_numpy(lens), reverse=False,
+                                       clip=20.0)
         b = birnn_cuda.fwd_recurrence_plain(
             torch.from_numpy(z), torch.from_numpy(wf),
             torch.from_numpy(lens), reverse=False, clip=20.0)
         assert torch.equal(a, b)
-        assert birnn_cuda.KERNEL.launches == before
+        assert _launches() == before
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
+        """A kernel's plan refuses CPU tensors: it never falls back to the
+        plain loop."""
         z, wf, _, lens, _ = _recurrence_inputs(6, 5, 2, 8, 0.3)
-        with pytest.raises(ValueError):
-            birnn_cuda.fwd_recurrence_cuda(
-                torch.from_numpy(z), torch.from_numpy(wf),
-                torch.from_numpy(lens), reverse=False, clip=20.0)
+        with pytest.raises(ValueError, match="CUDA device"):
+            birnn_cuda.fwd_recurrence(
+                torch.from_numpy(z), (torch.from_numpy(wf),),
+                torch.from_numpy(lens), reverse=False, clip=20.0,
+                plan=birnn_cuda.plan(2, 8, _F32))
+        with pytest.raises(ValueError, match="launches no kernel"):
+            birnn_cuda.launch(birnn_cuda.PLAIN, False, torch.from_numpy(z),
+                              (torch.from_numpy(wf),),
+                              (torch.from_numpy(lens),), reverse=False,
+                              clip=20.0)
+        # a plan of both directions a launch needs both directions' W
+        with pytest.raises(ValueError, match="2 directions a launch for 1"):
+            birnn_cuda.launch(birnn_cuda.plan(2, 8, _BF16, directions=2),
+                              False, torch.from_numpy(z),
+                              (torch.from_numpy(wf),),
+                              (torch.from_numpy(lens),), reverse=False,
+                              clip=20.0)
 
     def test_cpu_tensors_use_the_plain_delta_loop(self):
         z, wf, _, lens, _ = _recurrence_inputs(7, 6, 2, 8, 0.3)
         z, wf = torch.from_numpy(z), torch.from_numpy(wf)
         hs = birnn_cuda.fwd_recurrence_plain(z, wf, torch.from_numpy(lens),
                                              reverse=False, clip=20.0)
-        before = birnn_cuda.BWD_KERNEL.launches
-        a = birnn_cuda.bwd_recurrence(z, hs, wf.t(), reverse=True,
-                                      clip=20.0)
+        before = _launches()
+        a, = birnn_cuda.bwd_recurrence(z, (hs,), (wf.t(),), reverse=True,
+                                       clip=20.0)
         b = birnn_cuda.bwd_recurrence_plain(z, hs, wf.t(), reverse=True,
                                             clip=20.0)
         assert torch.equal(a, b)
-        assert birnn_cuda.BWD_KERNEL.launches == before
+        assert _launches() == before
         with pytest.raises(ValueError):
-            birnn_cuda.bwd_recurrence_cuda(z, hs, wf.t(), reverse=True,
-                                           clip=20.0)
+            birnn_cuda.bwd_recurrence(z, (hs,), (wf.t(),), reverse=True,
+                                      clip=20.0,
+                                      plan=birnn_cuda.plan(2, 8, _F32))
 
     @pytest.mark.parametrize("b,h,dtype,refusal", [
         (64, 1824, torch.bfloat16, None), (128, 2048, torch.bfloat16, None),
@@ -422,7 +449,7 @@ class TestKernelGuards:
     def test_limits_are_the_jax_kernel_s(self, dtype):
         """``check_supported`` takes exactly the widths that
         ``birnn_pallas.supported`` admits for the dtype (B <= 128), and the
-        instance is the narrow one up to 16 columns a block on 132 SMs."""
+        plan is the narrow instance up to 16 columns a block on 132 SMs."""
         jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
         for h in [1, 100, 2112, 2113, 3000, 4096, 4097, 5000, 6016, 6017,
                   6144, 8192]:
@@ -430,7 +457,7 @@ class TestKernelGuards:
             assert birnn_cuda.jax_admits(h, tdt) == want, h
             if want:
                 birnn_cuda.check_supported(128, h, tdt)
-                assert birnn_cuda.instance(h, tdt) == (
+                assert birnn_cuda.plan(128, h, tdt).code == (
                     "narrow" if h <= 2112 else "wide")
             else:
                 with pytest.raises(NotImplementedError):
@@ -446,20 +473,22 @@ class TestKernelGuards:
     def test_exchange_layout(self, b, h, shape, grid):
         """The zeroed exchange buffer pads B and H to multiples of 16, so
         its rows are 16-byte aligned for the bf16 kernel's copies; a narrow
-        launch has one block per 16 columns, and its bf16 block's shared
+        plan has one block per 16 columns, and its bf16 block's shared
         memory is its copy rings (8 warps x 4 stages x 4 KB) and W's 16
-        padded columns; a wide launch deals the 16-column tiles over at
-        most one block a SM (132), ``grid`` = (blocks, tiles a block)."""
+        padded columns; a wide plan deals the 16-column tiles over at most
+        one block a SM (132), ``grid`` = (blocks, tiles a block)."""
         assert birnn_cuda.exchange_shape(b, h) == shape
         assert shape[2] * 2 % 16 == 0
+        p = birnn_cuda.plan(b, h, _BF16)
         if isinstance(grid, tuple):
-            assert birnn_cuda.instance(h, torch.bfloat16) == "wide"
-            assert birnn_cuda.wide_grid(h) == grid
+            assert p.code == "wide"
+            assert (p.grid, p.cols // 16) == grid
+            assert p.counters == ("birnn_fwd_wide", "birnn_bwd_wide")
             return
-        assert birnn_cuda.instance(h, torch.bfloat16) == "narrow"
-        assert birnn_cuda.grid_size(h) == grid
-        assert birnn_cuda.smem_bytes(h, torch.bfloat16) == (
-            8 * 4 * 4096 + 16 * (shape[2] + 8) * 2)
+        assert (p.code, p.directions, p.cols, p.grid) == ("narrow", 1, 16,
+                                                          grid)
+        assert p.smem == 8 * 4 * 4096 + 16 * (shape[2] + 8) * 2
+        assert p.counters == ("birnn_fwd", "birnn_bwd")
 
     def test_step_breakdown_anchors_match_the_kernel(self):
         """torch_tools/birnn_step_breakdown.py stamps a copy of birnn.cu at
@@ -470,127 +499,163 @@ class TestKernelGuards:
         spec = importlib.util.spec_from_file_location("breakdown", path)
         tool = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(tool)
-        with open(birnn_cuda.KERNEL.source) as f:
+        with open(_COUNTERS["birnn_fwd"].source) as f:
             src = f.read()
-        assert [src.count(anchor) for anchor, _ in tool.STAMPS] == [1] * len(
-            tool.STAMPS)
-        wide = tool.WIDE_DESIGNS[tool.wide_design(src)]["stamps"]
-        assert [src.count(anchor) for anchor, _ in wide] == [1] * len(wide)
+        for stamps in (tool.STAMPS, tool.WIDE_STAMPS):
+            assert [src.count(anchor) for anchor, _ in stamps] == [1] * len(
+                stamps)
 
     def test_refusal_counts_the_card_s_sms(self):
-        """The instance follows the card's SMs: H = 1824 is narrow on 114
-        and wide on 113 (2 tiles a block); a card too small for 4 tiles a
-        block refuses, naming its SMs."""
-        birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=114)
-        assert birnn_cuda.instance(1824, torch.bfloat16, 114) == "narrow"
-        birnn_cuda.check_supported(64, 1824, torch.bfloat16, n_sm=113)
-        assert birnn_cuda.instance(1824, torch.bfloat16, 113) == "wide"
-        assert birnn_cuda.wide_grid(1824, 113) == (57, 2)
+        """The plan follows the card's SMs: H = 1824 is narrow on 114 and
+        wide on 113 (2 tiles a block); a card too small for 4 tiles a block
+        refuses, naming its SMs."""
+        birnn_cuda.check_supported(64, 1824, _BF16, n_sm=114)
+        assert birnn_cuda.plan(64, 1824, _BF16, n_sm=114).code == "narrow"
+        birnn_cuda.check_supported(64, 1824, _BF16, n_sm=113)
+        p = birnn_cuda.plan(64, 1824, _BF16, n_sm=113)
+        assert (p.code, p.grid, p.cols) == ("wide", 57, 32)
         with pytest.raises(NotImplementedError, match="over the 60 SMs"):
-            birnn_cuda.check_supported(64, 4096, torch.bfloat16, n_sm=60)
+            birnn_cuda.check_supported(64, 4096, _BF16, n_sm=60)
+        with pytest.raises(NotImplementedError, match="over the 60 SMs"):
+            birnn_cuda.plan(64, 4096, _BF16, directions=2, n_sm=60)
 
-    @pytest.mark.parametrize("b,h,dtype,bidirectional,n_sm,grid,cols", [
-        (32, 1024, torch.bfloat16, True, 132, 128, 16),
-        (32, 1056, torch.bfloat16, True, 132, 132, 16),
-        (32, 100, torch.bfloat16, True, 132, 14, 16),
-        (32, 1057, torch.bfloat16, True, 132, 68, 32),
-        (64, 1824, torch.bfloat16, True, 132, 114, 32),
-        (16, 1824, torch.bfloat16, True, 132, 114, 32),
-        (80, 1824, torch.bfloat16, True, 132, 0, 0),
-        (64, 1824, torch.bfloat16, True, 100, 0, 0),
-        (64, 1104, torch.bfloat16, True, 132, 70, 32),
-        (64, 2080, torch.bfloat16, True, 132, 130, 32),
-        (64, 2081, torch.bfloat16, True, 132, 0, 0),
-        (32, 1024, torch.float32, True, 132, 0, 0),
-        (64, 1824, torch.float32, True, 132, 0, 0),
-        (32, 2560, torch.bfloat16, True, 132, 0, 0),
-        (16, 4096, torch.bfloat16, True, 132, 0, 0),
-        (32, 1024, torch.bfloat16, False, 132, 0, 0),
-        (64, 1824, torch.bfloat16, False, 132, 0, 0),
-        (32, 1024, torch.bfloat16, True, 100, 64, 32),
-        (32, 784, torch.bfloat16, True, 100, 98, 16)])
-    def test_both_directions_in_one_launch(self, b, h, dtype, bidirectional,
-                                           n_sm, grid, cols):
-        """``bi_grid``: one launch sweeps both directions of a bidirectional
-        bf16 layer, 2 grid_size(H) blocks of 16 columns where both halves
-        fit one block a SM in the narrow instance (H <= 1056 on 132 SMs),
-        else 2 ceil(H / 32) blocks of 32 columns where B <= 64 and they fit
-        with a block's shared memory (H <= 2080 on 132 SMs; 1104: a last
-        block of 16 live columns); else (0, 0): B = 80, f32, the wide
-        instance at 2560 and 4096, one direction, too few SMs."""
-        assert birnn_cuda.bi_grid(b, h, dtype, n_sm,
-                                  bidirectional=bidirectional) == (grid, cols)
-        if cols == 16:
-            assert grid == 2 * birnn_cuda.grid_size(h) <= n_sm
-            assert birnn_cuda.instance(h, dtype, n_sm) == "narrow"
-        elif cols == 32:
-            assert 2 * birnn_cuda.grid_size(h) > n_sm
-            assert grid == 2 * -(-h // 32) <= n_sm and b <= 64
-            assert birnn_cuda.smem_bytes(h, dtype, 32) <= 232448
+    @pytest.mark.parametrize("b,h,dtype,directions,n_sm,want", [
+        (32, 1024, _BF16, 2, 132, ("narrow", 2, 32, 64)),
+        (32, 1056, _BF16, 2, 132, ("narrow", 2, 32, 66)),
+        (32, 100, _BF16, 2, 132, ("narrow", 2, 32, 8)),
+        (32, 1057, _BF16, 2, 132, ("narrow", 2, 32, 68)),
+        (64, 1824, _BF16, 2, 132, ("narrow", 2, 32, 114)),
+        (16, 1824, _BF16, 2, 132, ("narrow", 2, 32, 114)),
+        (80, 1824, _BF16, 2, 132, ("narrow", 1, 16, 114)),
+        (64, 1824, _BF16, 2, 100, ("wide", 1, 32, 57)),
+        (64, 1104, _BF16, 2, 132, ("narrow", 2, 32, 70)),
+        (64, 2080, _BF16, 2, 132, ("narrow", 2, 32, 130)),
+        (64, 2081, _BF16, 2, 132, ("narrow", 1, 16, 131)),
+        (32, 1024, _F32, 2, 132, ("narrow", 1, 16, 64)),
+        (64, 1824, _F32, 2, 132, ("narrow", 1, 16, 114)),
+        (32, 2560, _BF16, 2, 132, ("wide", 1, 32, 80)),
+        (16, 4096, _BF16, 2, 132, ("wide", 1, 32, 128)),
+        (32, 1024, _BF16, 1, 132, ("narrow", 1, 16, 64)),
+        (64, 1824, _BF16, 1, 132, ("narrow", 1, 16, 114)),
+        (32, 1024, _BF16, 2, 100, ("narrow", 2, 32, 64)),
+        (32, 784, _BF16, 2, 100, ("narrow", 2, 32, 50)),
+        # 65-128 rows at H <= 1056: one direction a launch
+        (128, 1024, _BF16, 2, 132, ("narrow", 1, 16, 64)),
+        (65, 100, _BF16, 2, 132, ("narrow", 1, 16, 7))])
+    def test_both_directions_in_one_launch(self, b, h, dtype, directions,
+                                           n_sm, want):
+        """``plan``: one launch sweeps both directions of a bidirectional
+        bf16 layer, 2 ceil(H / 32) blocks of 32 columns where B <= 64 and
+        they fit one a SM with a block's shared memory (H <= 2080 on 132
+        SMs; 1104: a last block of 16 live columns); else one direction a
+        launch (B > 64, f32, the wide instance at 2560 and 4096, one
+        direction asked, too few SMs), each with its counters."""
+        p = birnn_cuda.plan(b, h, dtype, directions=directions, n_sm=n_sm)
+        assert (p.code, p.directions, p.cols, p.grid) == want
+        assert p.counters == tuple(birnn_cuda.INSTANCES[
+            p.code, p.directions][1:])
+        if p.directions == 2:
+            assert p.grid == 2 * -(-h // 32) <= n_sm and b <= 64
+            assert p.smem == 8 * 3 * 4096 + 32 * (-(-h // 16) * 16 + 8) * 2
+            assert p.smem <= 232448
 
-    @pytest.mark.parametrize("name,cols", [
-        ("timit_subset_1layer", 0), ("timit_full_3layer", 16),
-        ("swbd_5layer_dp", 32), ("swbd_beam_decode", 32),
-        ("swbd_wide_tp", 0)])
-    def test_which_presets_sweep_both_directions_at_once(self, name, cols):
-        """At the preset's batch on an H100 SXM, preset 2 (bf16, H = 1024)
-        takes the one launch at 16 columns a block; presets 3 and 4 (H =
-        1824, B = 64, and 16 a card under DP4: 2 x 114 blocks of 16 do not
-        fit) at 32; preset 1 (f32) and preset 5 (the wide instance) launch a
-        direction at a time."""
+    @pytest.mark.parametrize("name,directions", [
+        ("timit_subset_1layer", 1), ("timit_full_3layer", 2),
+        ("swbd_5layer_dp", 2), ("swbd_beam_decode", 2),
+        ("swbd_wide_tp", 1)])
+    def test_which_presets_sweep_both_directions_at_once(self, name,
+                                                         directions):
+        """At the preset's batch on an H100 SXM, presets 2 (bf16, H = 1024,
+        B = 32), 3 and 4 (H = 1824, B = 64, and 16 a card under DP4) take
+        the one launch of both directions at 32 columns a block; preset 1
+        (f32) and preset 5 (the wide instance) launch a direction at a
+        time."""
         cfg = get_config(name)
         for n_b in {cfg.data.batch_size, max(1, cfg.data.batch_size // 4)}:
-            assert birnn_cuda.bi_grid(
+            p = birnn_cuda.plan(
                 n_b, cfg.model.hidden_dim,
                 getattr(torch, cfg.model.compute_dtype),
-                bidirectional=cfg.model.bidirectional)[1] == cols
+                directions=1 + cfg.model.bidirectional)
+            assert p.directions == directions
+            assert p.cols == 32 or directions == 1
 
     def test_fused_kernels_share_b1_s_library(self):
-        """The fused launches (16 and 32 columns a block) are counted on
-        kernels of their own, listed by ``ops.kernels()`` and built from
-        B1's source; a fused launch counts as two direction sweeps."""
+        """Every row of ``INSTANCES`` counts B1's and B2's launches on
+        counters of their own, listed by ``ops.kernels()`` under today's
+        names and built from B1's source; a fused launch counts as two
+        direction sweeps, a wide one as none."""
         from tpu_ctc_torch.ops import kernels
         by_name = {k.name: k for k in kernels()}
-        assert by_name["birnn_fwd_bi"] is birnn_cuda.FWD_BI_KERNEL
-        assert by_name["birnn_bwd_bi"] is birnn_cuda.BWD_BI_KERNEL
-        assert by_name["birnn_fwd_bi32"] is birnn_cuda.FWD_BI32_KERNEL
-        assert by_name["birnn_bwd_bi32"] is birnn_cuda.BWD_BI32_KERNEL
-        for name in ("birnn_fwd_bi", "birnn_bwd_bi", "birnn_fwd_bi32",
-                     "birnn_bwd_bi32"):
-            assert by_name[name].library == birnn_cuda.KERNEL.library
-            assert by_name[name].source == birnn_cuda.KERNEL.source
+        names = ["birnn_fwd", "birnn_bwd", "birnn_fwd_wide", "birnn_bwd_wide",
+                 "birnn_fwd_bi32", "birnn_bwd_bi32"]
+        assert list(_COUNTERS) == names
+        for name in names:
+            assert by_name[name] is _COUNTERS[name]
+            assert by_name[name].library == _COUNTERS["birnn_fwd"].library
+            assert by_name[name].source == _CSRC
+        assert "birnn_fwd_bi" not in by_name
         assert birnn_cuda.direction_sweeps(
-            {"birnn_fwd": 3, "birnn_fwd_bi": 6, "birnn_bwd_bi": 6,
+            {"birnn_fwd": 3, "birnn_fwd_bi32": 6, "birnn_bwd_bi32": 6,
              "ctc_beta": 6}) == {"birnn_fwd": 15, "birnn_bwd": 12}
         assert birnn_cuda.direction_sweeps(
             {"birnn_fwd": 1, "birnn_fwd_bi32": 5, "birnn_bwd_bi32": 5,
-             "birnn_bwd_bi": 2}) == {"birnn_fwd": 11, "birnn_bwd": 14}
+             "birnn_bwd": 2, "birnn_fwd_wide": 4}) == {"birnn_fwd": 11,
+                                                       "birnn_bwd": 12}
+
+    def test_plan_holds_the_kernel_s_constants(self):
+        """The plan's copies of birnn.cu's constants, parsed from the
+        source: a block's warps, a ring stage's bytes, the stages and rows
+        a narrow block of each column count allows, the padding, the wide
+        block's most tiles, a direction's counter stride; and the narrow
+        rows of ``INSTANCES`` are the (directions, columns) that
+        ``dispatch`` instantiates."""
+        with open(_CSRC) as f:
+            src = f.read()
+
+        def const(name):
+            m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+            return m.group(1)
+        assert int(const("kThreads")) // 32 == birnn_cuda._WARPS
+        assert const("kWarps") == "kThreads / 32"
+        assert int(const("kStageBytes")) == birnn_cuda._STAGE_BYTES
+        assert int(const("kMaxB")) == birnn_cuda.MAX_BATCH
+        assert int(const("kCols")) == birnn_cuda._COLS
+        assert int(const("kPad")) == birnn_cuda._PAD
+        assert int(const("kKc")) == birnn_cuda._KC
+        assert int(const("kMaxOwn")) == birnn_cuda._MAX_OWN
+        assert int(const("kCountStride")) == birnn_cuda._COUNT_STRIDE
+        stages = re.search(r"int ring_stages\(int cols\) \{\s*return cols == "
+                           r"16 \? (\d+) : (\d+);", src)
+        assert {16: int(stages.group(1)), 32: int(stages.group(2))} == (
+            birnn_cuda._RING_STAGES)
+        rows = re.search(r"int max_rows\(int cols\) \{\s*return cols == 16 "
+                         r"\? kMaxB : (\d+);", src)
+        assert {16: birnn_cuda.MAX_BATCH, 32: int(rows.group(1))} == (
+            birnn_cuda._MAX_ROWS)
+        launched = {(int(d), 16 if n == "kCols" else int(n)) for d, n in
+                    re.findall(r"launch_sweeps<kBwd, (\d), (\w+)>\(", src)}
+        assert launched == {(d, row[0]) for (code, d), row in
+                            birnn_cuda.INSTANCES.items() if code == "narrow"}
 
     def test_cpu_tensors_sweep_both_directions_in_the_plain_loops(self):
-        """``fwd_bi_recurrence`` and ``bwd_bi_recurrence`` on CPU tensors
-        are the plain loops of each direction, and count no launch."""
+        """``fwd_recurrence`` and ``bwd_recurrence`` of two directions on
+        CPU tensors are the plain loops of each direction, and count no
+        launch."""
         z, wf, wb, lens, _ = (torch.from_numpy(a) for a in
                               _recurrence_inputs(8, 7, 3, 8, 0.3))
         g = z.flip(0)
-        before = (birnn_cuda.FWD_BI_KERNEL.launches,
-                  birnn_cuda.BWD_BI_KERNEL.launches,
-                  birnn_cuda.FWD_BI32_KERNEL.launches,
-                  birnn_cuda.BWD_BI32_KERNEL.launches,
-                  birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches)
-        hs_f, hs_b = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
+        before = _launches()
+        hs_f, hs_b = birnn_cuda.fwd_recurrence(z, (wf, wb), lens,
+                                               reverse=False, clip=20.0)
         assert torch.equal(hs_f, birnn_cuda.fwd_recurrence_plain(
             z, wf, lens, reverse=False, clip=20.0))
         assert torch.equal(hs_b, birnn_cuda.fwd_recurrence_plain(
             z, wb, lens, reverse=True, clip=20.0))
-        d_f, d_b = birnn_cuda.bwd_bi_recurrence(g, hs_f, hs_b, wf.t(), wb.t(),
-                                                clip=20.0)
+        d_f, d_b = birnn_cuda.bwd_recurrence(g, (hs_f, hs_b),
+                                             (wf.t(), wb.t()), reverse=True,
+                                             clip=20.0)
         assert torch.equal(d_f, birnn_cuda.bwd_recurrence_plain(
             g, hs_f, wf.t(), reverse=True, clip=20.0))
         assert torch.equal(d_b, birnn_cuda.bwd_recurrence_plain(
             g, hs_b, wb.t(), reverse=False, clip=20.0))
-        assert (birnn_cuda.FWD_BI_KERNEL.launches,
-                birnn_cuda.BWD_BI_KERNEL.launches,
-                birnn_cuda.FWD_BI32_KERNEL.launches,
-                birnn_cuda.BWD_BI32_KERNEL.launches,
-                birnn_cuda.KERNEL.launches,
-                birnn_cuda.BWD_KERNEL.launches) == before
+        assert _launches() == before

@@ -16,12 +16,12 @@ plain version's matmuls), and two launches are bit-equal; the walk of
 the best slot's backpointers equals the plain walk to the bit.  Kernels
 B1 and B2 store bf16 states (deltas) that may round the other way where
 the two sum the f32 dot in different orders: within 2^-6 |h| + 2e-2 at
-bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal; both
-directions of a layer in one launch (``birnn_cuda.bi_grid``, 16 or 32
-columns of W a block) are bit-equal to one launch a direction, also
-through ``BiRecurrence`` and replayed in a
-CUDA graph, and launch counts read direction sweeps (a fused launch sweeps
-two).  Kernels
+bf16, 1e-4 at f32; two launches of a bf16 kernel are bit-equal; the wide
+instance, planned at narrow widths, is bit-equal to the narrow one; both
+directions of a layer in one launch (``birnn_cuda.plan``: 32 columns of W
+a block) are bit-equal to one launch a direction, also through
+``BiRecurrence`` and replayed in a CUDA graph, and launch counts read
+direction sweeps (a fused launch sweeps two).  Kernels
 B3 and B4 do the plain sweeps' float steps in the same order with
 expf/logf: bit-equal, sentinels included.  The dense layers' bf16 GEMM
 (f32 output) equals the f32 product of the same values up to the order of
@@ -82,13 +82,29 @@ def _recurrence_inputs(seed, t, b, h):
     return torch.from_numpy(z), torch.from_numpy(w), torch.from_numpy(lens)
 
 
+_C = birnn_cuda.COUNTERS
+
+
+def _b1(z, w, lens, **kw):
+    """One direction of B1 on the card, under the plan for its shape."""
+    return birnn_cuda.fwd_recurrence(z, (w,), lens, **kw)[0]
+
+
+def _b2(g, hs, wt, **kw):
+    """One direction of B2 on the card, under the plan for its shape."""
+    return birnn_cuda.bwd_recurrence(g, (hs,), (wt,), **kw)[0]
+
+
+def _card_plan(dev, b, h, dtype, directions=1):
+    """``birnn_cuda.plan`` on this card's SMs."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return birnn_cuda.plan(b, h, dtype, directions=directions, n_sm=n_sm)
+
+
 def _fwd_sweeps():
     """B1's narrow direction sweeps so far: a fused launch sweeps two."""
     return birnn_cuda.direction_sweeps(
-        {k.name: k.launches for k in (birnn_cuda.KERNEL,
-                                      birnn_cuda.FWD_BI_KERNEL,
-                                      birnn_cuda.FWD_BI32_KERNEL)}
-    )["birnn_fwd"]
+        {name: k.launches for name, k in _C.items()})["birnn_fwd"]
 
 
 def _launch_twice(kernel, launch):
@@ -116,19 +132,18 @@ def test_birnn_kernel_matches_plain(dev, t, b, h, dtype, reverse):
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
 
     def launch():
-        return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                              clip=20.0)
+        return _b1(z, w, lens, reverse=reverse, clip=20.0)
 
     want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
                                            clip=20.0).float()
     if dtype == torch.float32:
-        before = birnn_cuda.KERNEL.launches
+        before = _C["birnn_fwd"].launches
         got = launch().float()
         torch.cuda.synchronize()
-        assert birnn_cuda.KERNEL.launches == before + 1
+        assert _C["birnn_fwd"].launches == before + 1
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
-        got = _launch_twice(birnn_cuda.KERNEL, launch)
+        got = _launch_twice(_C["birnn_fwd"], launch)
         assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
     for i, n in enumerate(lens.tolist()):
         assert torch.all(got[n:, i] == 0)
@@ -145,33 +160,30 @@ def test_wide_birnn_kernels_match_plain(dev, t, b, h, dtype, reverse):
     """B1 (from zero and from h0) and B2 on its states against the plain
     loops, each launch counted on the wide kernel and none on the narrow
     one, two launches bit-equal."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if birnn_cuda.instance(h, dtype, n_sm) != "wide":
-        pytest.skip(f"H={h} takes the narrow instance on {n_sm} SMs")
+    if _card_plan(dev, b, h, dtype).code != "wide":
+        pytest.skip(f"H={h} takes the narrow instance on this card")
     z, w, lens = _recurrence_inputs(t * b + h, t, b, h)
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
     h0 = torch.rand((b, h), generator=torch.Generator().manual_seed(h)).to(
         dev, dtype)
     tol = ((lambda want: 1e-4 + 1e-4 * want.abs()) if dtype == torch.float32
            else (lambda want: 2 ** -6 * want.abs() + 2e-2))
-    narrow = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches)
+    narrow = (_C["birnn_fwd"].launches, _C["birnn_bwd"].launches)
     for carry in (None, h0):
-        got = _launch_twice(birnn_cuda.WIDE_KERNEL, lambda: (
-            birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                           clip=20.0, h0=carry)))
+        got = _launch_twice(_C["birnn_fwd_wide"], lambda: (
+            _b1(z, w, lens, reverse=reverse, clip=20.0, h0=carry)))
         want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
                                                clip=20.0, h0=carry).float()
         assert torch.all((got - want).abs() <= tol(want))
     hs = got.to(dtype)
     g = z.flip(0)
-    d = _launch_twice(birnn_cuda.WIDE_BWD_KERNEL, lambda: (
-        birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=not reverse,
-                                       clip=20.0)))
+    d = _launch_twice(_C["birnn_bwd_wide"], lambda: (
+        _b2(g, hs, w.t(), reverse=not reverse, clip=20.0)))
     want = birnn_cuda.bwd_recurrence_plain(g, hs, w.t(), reverse=not reverse,
                                            clip=20.0).float()
     assert torch.all((d - want).abs() <= tol(want))
-    assert (birnn_cuda.KERNEL.launches,
-            birnn_cuda.BWD_KERNEL.launches) == narrow
+    assert (_C["birnn_fwd"].launches,
+            _C["birnn_bwd"].launches) == narrow
 
 
 @pytest.mark.parametrize("t,b,h,dtype", [
@@ -180,33 +192,43 @@ def test_wide_birnn_kernels_match_plain(dev, t, b, h, dtype, reverse):
     (24, 16, 2048, torch.bfloat16), (18, 16, 2048, torch.float32),
     (20, 16, 100, torch.float32), (12, 128, 1024, torch.bfloat16)])
 def test_wide_instance_is_bit_equal_to_the_narrow_one(dev, t, b, h, dtype):
-    """At a width both instances take, the wide one (forced) sums in the
-    narrow one's order: B1 from h0 and B2 bit-equal to the narrow launch;
-    B = 16 is a TP rank's rows under model = 4 at preset 5."""
+    """At a width both instances take, the wide one sums in the narrow
+    one's order: planned for a card of fewer SMs (2 and 4 column tiles a
+    block), B1 from h0 and B2 bit-equal to the narrow launch, each counted
+    on its own instance's counter; B = 16 is a TP rank's rows under model =
+    4 at preset 5."""
     z, w, lens = _recurrence_inputs(h + b, t, b, h)
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
     h0 = torch.rand((b, h), generator=torch.Generator().manual_seed(b)).to(
         dev, dtype)
-    hs = [birnn_cuda._sweep_cuda(birnn_cuda.KERNEL, z, w, lens, reverse=True,
-                                 clip=20.0, h0=h0, wide=wide)
-          for wide in (False, True)]
-    assert torch.equal(hs[0], hs[1])
-    d = [birnn_cuda._sweep_cuda(birnn_cuda.BWD_KERNEL, z, w.t(), hs[0],
-                                reverse=False, clip=20.0, wide=wide)
-         for wide in (False, True)]
-    assert torch.equal(d[0], d[1])
+    narrow, tiles = _card_plan(dev, b, h, dtype), -(-h // 16)
+    assert narrow.code == "narrow"
+    hs = _b1(z, w, lens, reverse=True, clip=20.0, h0=h0, plan=narrow)
+    d = _b2(z, hs, w.t(), reverse=False, clip=20.0, plan=narrow)
+    for own in (2, 4):
+        wide = birnn_cuda.plan(b, h, dtype, n_sm=-(-tiles // own))
+        assert (wide.code, wide.cols) == ("wide", 16 * own)
+        before = _C["birnn_fwd_wide"].launches, _C["birnn_bwd_wide"].launches
+        assert torch.equal(hs, _b1(z, w, lens, reverse=True, clip=20.0,
+                                   h0=h0, plan=wide))
+        assert torch.equal(d, _b2(z, hs, w.t(), reverse=False, clip=20.0,
+                                  plan=wide))
+        assert (_C["birnn_fwd_wide"].launches,
+                _C["birnn_bwd_wide"].launches) == (before[0] + 1,
+                                                   before[1] + 1)
 
 
 def test_wide_plan_and_limits_on_this_card(dev):
     """``check_supported`` on this card's SMs at the JAX ceiling (bf16
     6016, f32 4096) and above it; the C launcher's plan agrees with
-    ``wide_grid``."""
+    ``plan``'s grid and tiles a block."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for h, dtype in ((6016, torch.bfloat16), (4096, torch.float32)):
         birnn_cuda.check_supported(128, h, dtype, n_sm=n_sm)
-        plan = birnn_cuda.wide_plan(128, h, dtype)
-        assert (plan["grid"], plan["own"]) == birnn_cuda.wide_grid(h, n_sm)
-        assert 0 < plan["smem"] <= 232448
+        on_card = birnn_cuda.wide_plan(128, h, dtype)
+        p = _card_plan(dev, 128, h, dtype)
+        assert (on_card["grid"], on_card["own"]) == (p.grid, p.cols // 16)
+        assert 0 < on_card["smem"] <= 232448
     for h, dtype in ((6017, torch.bfloat16), (4097, torch.float32)):
         with pytest.raises(NotImplementedError, match="JAX package"):
             birnn_cuda.check_supported(16, h, dtype, n_sm=n_sm)
@@ -215,15 +237,11 @@ def test_wide_plan_and_limits_on_this_card(dev):
 def test_birnn_kernel_refuses_what_it_cannot_take(dev):
     z, w, lens = _recurrence_inputs(0, 4, 129, 32)
     with pytest.raises(NotImplementedError):
-        birnn_cuda.fwd_recurrence_cuda(z.to(dev, torch.bfloat16),
-                                       w.to(dev, torch.bfloat16),
-                                       lens.to(dev), reverse=False,
-                                       clip=20.0)
+        _b1(z.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+            lens.to(dev), reverse=False, clip=20.0)
     with pytest.raises(NotImplementedError):                # mixed dtypes
-        birnn_cuda.fwd_recurrence_cuda(z[:, :8].to(dev),
-                                       w.to(dev, torch.bfloat16),
-                                       lens[:8].to(dev), reverse=False,
-                                       clip=20.0)
+        _b1(z[:, :8].to(dev), w.to(dev, torch.bfloat16), lens[:8].to(dev),
+            reverse=False, clip=20.0)
 
 
 def test_model_kernel_path_matches_plain(dev):
@@ -259,19 +277,18 @@ def test_birnn_bwd_kernel_matches_plain(dev, t, b, h, dtype, reverse):
         np.float32)).to(dev, dtype)
 
     def launch():
-        return birnn_cuda.bwd_recurrence_cuda(g, hs, w.t(), reverse=reverse,
-                                              clip=20.0)
+        return _b2(g, hs, w.t(), reverse=reverse, clip=20.0)
 
     want = birnn_cuda.bwd_recurrence_plain(g, hs, w.t(), reverse=reverse,
                                            clip=20.0).float()
     if dtype == torch.float32:
-        before = birnn_cuda.BWD_KERNEL.launches
+        before = _C["birnn_bwd"].launches
         got = launch().float()
         torch.cuda.synchronize()
-        assert birnn_cuda.BWD_KERNEL.launches == before + 1
+        assert _C["birnn_bwd"].launches == before + 1
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
-        got = _launch_twice(birnn_cuda.BWD_KERNEL, launch)
+        got = _launch_twice(_C["birnn_bwd"], launch)
         assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
     assert torch.all(got[hs.float() <= 0] == 0)       # inactive frames
 
@@ -295,36 +312,32 @@ def test_bi_recurrence_grad_kernel_matches_plain(dev):
                                    atol=1e-4 * float(want.abs().max()))
 
 
+_BI_NAMES = ("birnn_fwd", "birnn_bwd", "birnn_fwd_bi32", "birnn_bwd_bi32")
+
+
 def _bi_counts():
-    return (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
-            birnn_cuda.FWD_BI_KERNEL.launches,
-            birnn_cuda.BWD_BI_KERNEL.launches,
-            birnn_cuda.FWD_BI32_KERNEL.launches,
-            birnn_cuda.BWD_BI32_KERNEL.launches)
+    return tuple(_C[name].launches for name in _BI_NAMES)
 
 
-def _bi_cols(dev, b, h):
-    """Columns of W a block of the fused launch at this shape on this card
-    (``bi_grid``): 16 or 32; skips where the directions do not fit at
-    once."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid, cols = birnn_cuda.bi_grid(b, h, torch.bfloat16, n_sm)
-    if not grid:
+def _bi_plan(dev, b, h):
+    """The plan of both directions at this shape on this card; skips where
+    they do not fit at once."""
+    p = _card_plan(dev, b, h, torch.bfloat16, directions=2)
+    if p.directions != 2:
         pytest.skip(f"H={h}, B={b}: both directions do not fit this card "
                     "at once")
-    return cols
+    return p
 
 
-def _fused_counts(cols, n):
-    """_bi_counts' change after n fused launches of B1 and of B2 at cols
-    columns a block."""
-    return [0, 0, n, n, 0, 0] if cols == 16 else [0, 0, 0, 0, n, n]
+def _fused_counts(n):
+    """_bi_counts' change after n fused launches of B1 and of B2."""
+    return [0, 0, n, n]
 
 
 def _bi_inputs(dev, t, b, h):
     """z, wf, wb (bf16) and ragged lengths: the first row full, the second
     one frame long, the last 0 (where there are three rows or more)."""
-    _bi_cols(dev, b, h)
+    _bi_plan(dev, b, h)
     z, wf, lens = _recurrence_inputs(t + b + h, t, b, h)
     wb = _recurrence_inputs(t + b + h + 1, t, b, h)[1]
     if b > 2:
@@ -341,27 +354,31 @@ def _bi_inputs(dev, t, b, h):
                                    (800, 64, 1824), (800, 16, 1824),
                                    (301, 37, 1104)])
 def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
-    """B1 and B2 of both directions in one launch (``bi_grid``: 16 or 32
-    columns a block) are torch.equal to one launch a direction; a fused
-    launch counts once on its own kernel and none on B1's or B2's, and two
-    are bit-equal."""
+    """B1 and B2 of both directions in one launch (``plan``: 32 columns a
+    block) are torch.equal to one launch a direction; a fused launch counts
+    once on its own counter and none on B1's or B2's, and two are
+    bit-equal."""
     z, wf, wb, lens = _bi_inputs(dev, t, b, h)
-    cols = _bi_cols(dev, b, h)
     g = torch.from_numpy(np.random.RandomState(h).randn(t, b, h).astype(
         np.float32)).to(dev, torch.bfloat16)
     c0 = _bi_counts()
-    hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
-    hs_again = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
-    d = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
-    d_again = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
+
+    def fwd():
+        return birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                         clip=20.0)
+
+    def bwd():
+        return birnn_cuda.bwd_recurrence(g, hs, (wf.t(), wb.t()),
+                                         reverse=True, clip=20.0)
+    hs = fwd()
+    hs_again = fwd()
+    d = bwd()
+    d_again = bwd()
     torch.cuda.synchronize()
-    assert [y - x for x, y in zip(c0, _bi_counts())] == _fused_counts(cols,
-                                                                       2)
-    want_hs = [birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=rev,
-                                              clip=20.0)
+    assert [y - x for x, y in zip(c0, _bi_counts())] == _fused_counts(2)
+    want_hs = [_b1(z, w, lens, reverse=rev, clip=20.0)
                for w, rev in ((wf, False), (wb, True))]
-    want_d = [birnn_cuda.bwd_recurrence_cuda(g, h_, w.t(), reverse=rev,
-                                             clip=20.0)
+    want_d = [_b2(g, h_, w.t(), reverse=rev, clip=20.0)
               for h_, w, rev in ((hs[0], wf, True), (hs[1], wb, False))]
     for got, again, want in zip((*hs, *d), (*hs_again, *d_again),
                                 (*want_hs, *want_d)):
@@ -373,31 +390,34 @@ def test_fused_sweeps_equal_one_launch_a_direction(dev, t, b, h):
 
 
 @pytest.mark.parametrize("t,b,h", [(60, 32, 1024), (60, 64, 1824)])
-def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch, t, b,
-                                                     h):
-    """``BiRecurrence`` at preset 2's width (16 columns a block) and at
-    presets 3 and 4's (32) in bf16: its output and its three gradients (dz,
-    dwf, dwb) bit-equal with both directions in one launch and with the
-    fused launch switched off (one launch a direction)."""
+def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, t, b, h):
+    """``BiRecurrence`` at preset 2's width and at presets 3 and 4's in
+    bf16: its output and its three gradients (dz, dwf, dwb) bit-equal with
+    both directions in one launch (``bi_recurrence``'s plan) and under a
+    plan of one direction a launch."""
     z, wf, wb, lens = _bi_inputs(dev, t, b, h)
-    cols = _bi_cols(dev, b, h)
+    one = _card_plan(dev, b, h, torch.bfloat16)
     g = torch.from_numpy(np.random.RandomState(3).randn(t, b, h).astype(
         np.float32)).to(dev)
 
-    def run():
+    def run(plan):
         zz, wf_, wb_ = (x.float().requires_grad_(True) for x in (z, wf, wb))
         c0 = _bi_counts()
-        out = birnn_cuda.bi_recurrence(zz, wf_, wb_, lens, clip=20.0,
-                                       compute_dtype=torch.bfloat16)
+        if plan is None:
+            out = birnn_cuda.bi_recurrence(zz, wf_, wb_, lens, clip=20.0,
+                                           compute_dtype=torch.bfloat16)
+        else:       # z, wf, wb, lengths, clip, cdt, io, bidirectional, plan
+            out = birnn_cuda.BiRecurrence.apply(
+                zz, wf_, wb_, lens, 20.0, torch.bfloat16, torch.bfloat16,
+                True, plan)
         out.backward(g)
         torch.cuda.synchronize()
         n = [y - x for x, y in zip(c0, _bi_counts())]
         return (out.detach(), zz.grad, wf_.grad, wb_.grad), n
-    fused, n_fused = run()
-    monkeypatch.setattr(birnn_cuda, "bi_grid", lambda *a, **k: (0, 0))
-    unfused, n_unfused = run()
-    assert n_fused == _fused_counts(cols, 1)
-    assert n_unfused == [2, 2, 0, 0, 0, 0]
+    fused, n_fused = run(None)
+    unfused, n_unfused = run(one)
+    assert n_fused == _fused_counts(1)
+    assert n_unfused == [2, 2, 0, 0]
     for got, want in zip(fused, unfused):
         assert torch.equal(got, want)
     assert float(fused[2].abs().max()) > 0 and float(fused[3].abs().max()) > 0
@@ -405,26 +425,29 @@ def test_bi_recurrence_fused_is_bit_equal_to_unfused(dev, monkeypatch, t, b,
 
 def test_fused_launch_takes_at_most_64_rows_at_32_columns(dev):
     """At H = 1824 a layer of 80 rows (over the 32-column instance's 64)
-    sweeps one direction a launch, as ``bi_grid`` says: two launches of B1
+    sweeps one direction a launch, as ``plan`` says: two launches of B1
     and two of B2, none fused, and the sweeps equal the plain loops'
     within B1's and B2's limits."""
     t, b, h = 20, 80, 1824
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert birnn_cuda.bi_grid(b, h, torch.bfloat16, n_sm) == (0, 0)
+    assert _card_plan(dev, b, h, torch.bfloat16, directions=2).directions \
+        == 1
     z, wf, lens = _recurrence_inputs(t + b + h, t, b, h)
     wb = _recurrence_inputs(t + b + h + 1, t, b, h)[1]
     z, wf, wb, lens = (z.to(dev, torch.bfloat16), wf.to(dev, torch.bfloat16),
                        wb.to(dev, torch.bfloat16), lens.to(dev))
     g = z.flip(0).contiguous()
     c0 = _bi_counts()
-    hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
-    d = birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0)
+    hs = birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                   clip=20.0)
+    d = birnn_cuda.bwd_recurrence(g, hs, (wf.t(), wb.t()), reverse=True,
+                                  clip=20.0)
     torch.cuda.synchronize()
-    assert [y - x for x, y in zip(c0, _bi_counts())] == [2, 2, 0, 0, 0, 0]
-    want = (*birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0,
-                                          plain=True),
-            *birnn_cuda.bwd_bi_recurrence(g, *hs, wf.t(), wb.t(), clip=20.0,
-                                          plain=True))
+    assert [y - x for x, y in zip(c0, _bi_counts())] == [2, 2, 0, 0]
+    plain = birnn_cuda.PLAIN
+    want = (*birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                       clip=20.0, plan=plain),
+            *birnn_cuda.bwd_recurrence(g, hs, (wf.t(), wb.t()), reverse=True,
+                                       clip=20.0, plan=plain))
     for got, ref in zip((*hs, *d), want):
         got, ref = got.float(), ref.float()
         assert torch.all((got - ref).abs() <= 2 ** -6 * ref.abs() + 2e-2)
@@ -557,10 +580,10 @@ def test_train_step_kernel_path_matches_plain(dev):
     out = []
     for c in (cfg, plain):
         state = step.create_train_state(c, device=dev)
-        counts = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
+        counts = (_C["birnn_fwd"].launches, _C["birnn_bwd"].launches,
                   ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
         state, m = step.train_step(state, bt, c)
-        after = (birnn_cuda.KERNEL.launches, birnn_cuda.BWD_KERNEL.launches,
+        after = (_C["birnn_fwd"].launches, _C["birnn_bwd"].launches,
                  ctc_cuda.ALPHA.launches, ctc_cuda.BETA.launches)
         out.append((m, dict(state.model.named_parameters()),
                     [y - x for x, y in zip(counts, after)]))
@@ -1119,8 +1142,7 @@ def test_birnn_kernel_from_h0_matches_plain(dev, t, b, h, dtype, reverse):
                       h0.to(dev, dtype))
 
     def launch(h0=h0):
-        return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                              clip=20.0, h0=h0)
+        return _b1(z, w, lens, reverse=reverse, clip=20.0, h0=h0)
 
     want = birnn_cuda.fwd_recurrence_plain(z, w, lens, reverse=reverse,
                                            clip=20.0, h0=h0).float()
@@ -1128,7 +1150,7 @@ def test_birnn_kernel_from_h0_matches_plain(dev, t, b, h, dtype, reverse):
         got = launch().float()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
-        got = _launch_twice(birnn_cuda.KERNEL, launch)
+        got = _launch_twice(_C["birnn_fwd"], launch)
         assert torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 2e-2)
     zero = torch.zeros_like(h0)
     assert torch.equal(launch(zero), launch(None))     # h0 = 0 is no h0
@@ -1146,15 +1168,14 @@ def test_birnn_kernel_chunk_chain_is_one_sweep(dev, dtype, reverse):
     t, b, h, n = 64, 32, 1024, 4
     z, w, lens = _recurrence_inputs(3, t, b, h)
     z, w, lens = z.to(dev, dtype), w.to(dev, dtype), lens.to(dev)
-    whole = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=reverse,
-                                           clip=20.0)
+    whole = _b1(z, w, lens, reverse=reverse, clip=20.0)
     step_t = t // n
     starts = list(range(0, t, step_t))
     parts, carry = {}, None
     for s in (starts[::-1] if reverse else starts):
         local = torch.clamp(lens - s, 0, step_t)
-        parts[s] = birnn_cuda.fwd_recurrence_cuda(
-            z[s:s + step_t], w, local, reverse=reverse, clip=20.0, h0=carry)
+        parts[s] = _b1(z[s:s + step_t], w, local, reverse=reverse,
+                       clip=20.0, h0=carry)
         carry = parts[s][0] if reverse else parts[s][-1]
     assert torch.equal(torch.cat([parts[s] for s in starts]), whole)
 
@@ -1200,8 +1221,7 @@ def test_carry_backward_kernels_match_plain_bf16(dev, reverse):
         dev, bf)
     g = torch.from_numpy(r.randn(t, b, h).astype(np.float32)).to(dev)
     z, w, lens = z.to(dev, bf), w.to(dev), lens.to(dev)
-    hs = birnn_cuda.fwd_recurrence_cuda(z, w.to(bf), lens, reverse=reverse,
-                                        clip=20.0, h0=h0)
+    hs = _b1(z, w.to(bf), lens, reverse=reverse, clip=20.0, h0=h0)
     got, want = (birnn_cuda.carry_sweep_grad(
         g, hs, h0, w, reverse=reverse, clip=20.0, cdt=bf, plain=plain)
         for plain in (False, True))
@@ -1218,19 +1238,18 @@ def test_kernels_refuse_a_tensor_off_the_current_device(dev):
     z, w, lens = _recurrence_inputs(1, 6, 4, 64)
     z, w, lens = z.to(dev), w.to(dev, torch.float32), lens.to(dev)
     with pytest.raises(ValueError, match="CUDA device"):
-        birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False, clip=20.0,
+        _b1(z, w, lens, reverse=False, clip=20.0,
                                        h0=torch.zeros(4, 64))
     if torch.cuda.device_count() < 2:
         return
     other = torch.device("cuda", 1)
-    before = birnn_cuda.KERNEL.launches
+    before = _C["birnn_fwd"].launches
     with torch.cuda.device(0):
         with pytest.raises(ValueError, match="cuda:1 but the current "
                                              "device is cuda:0"):
-            birnn_cuda.fwd_recurrence_cuda(z.to(other), w.to(other),
-                                           lens.to(other), reverse=False,
-                                           clip=20.0)
-    assert birnn_cuda.KERNEL.launches == before
+            _b1(z.to(other), w.to(other), lens.to(other), reverse=False,
+                clip=20.0)
+    assert _C["birnn_fwd"].launches == before
 
 
 NCCL_WORKER = """
@@ -1909,16 +1928,13 @@ def test_sweeps_are_captured_as_cooperative_nodes(dev, kind):
     h0 = (torch.randn(8, 256, device=dev).clamp(0, 20).to(torch.bfloat16)
           if kind == "fwd_h0" else None)
     if kind == "bwd":
-        hs = birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False,
-                                            clip=20.0)
+        hs = _b1(z, w, lens, reverse=False, clip=20.0)
 
         def launch():
-            return birnn_cuda.bwd_recurrence_cuda(z, hs, w.t().contiguous(),
-                                                  reverse=True, clip=20.0)
+            return _b2(z, hs, w.t().contiguous(), reverse=True, clip=20.0)
     else:
         def launch():
-            return birnn_cuda.fwd_recurrence_cuda(z, w, lens, reverse=False,
-                                                  clip=20.0, h0=h0)
+            return _b1(z, w, lens, reverse=False, clip=20.0, h0=h0)
     want = launch()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1949,9 +1965,10 @@ def test_fused_sweeps_replay_in_a_graph(dev):
     wft, wbt = wf.t().contiguous(), wb.t().contiguous()
 
     def launch():
-        hs = birnn_cuda.fwd_bi_recurrence(z, wf, wb, lens, clip=20.0)
-        return (*hs, *birnn_cuda.bwd_bi_recurrence(g, *hs, wft, wbt,
-                                                   clip=20.0))
+        hs = birnn_cuda.fwd_recurrence(z, (wf, wb), lens, reverse=False,
+                                       clip=20.0)
+        return (*hs, *birnn_cuda.bwd_recurrence(g, hs, (wft, wbt),
+                                                reverse=True, clip=20.0))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -74,48 +74,37 @@
 //   step, so every read of the buffer half that the next step overwrites,
 //   and every read of its own ring's partial, is done.
 //
-// Both directions in one launch (bf16, narrow; birnn_fwd_bi_launch and
-// birnn_bwd_bi_launch).  A direction's grid is G = H_pad / 16 blocks, one a
-// SM: at preset 2's H = 1024 that is 64 of an H100's 132 SMs, so launching a
-// bidirectional layer's two sweeps one after the other leaves 68 SMs idle
-// for the whole of both.  Where 2 G blocks fit at once (H <= 1056 on 132
-// SMs) one cooperative launch sweeps both: blocks [0, G) direction 0,
-// [G, 2 G) direction 1, each with its own swept input, W, third input,
+// Both directions of a layer in one launch (bf16, narrow, dirs = 2).  One
+// direction at 16 columns a block is G = H_pad / 16 blocks, one a SM: at
+// preset 2's H = 1024, 64 of an H100's 132 SMs idle for the whole of both
+// sweeps, and at presets 3 and 4's H = 1824 two such grids do not fit at
+// once.  So where B <= 64 one cooperative launch of 2 ceil(H_pad / 32)
+// blocks of 32 columns sweeps both (H <= 2080 on 132 SMs): blocks [0, G)
+// direction 0, [G, 2 G) direction 1, each with its own W, third input,
 // output, time order, exchange buffer and counter (kCountStride apart), and
-// a step's barrier counts that direction's G n_mt arrivals alone, so
-// neither direction ever waits for the other.  A block does the arithmetic
-// of the one-direction launch in the same order, so each direction's output
-// is bit-equal to it.  What bounds a fused step: both grids read their
-// previous state from L2 at once, twice the bytes of one direction (2 x 64
-// blocks x 64 KB, 8.4 MB a step at B = 32, H = 1024), while each block's
-// fetch stays latency-bound as it is alone; the two grids share nothing on
-// the card but L2's bandwidth.  Two cooperative grids on two streams are not
-// guaranteed to be co-resident, so one launch holds both.  The direction
-// count is a template argument (mma_sweep_kernel<kBwd, kDirs, kN>): with a
-// runtime count the one-direction kernel kept its operands in registers
-// and ran 7-13% slower a step at H = 1024 and 1824; with kDirs = 1 it is
-// the one-direction kernel as it was.
-//
-// 32 columns a block (kN = 32; birnn_fwd_bi32_launch, birnn_bwd_bi32_launch)
-// for both directions where 2 x 16-column grids do not fit the card (H >
-// 1056 on 132 SMs; presets 3 and 4 at H = 1824: 2 x 57 blocks, the grid one
-// direction takes at 16).  A block keeps 32 columns of W and streams the
-// whole previous state through the same rings, so each block reads the
-// bytes it reads at 16 columns and the card reads them once for both
-// directions, while its mma work a step doubles.  Each warp keeps the same
-// k-range (kt0, kt1) and mma order per column, and the partials are summed
-// in warp order, so each direction stays bit-equal to its one-direction
-// launch.  A warp's accumulators stay at 64 floats, [4 m-tiles][4 n-tiles],
-// so B <= 64; W's 32 columns (117 KB at H = 1824) leave room for rings of
-// 3 stages, and a warp's [64, 32] f32 partial (8 KB) fits its 12 KB ring.
-// Where H_pad is an odd number of 16-column tiles, the last block of a
-// direction holds 16 live columns and stores none past H_pad.  On an H100
-// SXM (700 W) a fused step at H = 1824 takes 0.95-0.97x one direction's
-// 16-column step at B = 64 and 0.92-0.93x at B = 16: every block still
-// reads the whole state, but the first stage lands and the k loop ends
-// sooner (torch_tools/birnn_step_breakdown.py).  Why is not measured: the
-// 114 readers split over two state buffers instead of one, and all 8
-// warps share the epilogue.
+// a step's barrier counts that direction's arrivals alone, so neither
+// direction waits for the other.  Two cooperative grids on two streams are
+// not guaranteed to be co-resident, so one launch holds both.  A block keeps
+// 32 columns of W and streams the whole previous state through the same
+// rings: each block reads the bytes it reads at 16 columns, the card reads
+// the state once for both directions, and a block's mma work a step
+// doubles.  Each warp keeps the same k-range (kt0, kt1) and mma order per
+// column, and the partials are summed in warp order, so each direction is
+// bit-equal to its one-direction launch.  A warp's accumulators stay at 64
+// floats, [4 m-tiles][4 n-tiles], so B <= 64; W's 32 columns (117 KB at H =
+// 1824) leave room for rings of 3 stages, and a warp's [64, 32] f32 partial
+// (8 KB) fits its 12 KB ring.  Where H_pad is an odd number of 16-column
+// tiles, the last block of a direction holds 16 live columns and stores
+// none past H_pad.  The direction count and the columns are template
+// arguments (mma_sweep_kernel<kBwd, kDirs, kN>): with a runtime count the
+// one-direction kernel kept its operands in registers and ran 7-13% slower
+// a step.  On an H100 SXM (700 W) a fused step at H = 1824 takes 0.95-0.97x
+// one direction's 16-column step at B = 64 and 0.92-0.93x at B = 16: every
+// block still reads the whole state, but the first stage lands and the k
+// loop ends sooner (torch_tools/birnn_step_breakdown.py); at H = 1024, B =
+// 32 the fused B1 + B2 take 0.94x what two grids of 16 columns in one
+// launch took.  Why is not measured: the readers split over two state
+// buffers, and all 8 warps share the epilogue.
 //
 // The f32 instances (f32_sweep_kernel: preset 1 and the f32 card tests)
 // keep exact f32 products on the FP32 pipe, with no TF32: they keep the
@@ -1139,21 +1128,18 @@ int launch_coop(const void* kern, int grid, size_t smem, void** args,
   return (int)cudaGetLastError();
 }
 
-// The wide instances' plan on this card: plan[0] the grid, plan[1] the
-// tiles a block owns (at most), plan[2] the pieces of W kept in shared
-// memory (bf16: 16 x 16 pieces a warp, ck k-tiles of every owned tile;
-// f32: 64-k chunks of all owned tiles' columns a block), plan[3] the
-// block's shared memory in bytes.  Returns 0, or cudaErrorInvalidValue or
-// cudaErrorCooperativeLaunchTooLarge when the width does not fit.
-int wide_plan(int n_b, int n_h, int bf16_io, int* plan) {
-  int dev = 0, n_sm = 0, optin = 0;
+// The wide instances' plan at `own` column tiles a block (at most): plan[0]
+// the grid, plan[1] own, plan[2] the pieces of W kept in shared memory
+// (bf16: 16 x 16 pieces a warp, ck k-tiles of every owned tile; f32: 64-k
+// chunks of all owned tiles' columns a block), plan[3] the block's shared
+// memory in bytes.  Returns 0, or cudaErrorInvalidValue when the width does
+// not fit.
+int wide_plan(int n_b, int n_h, int bf16_io, int own, int* plan) {
+  int dev = 0, optin = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const int h_pad = round_up(n_h, kPad), b_pad = round_up(n_b, kPad);
   const int n_tiles = h_pad / kCols;
-  const int own = ceil_div(n_tiles, n_sm);
-  if (own > kMaxOwn) return (int)cudaErrorCooperativeLaunchTooLarge;
   long fixed, unit, want;   // unit: shared memory of one cached k-range step
   int pieces;               // pieces of W a unit holds
   if (bf16_io) {
@@ -1200,36 +1186,38 @@ int launch_sweeps(const void* x, const void* w0, const void* w1,
                      st);
 }
 
-// Both directions of a layer in one launch (bf16, narrow): B1's direction 0
-// forward and 1 reversed, B2's (their deltas) 0 right to left and 1 left to
-// right; each its own exchange buffer, the two halves of xbuf, and counter.
-// kN columns of W a block: 16, or 32 where two 16-column grids do not fit.
-template <bool kBwd, int kN>
-int dispatch_bi(const void* x, const void* w0, const void* w1,
-                const int* lengths, const void* hs0, const void* hs1,
-                void* out0, void* out1, void* xbuf, unsigned int* count,
-                int n_t, int n_b, int n_h, float clip, void* stream) {
-  if (n_b < 1 || n_b > max_rows(kN) || n_h < 1 || n_t < 1)
-    return (int)cudaErrorInvalidValue;
-  return launch_sweeps<kBwd, 2, kN>(x, w0, w1, lengths, hs0, hs1, out0, out1,
-                                    xbuf, count, n_t, n_b, n_h, kBwd ? 1 : 0,
-                                    clip, static_cast<cudaStream_t>(stream));
-}
-
+// One launch of a plan (ops/birnn_cuda.py: plan): `wide` the instance (0
+// narrow, 1 wide), `dirs` the directions it sweeps, `cols` the columns of W
+// a block keeps.  Instantiated: narrow, one direction, 16 columns (bf16 or
+// f32); narrow, both directions of a layer, 32 columns (bf16, B <= 64, a
+// zero carry); wide, one direction, 16 columns a column tile a block owns
+// (at most kMaxOwn, and the fewest blocks of that many).  Anything else is
+// cudaErrorInvalidValue, and nothing runs.
 template <bool kBwd>
-int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
-             const void* h0, void* out, void* xbuf, unsigned int* count,
-             int n_t, int n_b, int n_h, int reverse, float clip, int bf16_io,
-             bool wide, void* stream) {
+int dispatch(const void* x, const void* w0, const void* w1,
+             const int* lengths, const void* hs0, const void* hs1,
+             const void* h0, void* out0, void* out1, void* xbuf,
+             unsigned int* count, int n_t, int n_b, int n_h, int reverse,
+             float clip, int bf16_io, int wide, int dirs, int cols,
+             void* stream) {
   if (n_b < 1 || n_b > kMaxB || n_h < 1 || n_t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int grid = (n_h + kCols - 1) / kCols;
-  int plan[4] = {0, 0, 0, 0};
+  if (dirs == 2) {
+    if (!bf16_io || wide || cols != 32 || h0 != nullptr || n_b > max_rows(32))
+      return (int)cudaErrorInvalidValue;
+    return launch_sweeps<kBwd, 2, 32>(x, w0, w1, lengths, hs0, hs1, out0,
+                                      out1, xbuf, count, n_t, n_b, n_h,
+                                      reverse, clip, st);
+  }
+  const int n_tiles = ceil_div(n_h, kCols), own = cols / kCols;
+  if (dirs != 1 || cols % kCols != 0 || own < 1 || (!wide && own != 1) ||
+      own > kMaxOwn || ceil_div(n_tiles, ceil_div(n_tiles, own)) != own)
+    return (int)cudaErrorInvalidValue;
+  int plan[4] = {n_tiles, 1, 0, 0};
   if (wide) {
-    const int err = wide_plan(n_b, n_h, bf16_io, plan);
+    const int err = wide_plan(n_b, n_h, bf16_io, own, plan);
     if (err != 0) return err;
-    grid = plan[0];
   }
   if (h0 != nullptr) {  // h0's rows into the zeroed first half, in order
     const size_t elem = bf16_io ? sizeof(bf16) : sizeof(float);
@@ -1241,14 +1229,14 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
   // the wide kernels take their cached k-tiles (bf16) or chunks (f32)
   int cap = bf16_io && wide ? plan[2] / plan[1] : plan[2];
   if (bf16_io && !wide)
-    return launch_sweeps<kBwd, 1, kCols>(x, w, w, lengths, hs, hs, out, out,
-                                         xbuf, count, n_t, n_b, n_h, reverse,
-                                         clip, st);
+    return launch_sweeps<kBwd, 1, kCols>(x, w0, w0, lengths, hs0, hs0, out0,
+                                         out0, xbuf, count, n_t, n_b, n_h,
+                                         reverse, clip, st);
   if (bf16_io) {
     const bf16* xp = static_cast<const bf16*>(x);
-    const bf16* wp = static_cast<const bf16*>(w);
-    const bf16* hp = static_cast<const bf16*>(hs);
-    bf16* op = static_cast<bf16*>(out);
+    const bf16* wp = static_cast<const bf16*>(w0);
+    const bf16* hp = static_cast<const bf16*>(hs0);
+    bf16* op = static_cast<bf16*>(out0);
     bf16* bp = static_cast<bf16*>(xbuf);
     const uintptr_t addr = (uintptr_t)xp | (uintptr_t)hp | (uintptr_t)op;
     bool vec = n_h % 8 == 0 && addr % 16 == 0;
@@ -1256,13 +1244,13 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
                     (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
                     (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
                     (void*)&vec, (void*)&cap};
-    return launch_coop((const void*)mma_wide_kernel<kBwd>, grid, plan[3],
+    return launch_coop((const void*)mma_wide_kernel<kBwd>, plan[0], plan[3],
                        args, st);
   }
   const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
-  const float* hp = static_cast<const float*>(hs);
-  float* op = static_cast<float*>(out);
+  const float* wp = static_cast<const float*>(w0);
+  const float* hp = static_cast<const float*>(hs0);
+  float* op = static_cast<float*>(out0);
   float* bp = static_cast<float*>(xbuf);
   if (wide) {
     const uintptr_t addr = (uintptr_t)xp | (uintptr_t)hp | (uintptr_t)op;
@@ -1271,120 +1259,75 @@ int dispatch(const void* x, const void* w, const int* lengths, const void* hs,
                     (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
                     (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip,
                     (void*)&vec, (void*)&cap};
-    const int rows = f32_wide_rows(n_b, plan[1]);
+    const int rows = f32_wide_rows(n_b, own);
     const void* kern =
         rows == 1   ? (const void*)f32_wide_kernel<kBwd, 1>
         : rows == 2 ? (const void*)f32_wide_kernel<kBwd, 2>
         : rows == 4 ? (const void*)f32_wide_kernel<kBwd, 4>
                     : (const void*)f32_wide_kernel<kBwd, 8>;
-    return launch_coop(kern, grid, plan[3], args, st);
+    return launch_coop(kern, plan[0], plan[3], args, st);
   }
   void* args[] = {(void*)&xp, (void*)&wp, (void*)&lengths, (void*)&hp,
                   (void*)&op, (void*)&bp, (void*)&count, (void*)&n_t,
                   (void*)&n_b, (void*)&n_h, (void*)&reverse, (void*)&clip};
-  return launch_coop((const void*)f32_sweep_kernel<kBwd>, grid, smem_f32(n_h),
-                     args, st);
+  return launch_coop((const void*)f32_sweep_kernel<kBwd>, plan[0],
+                     smem_f32(n_h), args, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B1.  z, hs [T, B, H] and w [H, H] in the io type; lengths [B] int32;
-// h0 [B, H] io type, the initial carry, or null for a zero carry; xbuf
-// [2, B_pad, H_pad] io type (B and H rounded up to multiples of 16), zeroed
-// (the zero carry and the padding; h0, when given, is copied into its first
-// half on the stream before the launch); count one zeroed uint32.
-// Returns 0 or a CUDA error code.
-int birnn_fwd_launch(const void* z, const void* w, const int* lengths,
-                     const void* h0, void* hs, void* xbuf, unsigned int* count,
-                     int n_t, int n_b, int n_h, int reverse, float clip,
-                     int bf16, void* stream) {
-  return dispatch<false>(z, w, lengths, nullptr, h0, hs, xbuf, count, n_t, n_b,
-                         n_h, reverse, clip, bf16, false, stream);
+// B1 of one plan.  z [T, B, H] in the io type, shared by the directions;
+// w0, w1 [H, H] in the io type, direction 0's and 1's W (a wide launch: W
+// zero-padded to [H_pad, H_pad] and laid out by column tiles, [H_pad / 16]
+// [H_pad][16], element (k, j) at ((j / 16) H_pad + k) 16 + j % 16); lengths
+// [B] int32; h0 [B, H] io type, one direction's initial carry, or null for
+// a zero carry; hs0, hs1 [T, B, H] the states; xbuf [dirs, 2, B_pad, H_pad]
+// io type (B and H rounded up to multiples of 16), zeroed (the zero carry
+// and the padding; h0, when given, is copied into its first half on the
+// stream before the launch); count dirs x kCountStride zeroed uint32,
+// direction i's counter at kCountStride i.  Direction 0 sweeps in `reverse`
+// time order, direction 1 the other way; w1, hs1 are read only where dirs
+// is 2.  The grid (dirs ceil(H / cols) narrow blocks, or the wide plan's)
+// must be co-resident, else cudaErrorCooperativeLaunchTooLarge and nothing
+// runs.  Returns 0 or a CUDA error code.
+int birnn_fwd_launch(const void* z, const void* w0, const void* w1,
+                     const int* lengths, const void* h0, void* hs0, void* hs1,
+                     void* xbuf, unsigned int* count, int n_t, int n_b,
+                     int n_h, int reverse, float clip, int bf16, int wide,
+                     int dirs, int cols, void* stream) {
+  return dispatch<false>(z, w0, w1, lengths, nullptr, nullptr, h0, hs0, hs1,
+                         xbuf, count, n_t, n_b, n_h, reverse, clip, bf16,
+                         wide, dirs, cols, stream);
 }
 
-// B2.  g, hs, d_out [T, B, H] and wt = W^T [H, H] in the io type; the rest
-// as for B1.  The argument order follows birnn_fwd_launch: the swept input,
-// the weights, the third input (hs here, lengths there), the output.
-int birnn_bwd_launch(const void* g, const void* wt, const void* hs, void* d_out,
-                     void* xbuf, unsigned int* count, int n_t, int n_b, int n_h,
-                     int reverse, float clip, int bf16, void* stream) {
-  return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
-                        n_b, n_h, reverse, clip, bf16, false, stream);
-}
-
-// The wide instances of B1 and B2: the arguments of birnn_fwd_launch and
-// birnn_bwd_launch, except that w (wt) is zero-padded to [H_pad, H_pad] and
-// laid out by column tiles, [H_pad / 16][H_pad][16]: element (k, j) at
-// ((j / 16) H_pad + k) 16 + j % 16.
-int birnn_fwd_wide_launch(const void* z, const void* w, const int* lengths,
-                          const void* h0, void* hs, void* xbuf,
-                          unsigned int* count, int n_t, int n_b, int n_h,
-                          int reverse, float clip, int bf16, void* stream) {
-  return dispatch<false>(z, w, lengths, nullptr, h0, hs, xbuf, count, n_t, n_b,
-                         n_h, reverse, clip, bf16, true, stream);
-}
-
-int birnn_bwd_wide_launch(const void* g, const void* wt, const void* hs,
-                          void* d_out, void* xbuf, unsigned int* count,
-                          int n_t, int n_b, int n_h, int reverse, float clip,
-                          int bf16, void* stream) {
-  return dispatch<true>(g, wt, nullptr, hs, nullptr, d_out, xbuf, count, n_t,
-                        n_b, n_h, reverse, clip, bf16, true, stream);
-}
-
-// B1 of both directions of a bidirectional layer in one launch (bf16,
-// narrow instance; 2 H_pad / 16 blocks, which must be co-resident, else
-// cudaErrorCooperativeLaunchTooLarge and nothing runs).  z [T, B, H] and
-// lengths shared; wf, wb [H, H]; hs_f swept forward with wf, hs_b reversed
-// with wb; xbuf [2, 2, B_pad, H_pad] zeroed, an exchange buffer a
-// direction; count 2 x 32 zeroed uint32, direction i's counter at 32 i.
-int birnn_fwd_bi_launch(const void* z, const void* wf, const void* wb,
-                        const int* lengths, void* hs_f, void* hs_b,
-                        void* xbuf, unsigned int* count, int n_t, int n_b,
-                        int n_h, float clip, void* stream) {
-  return dispatch_bi<false, kCols>(z, wf, wb, lengths, nullptr, nullptr,
-                                   hs_f, hs_b, xbuf, count, n_t, n_b, n_h,
-                                   clip, stream);
-}
-
-// B2 of both directions in one launch: g [T, B, H] shared; wft, wbt the
-// transposed W's; d_f swept right to left over the stored states hs_f, d_b
-// left to right over hs_b; xbuf and count as for birnn_fwd_bi_launch.
-int birnn_bwd_bi_launch(const void* g, const void* wft, const void* wbt,
-                        const void* hs_f, const void* hs_b, void* d_f,
-                        void* d_b, void* xbuf, unsigned int* count, int n_t,
-                        int n_b, int n_h, float clip, void* stream) {
-  return dispatch_bi<true, kCols>(g, wft, wbt, nullptr, hs_f, hs_b, d_f,
-                                  d_b, xbuf, count, n_t, n_b, n_h, clip,
-                                  stream);
-}
-
-// The same two launches with 32 columns of W a block: 2 ceil(H_pad / 32)
-// blocks, B <= 64 (else cudaErrorInvalidValue), the arguments of
-// birnn_fwd_bi_launch and birnn_bwd_bi_launch.
-int birnn_fwd_bi32_launch(const void* z, const void* wf, const void* wb,
-                          const int* lengths, void* hs_f, void* hs_b,
-                          void* xbuf, unsigned int* count, int n_t, int n_b,
-                          int n_h, float clip, void* stream) {
-  return dispatch_bi<false, 32>(z, wf, wb, lengths, nullptr, nullptr, hs_f,
-                                hs_b, xbuf, count, n_t, n_b, n_h, clip,
-                                stream);
-}
-
-int birnn_bwd_bi32_launch(const void* g, const void* wft, const void* wbt,
-                          const void* hs_f, const void* hs_b, void* d_f,
-                          void* d_b, void* xbuf, unsigned int* count, int n_t,
-                          int n_b, int n_h, float clip, void* stream) {
-  return dispatch_bi<true, 32>(g, wft, wbt, nullptr, hs_f, hs_b, d_f, d_b,
-                               xbuf, count, n_t, n_b, n_h, clip, stream);
+// B2 of one plan: g [T, B, H] shared; wt0, wt1 the transposed W's; d0, d1
+// direction 0's and 1's deltas over their stored states hs0, hs1 (from
+// zero: there is no carry); the rest as for birnn_fwd_launch.  The argument
+// order follows it: the swept input, the weights, the third inputs (the
+// states here, the lengths and h0 there), the outputs.
+int birnn_bwd_launch(const void* g, const void* wt0, const void* wt1,
+                     const void* hs0, const void* hs1, void* d0, void* d1,
+                     void* xbuf, unsigned int* count, int n_t, int n_b,
+                     int n_h, int reverse, float clip, int bf16, int wide,
+                     int dirs, int cols, void* stream) {
+  return dispatch<true>(g, wt0, wt1, nullptr, hs0, hs1, nullptr, d0, d1,
+                        xbuf, count, n_t, n_b, n_h, reverse, clip, bf16,
+                        wide, dirs, cols, stream);
 }
 
 // The wide instances' plan (grid, tiles a block, cached pieces, shared
-// memory bytes) on the current card; 0 or a CUDA error code.
+// memory bytes) on the current card: the fewest tiles a block over at most
+// one block a SM.  0, or cudaErrorCooperativeLaunchTooLarge where that is
+// over kMaxOwn, or cudaErrorInvalidValue where the width does not fit.
 int birnn_wide_plan(int n_b, int n_h, int bf16, int* plan) {
-  return wide_plan(n_b, n_h, bf16, plan);
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const int own = ceil_div(ceil_div(n_h, kCols), n_sm);
+  if (own > kMaxOwn) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return wide_plan(n_b, n_h, bf16, own, plan);
 }
 
 }  // extern "C"

@@ -23,24 +23,21 @@ state (or delta) in the compute dtype with f32 accumulation, and each
 dW = sum_t h_neighbour^T d_t are one large product each, outside the
 kernels, as the JAX package leaves them to XLA.
 
-Layout is time-major [T, B, H].  :func:`fwd_recurrence` and
-:func:`bwd_recurrence` launch the kernels (one source, ``csrc/birnn.cu``)
-for CUDA tensors and run the plain loops for CPU tensors; for a CUDA tensor
-they never fall back: what a kernel cannot take raises.  The kernels take
-every width the JAX kernel takes (:func:`check_supported`): up to 16
-columns a block on every SM at once (H <= 2112 on an H100 SXM) the narrow
-instances, above it the wide ones (:func:`instance`), which deal the
-16-column tiles over at most one block a SM, read the previous state once a
-step for all of a block's tiles and stream the part of W that does not fit
-their shared memory; both compute the same values in the same order, and a
-wide launch is counted on its own kernel (``WIDE_KERNEL``,
-``WIDE_BWD_KERNEL``).  Where both directions of a bf16 layer fit the card
-at once in the narrow instance (:func:`bi_grid`), :class:`BiRecurrence`
-sweeps them in one launch of B1 and one of B2, each direction on half the
-grid, bit-equal to the two launches: with 16 columns of W a block where
-that fits twice (H <= 1056 on an H100 SXM; counted on ``FWD_BI_KERNEL`` and
-``BWD_BI_KERNEL``), else with 32 at B <= 64 (H <= 2080; counted on
-``FWD_BI32_KERNEL`` and ``BWD_BI32_KERNEL``).
+Layout is time-major [T, B, H].  :func:`plan` is the one place that
+chooses which row of ``INSTANCES`` (one source, ``csrc/birnn.cu``) runs a
+layer's sweeps on a card; CPU tensors, and callers that pass
+:data:`PLAIN`, run the plain loops.  Where both directions of a
+bf16 layer fit the card at once with 32 columns of W a block (B <= 64, H <=
+2080 on an H100 SXM), one launch sweeps both, each on half the grid.  Else
+one direction a launch: the narrow instance while its 16-column blocks are
+all resident, one a SM (H <= 2112 on an H100 SXM), above it the wide one,
+whose blocks own up to 4 of the 16-column tiles, read the previous state
+once a step for all of them and stream the part of W that does not fit
+their shared memory.  Every instance computes the same values in the same
+order, so each is bit-equal to the others.  :func:`fwd_recurrence` and
+:func:`bwd_recurrence` run one or both directions under a plan, the plain
+loops for CPU tensors; :func:`launch` launches one plan on a card, where
+nothing falls back to the plain loops: what a kernel cannot take raises.
 
 The dense products outside the kernels have an f32 result.  On a card, a
 product of two bf16 operands (the dense forward at a bf16 compute dtype, dW
@@ -54,44 +51,37 @@ On the CPU every product is the f32 product of the same values.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from tpu_ctc_torch.ops._build import CudaKernel, check, ptr, stream_of
 
-KERNEL = CudaKernel("birnn_fwd", source="birnn")
-BWD_KERNEL = CudaKernel("birnn_bwd", source="birnn")
-# The wide instances (H above 16 columns a resident block): kernels of their
-# own in the same library, counted apart from the narrow ones.
-WIDE_KERNEL = CudaKernel("birnn_fwd_wide", source="birnn")
-WIDE_BWD_KERNEL = CudaKernel("birnn_bwd_wide", source="birnn")
-_WIDE = {KERNEL.name: WIDE_KERNEL, BWD_KERNEL.name: WIDE_BWD_KERNEL}
-# Both directions of a layer in one narrow launch (:func:`bi_grid`): kernels
-# of their own in the same library, one count a launch of two sweeps.
-FWD_BI_KERNEL = CudaKernel("birnn_fwd_bi", source="birnn")
-BWD_BI_KERNEL = CudaKernel("birnn_bwd_bi", source="birnn")
-# ... with 32 columns of W a block, where two 16-column grids do not fit
-FWD_BI32_KERNEL = CudaKernel("birnn_fwd_bi32", source="birnn")
-BWD_BI32_KERNEL = CudaKernel("birnn_bwd_bi32", source="birnn")
-_BI = {(False, 16): FWD_BI_KERNEL, (True, 16): BWD_BI_KERNEL,
-       (False, 32): FWD_BI32_KERNEL, (True, 32): BWD_BI32_KERNEL}
-# The kernels' limits.  A block is 256 threads; the bf16 kernel keeps 8
-# m-tiles x 2 n-tiles of f32 accumulators a warp (B <= 128) and takes 172
-# registers a thread (ptxas, 0 spill bytes), within an SM's 64 K; its shared
-# memory (rings and W's columns, over half an SM's) allows one block a SM.
-# Its instance of 32 columns a block keeps 4 x 4 (B <= 64), 152-158
-# registers.
-MAX_BATCH = 128                    # kMaxB of the kernels
-_COLS, _PAD, _KC = 16, 16, 64      # kCols, kPad, kKc of the kernels
-_BI_COLS, _BI_ROWS = 32, 64        # the 32-column instance: max_rows(32)
-# bf16, by columns of W a block: kWarps rings of ring_stages x 4 KB
-_RING_BYTES = {_COLS: 8 * 4 * 4096, _BI_COLS: 8 * 3 * 4096}
-_SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+# The kernels' instances: (code, directions a launch) -> (columns of W a
+# block, B1's launch counter, B2's).  A wide block keeps 16 columns for
+# each column tile it owns (``Plan.cols``).
+INSTANCES = {("narrow", 1): (16, "birnn_fwd", "birnn_bwd"),
+             ("wide", 1): (16, "birnn_fwd_wide", "birnn_bwd_wide"),
+             ("narrow", 2): (32, "birnn_fwd_bi32", "birnn_bwd_bi32")}
+# One launch counter a row and sweep, all over the one library.
+COUNTERS = {name: CudaKernel(name, source="birnn")
+            for _, *names in INSTANCES.values() for name in names}
+# The kernels' limits, copies of birnn.cu's constants.  A block is 8 warps;
+# a narrow bf16 warp keeps 64 f32 accumulators, 8 m-tiles x 2 n-tiles at 16
+# columns a block (B <= 128), 4 x 4 at 32 (B <= 64), and copies the state
+# through a ring of 4 KB stages; W's columns and the rings take over half an
+# SM's shared memory, so one block a SM.
+MAX_BATCH = 128                    # kMaxB
+_COLS, _PAD, _KC = 16, 16, 64      # kCols, kPad, kKc
+_WARPS, _STAGE_BYTES = 8, 4096     # kWarps, kStageBytes
+_RING_STAGES = {16: 4, 32: 3}      # ring_stages(cols)
+_MAX_ROWS = {16: MAX_BATCH, 32: 64}  # max_rows(cols)
 _MAX_OWN = 4                       # kMaxOwn: column tiles a wide block owns
+_COUNT_STRIDE = 32                 # kCountStride: a direction's counter
+_SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 H100_SMS = 132                     # SMs of an H100 SXM: one block each
 _COOP_TOO_LARGE = 720              # cudaErrorCooperativeLaunchTooLarge
-_COUNT_STRIDE = 32                 # kCountStride: a fused launch's counters
 # The JAX kernel's VMEM budget (tpu_ctc/ops/birnn_pallas.py:_VMEM_BUDGET):
 # the widths it admits are the widths the port takes.
 _JAX_VMEM_BUDGET = 80 * 1024 * 1024
@@ -115,77 +105,129 @@ def jax_admits(n_h: int, dtype: torch.dtype) -> bool:
 
 
 def exchange_shape(n_b: int, n_h: int) -> tuple:
-    """Shape of the kernels' zeroed exchange buffer: two halves of
+    """Shape of a direction's zeroed exchange buffer: two halves of
     [B_pad, H_pad], B and H rounded up to multiples of 16 (one mma tile,
     and 16-byte aligned rows for the bf16 kernel's copies)."""
     return (2, _round_up(n_b, _PAD), _round_up(n_h, _PAD))
 
 
-def grid_size(n_h: int) -> int:
-    """Blocks of a narrow launch: one per 16 columns of W, all
-    co-resident."""
-    return -(-n_h // _COLS)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the sweeps of a layer run (:func:`plan`).  ``code``: "plain"
+    (the loops, on any device), "narrow" or "wide"; ``directions``: the
+    directions one launch sweeps (a layer of two directions under a plan
+    of one launches once a direction); ``cols``: the columns of W a block
+    keeps (a wide block: 16 a column tile it owns); ``grid``: a launch's
+    blocks, all resident at once; ``smem``: a narrow block's shared memory
+    in bytes (a wide block takes what ``birnn_wide_plan`` finds on the
+    card: 0 here); ``counters``: the names in ``COUNTERS`` that count B1's
+    and B2's launches."""
+    code: str
+    directions: int = 1
+    cols: int = 0
+    grid: int = 0
+    smem: int = 0
+    counters: Tuple[str, str] = ("", "")
+
+    def counter(self, backward: bool) -> CudaKernel:
+        return COUNTERS[self.counters[backward]]
 
 
-def wide_grid(n_h: int, n_sm: int = H100_SMS) -> tuple:
-    """(blocks, column tiles a block owns) of a wide launch: the H_pad / 16
-    tiles dealt round-robin over at most one block a SM."""
-    tiles = grid_size(n_h)
-    own = -(-tiles // n_sm)
-    return -(-tiles // own), own
+PLAIN = Plan("plain")
 
 
-def smem_bytes(n_h: int, dtype: torch.dtype, cols: int = _COLS) -> int:
-    """Shared memory one narrow block takes: for bf16 the warps' copy rings
-    and W's ``cols`` columns (16, or 32 in a fused launch; a row padded by
-    16 bytes); for f32 W's 16 columns and the staged carry of up to 128
-    rows in k-chunks of 64.  A wide block takes what the card allows
-    (``birnn_wide_plan``): its rings (bf16: a ring of 4 k-tiles a warp;
-    f32: 4 chunks of 64 k a block), and W's pieces cached as far as they
-    fit."""
+def _instance(code: str, directions: int, grid: int, smem: int,
+              cols: int = 0) -> Plan:
+    row_cols, *counters = INSTANCES[code, directions]
+    return Plan(code, directions, cols or row_cols, grid, smem,
+                tuple(counters))
+
+
+def _narrow_smem(n_h: int, dtype: torch.dtype, cols: int) -> int:
+    """Shared memory of a narrow block of ``cols`` columns of W: for bf16
+    the warps' copy rings and W's columns (a row padded by 16 bytes); for
+    f32 W's 16 columns and the staged carry of up to 128 rows in k-chunks
+    of 64."""
     if dtype == torch.bfloat16:
-        return _RING_BYTES[cols] + cols * (_round_up(n_h, _PAD) + 8) * 2
+        return (_WARPS * _RING_STAGES[cols] * _STAGE_BYTES
+                + cols * (_round_up(n_h, _PAD) + 8) * 2)
     return (n_h * _COLS + MAX_BATCH * (_KC + 1)) * 4
 
 
-def instance(n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS) -> str:
-    """Which instance a launch of width ``n_h`` takes on a card of ``n_sm``
-    SMs: "narrow" while its 16-column blocks are co-resident (one a SM) and
-    a block's shared memory fits, else "wide"."""
-    if grid_size(n_h) <= n_sm and smem_bytes(n_h, dtype) <= _SMEM_LIMIT:
-        return "narrow"
-    return "wide"
+def plan(n_b: int, n_h: int, dtype: torch.dtype, *, directions: int = 1,
+         n_sm: int = H100_SMS, what: str = "birnn_fwd") -> Plan:
+    """How ``directions`` (1 or 2) sweeps of a layer of ``n_b`` rows at
+    width ``n_h`` and io dtype ``dtype`` run on a card of ``n_sm`` SMs
+    (:data:`PLAIN`, the loops, is no choice of this function).  Two directions in one launch of 2
+    ceil(H / 32) blocks of 32 columns where the dtype is bf16, B <= 64, the
+    grid fits one block a SM and a block's shared memory fits (H <= 2080 on
+    132 SMs); else one direction a launch: the narrow instance while its
+    ceil(H / 16) blocks of 16 columns and their shared memory fit one a SM,
+    else the wide one, its tiles dealt over at most one block a SM.
+    Raises what the kernels cannot take, naming ``what``: a dtype other
+    than bf16 and f32, B outside 1..128, a width the JAX package's fused
+    kernel does not take (:func:`jax_admits`), a wide block of over 4
+    tiles."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{what} kernel: io dtype {dtype} "
+                                  "(bfloat16 or float32 only)")
+    if not 1 <= n_b <= MAX_BATCH:
+        raise NotImplementedError(
+            f"{what} kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
+    if not jax_admits(n_h, dtype):
+        raise NotImplementedError(
+            f"{what} kernel: H={n_h} at {dtype} is above the widths the "
+            f"JAX package's fused kernel takes (its W must fit "
+            f"{_JAX_VMEM_BUDGET >> 20} MiB of VMEM; the JAX package runs "
+            "the XLA scan there)")
+    if directions == 2 and dtype == torch.bfloat16:
+        cols = INSTANCES["narrow", 2][0]
+        grid, smem = 2 * -(-n_h // cols), _narrow_smem(n_h, dtype, cols)
+        if n_b <= _MAX_ROWS[cols] and grid <= n_sm and smem <= _SMEM_LIMIT:
+            return _instance("narrow", 2, grid, smem)
+    tiles = -(-n_h // _COLS)
+    smem = _narrow_smem(n_h, dtype, _COLS)
+    if tiles <= n_sm and smem <= _SMEM_LIMIT:
+        return _instance("narrow", 1, tiles, smem)
+    own = -(-tiles // n_sm)
+    if own > _MAX_OWN:
+        raise NotImplementedError(
+            f"{what} kernel: H={n_h} needs {own} column tiles of 16 a "
+            f"block over the {n_sm} SMs the card holds (at most "
+            f"{_MAX_OWN})")
+    return _instance("wide", 1, -(-tiles // own), 0, cols=_COLS * own)
 
 
-def bi_grid(n_b: int, n_h: int, dtype: torch.dtype, n_sm: int = H100_SMS,
-            *, bidirectional: bool = True) -> Tuple[int, int]:
-    """(blocks, columns of W a block) of one launch that sweeps both
-    directions of a layer of ``n_b`` rows, half the grid each, where the
-    layer is bidirectional and the io dtype bf16: 16 columns where both
-    halves fit one block a SM in the narrow instance (H <= 1056 on 132
-    SMs); else 32 where B <= 64, both halves of ceil(H / 32) blocks fit and
-    a block's shared memory does (H <= 2080 on 132 SMs); else (0, 0), and
-    the directions launch one after the other."""
-    if not (bidirectional and dtype == torch.bfloat16):
-        return 0, 0
-    grid = 2 * grid_size(n_h)
-    if grid <= n_sm and instance(n_h, dtype, n_sm) == "narrow":
-        return grid, _COLS
-    grid = 2 * -(-n_h // _BI_COLS)
-    if (n_b <= _BI_ROWS and grid <= n_sm
-            and smem_bytes(n_h, dtype, _BI_COLS) <= _SMEM_LIMIT):
-        return grid, _BI_COLS
-    return 0, 0
+def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
+                    what: str = "birnn_fwd", n_sm: int = H100_SMS) -> None:
+    """Raise if the kernels (B1 and B2 share their limits) cannot take
+    this shape or dtype on a card of ``n_sm`` SMs (:func:`plan`'s
+    refusals): B <= 128 and every width that the JAX package's fused
+    kernel takes at this dtype (bf16 H <= 6016, f32 H <= 4096)."""
+    plan(n_b, n_h, dtype, n_sm=n_sm, what=what)
+
+
+def plan_for(x: torch.Tensor, directions: int = 1) -> Plan:
+    """:func:`plan` for ``directions`` sweeps of x [T, B, H] in x's dtype
+    on x's card; the plain loops for CPU tensors."""
+    if not x.is_cuda:
+        return PLAIN
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return plan(x.shape[1], x.shape[2], x.dtype, directions=directions,
+                n_sm=n_sm)
 
 
 def direction_sweeps(launches: Dict[str, int]) -> Dict[str, int]:
-    """Narrow B1 and B2 sweeps of one direction each in a dict of launch
-    counts (kernel name -> launches): ``birnn_fwd`` + 2 ``birnn_fwd_bi`` +
-    2 ``birnn_fwd_bi32``, and the same of B2."""
-    return {k.name: launches.get(k.name, 0)
-            + 2 * launches.get(_BI[bwd, 16].name, 0)
-            + 2 * launches.get(_BI[bwd, 32].name, 0)
-            for k, bwd in ((KERNEL, False), (BWD_KERNEL, True))}
+    """B1's and B2's sweeps of one direction by the narrow instances in a
+    dict of launch counts (counter name -> launches): each narrow row's
+    launches times its directions, under ``birnn_fwd`` and ``birnn_bwd``."""
+    keys = INSTANCES["narrow", 1][1:]
+    sweeps = dict.fromkeys(keys, 0)
+    for (code, directions), (_, *names) in INSTANCES.items():
+        if code == "narrow":
+            for key, name in zip(keys, names):
+                sweeps[key] += directions * launches.get(name, 0)
+    return sweeps
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -277,47 +319,18 @@ def fwd_recurrence_plain(z: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def check_supported(n_b: int, n_h: int, dtype: torch.dtype,
-                    what: str = "birnn_fwd", n_sm: int = H100_SMS) -> None:
-    """Raise if the kernels (B1 and B2 share their limits) cannot take
-    this shape or dtype on a card of ``n_sm`` SMs: B <= 128 and every
-    width that the JAX package's fused kernel takes at this dtype
-    (:func:`jax_admits`: bf16 H <= 6016, f32 H <= 4096), the narrow
-    instance up to 16 n_sm columns (2112 on an H100 SXM), the wide one
-    above, whose blocks own at most 4 column tiles each."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{what} kernel: io dtype {dtype} "
-                                  "(bfloat16 or float32 only)")
-    if not 1 <= n_b <= MAX_BATCH:
-        raise NotImplementedError(
-            f"{what} kernel: batch {n_b} (1..{MAX_BATCH} per launch)")
-    if not jax_admits(n_h, dtype):
-        raise NotImplementedError(
-            f"{what} kernel: H={n_h} at {dtype} is above the widths the "
-            f"JAX package's fused kernel takes (its W must fit "
-            f"{_JAX_VMEM_BUDGET >> 20} MiB of VMEM; the JAX package runs "
-            "the XLA scan there)")
-    if instance(n_h, dtype, n_sm) == "wide":
-        grid, own = wide_grid(n_h, n_sm)
-        if own > _MAX_OWN:
-            raise NotImplementedError(
-                f"{what} kernel: H={n_h} needs {own} column tiles of 16 a "
-                f"block over the {n_sm} SMs the card holds (at most "
-                f"{_MAX_OWN})")
-
-
 def wide_plan(n_b: int, n_h: int, dtype: torch.dtype) -> Dict[str, int]:
     """The wide instance's launch on the current card: grid, tiles a
     block, pieces of W kept in shared memory (bf16: 16 x 16 pieces a warp,
     the last k-tiles of its range for every owned tile; f32: 64-k chunks
     of every owned tile's columns a block, the last chunks of the k range)
     and a block's shared memory in bytes."""
-    plan = (ctypes.c_int * 4)()
-    fn = WIDE_KERNEL.lib().birnn_wide_plan
+    out = (ctypes.c_int * 4)()
+    fn = COUNTERS["birnn_fwd_wide"].lib().birnn_wide_plan
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    check(fn(n_b, n_h, int(dtype == torch.bfloat16), plan), "birnn_wide_plan")
-    return dict(zip(("grid", "own", "cached", "smem"), plan))
+    check(fn(n_b, n_h, int(dtype == torch.bfloat16), out), "birnn_wide_plan")
+    return dict(zip(("grid", "own", "cached", "smem"), out))
 
 
 def wide_weights(w: torch.Tensor) -> torch.Tensor:
@@ -331,152 +344,131 @@ def wide_weights(w: torch.Tensor) -> torch.Tensor:
         .contiguous()
 
 
-def _checked(what: str, x: torch.Tensor, w: torch.Tensor,
-             third: torch.Tensor, h0: torch.Tensor = None) -> int:
-    """Raise on what a launch of B1 or B2 cannot take (x [T, B, H] swept
-    input, w [H, H], ``third`` and ``h0`` as :func:`_sweep_cuda` takes
-    them); the card's SMs."""
-    if not (x.is_cuda and w.is_cuda and third.is_cuda
-            and (h0 is None or h0.is_cuda)):
+def _checked(what: str, x: torch.Tensor, ws, thirds, h0) -> int:
+    """Raise on tensors that do not fit a launch of B1 or B2 (the
+    arguments of :func:`launch`); the card's SMs."""
+    if not all(t is None or t.is_cuda for t in (x, *ws, *thirds, h0)):
         raise ValueError(f"{what} kernel: tensors must be on a CUDA device")
-    if x.dim() != 3 or w.shape != (x.shape[2], x.shape[2]):
-        raise ValueError(f"{what} kernel: {tuple(x.shape)} and w "
-                         f"{tuple(w.shape)} do not fit [T,B,H] x [H,H]")
-    if h0 is not None and (h0.shape != x.shape[1:] or h0.dtype != x.dtype):
+    for w in ws:
+        if x.dim() != 3 or w.shape != (x.shape[2], x.shape[2]):
+            raise ValueError(f"{what} kernel: {tuple(x.shape)} and w "
+                             f"{tuple(w.shape)} do not fit [T,B,H] x [H,H]")
+        if w.dtype != x.dtype:
+            raise NotImplementedError(
+                f"{what} kernel: io dtype {x.dtype} with compute dtype "
+                f"{w.dtype} (the kernel takes one dtype for both)")
+    if h0 is not None and (len(ws) != 1 or h0.shape != x.shape[1:]
+                           or h0.dtype != x.dtype):
         raise ValueError(f"{what} kernel: h0 {tuple(h0.shape)} {h0.dtype} "
-                         f"does not fit [B, H] {x.dtype}")
-    if w.dtype != x.dtype:
-        raise NotImplementedError(
-            f"{what} kernel: io dtype {x.dtype} with compute dtype "
-            f"{w.dtype} (the kernel takes one dtype for both)")
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    check_supported(x.shape[1], x.shape[2], x.dtype, what, n_sm)
-    return n_sm
+                         f"does not fit one direction's [B, H] {x.dtype}")
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
-def _sweep_cuda(kernel: CudaKernel, x: torch.Tensor, w: torch.Tensor,
-                third: torch.Tensor, *, reverse: bool, clip: float,
-                h0: torch.Tensor = None, wide: bool = None) -> torch.Tensor:
-    """Launch B1 or B2: x [T, B, H] swept input, w [H, H] in x's dtype,
-    ``third`` the lengths (B1) or the stored states (B2), ``h0`` B1's
-    initial carry [B, H] in x's dtype or None -> [T, B, H].  The instance
-    is :func:`instance`'s unless ``wide`` names it (the card tests hold
-    the wide one against the narrow one at narrow widths); a wide launch
-    is counted on the wide kernel (``WIDE_KERNEL``, ``WIDE_BWD_KERNEL``)."""
-    what = kernel.name
-    n_sm = _checked(what, x, w, third, h0)
+def launch(p: Plan, backward: bool, x: torch.Tensor, ws: Sequence,
+           thirds: Sequence, *, reverse: bool, clip: float,
+           h0: torch.Tensor = None, lib: ctypes.CDLL = None) -> tuple:
+    """Launch B1 (B2 with ``backward``) on a card under plan ``p`` (None:
+    :func:`plan`'s for these tensors), ``p.directions`` directions a
+    launch -> each direction's output [T, B, H] in x's dtype.  x [T, B,
+    H]: the swept input (z or g), shared; ``ws``: each direction's W (B2:
+    W^T) [H, H] in x's dtype; ``thirds``: the lengths [B] int32, shared
+    (B1), or each direction's stored states (B2); ``h0``: B1's initial
+    carry [B, H] in x's dtype for one direction, or None (zero).  The
+    first direction sweeps in ``reverse`` time order, the second the other
+    way; each has its own zeroed exchange buffer and counter, and each
+    launch counts once on the plan's counter.  What :func:`plan` refuses
+    for these tensors raises, under a given plan too.  Where the card
+    cannot hold a two-direction grid at once, the directions launch in
+    turn.  ``lib`` is another build of ``birnn.cu`` with this C interface
+    (a tool's), else the package's."""
+    if p and p.code == "plain":
+        raise ValueError("the plain plan launches no kernel")
+    what = p.counters[backward] if p else ("birnn_bwd" if backward
+                                           else "birnn_fwd")
+    if p and p.directions > len(ws):
+        raise ValueError(f"{what} kernel: a plan of {p.directions} "
+                         f"directions a launch for {len(ws)} W")
+    n_sm = _checked(what, x, ws, thirds, h0)
+    n_b, n_h = x.shape[1:]
+    # the one plan a launch makes: its refusal is the check, also where
+    # a plan was given
+    own = plan(n_b, n_h, x.dtype, directions=len(ws), n_sm=n_sm, what=what)
+    p = p or own
+    if p.directions == len(ws):
+        outs = _launch(p, backward, x, ws, thirds, reverse, clip, h0, lib)
+        if outs is not None:
+            return outs
+        # the card holds fewer blocks at once than ``n_sm`` promised
+        p = plan(n_b, n_h, x.dtype, n_sm=n_sm, what=what)
+    return tuple(_launch(p, backward, x, ws[i:i + 1],
+                         thirds[i:i + 1] if backward else thirds,
+                         reverse != (i == 1), clip, h0, lib)[0]
+                 for i in range(len(ws)))
+
+
+def _launch(p: Plan, backward: bool, x: torch.Tensor, ws: Sequence,
+            thirds: Sequence, reverse: bool, clip: float, h0, lib):
+    """One launch of :func:`launch` for ``p.directions`` W in ``ws`` ->
+    their outputs, or None where the card cannot hold a two-direction
+    grid at once."""
     n_t, n_b, n_h = x.shape
-    if wide is None:
-        wide = instance(n_h, x.dtype, n_sm) == "wide"
     x = x.contiguous()
-    w = w.contiguous()
-    if wide:
-        kernel = _WIDE[kernel.name]
-        w = wide_weights(w)
-    out = torch.empty_like(x)
-    xbuf = torch.zeros(exchange_shape(n_b, n_h), dtype=x.dtype,
-                       device=x.device)
-    count = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    fn = getattr(kernel.lib(), kernel.name + "_launch")
-    fn.restype = ctypes.c_int
-    carry = []                  # B1 takes h0 (null: a zero carry)
-    if kernel.name in (KERNEL.name, WIDE_KERNEL.name):
-        h0 = None if h0 is None else h0.contiguous()
-        carry = [ctypes.c_void_p(None) if h0 is None else ptr(h0)]
-    fn.argtypes = [ctypes.c_void_p] * (6 + len(carry)) + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    err = fn(ptr(x), ptr(w), ptr(third), *carry, ptr(out), ptr(xbuf),
-             ptr(count), n_t, n_b, n_h, int(reverse), float(clip),
-             int(x.dtype == torch.bfloat16),
-             stream_of(what, x, w, third, h0, out, xbuf, count))
-    if err == _COOP_TOO_LARGE:
-        raise NotImplementedError(
-            f"{what} kernel: H={n_h} needs more co-resident blocks than "
-            "the card holds at once")
-    check(err, what)
-    kernel.launches += 1
-    return out
-
-
-def _bi_sweep_cuda(backward: bool, x: torch.Tensor, ws, thirds, *,
-                   clip: float):
-    """Both directions of a layer in one launch of :func:`bi_grid` blocks,
-    x [T, B, H] shared: B1 (ws = (wf, wb), thirds the lengths twice)
-    sweeps direction 0 forward and 1 reversed, B2 (``backward``; ws =
-    (wf^T, wb^T), thirds = (hs_f, hs_b)) direction 0 right to left and 1
-    left to right; each direction has its own zeroed exchange buffer and
-    counter -> the two outputs.  Counted on ``FWD_BI_KERNEL`` or
-    ``BWD_BI_KERNEL`` at 16 columns a block, ``FWD_BI32_KERNEL`` or
-    ``BWD_BI32_KERNEL`` at 32.  None where the launch does not engage
-    (:func:`bi_grid` is (0, 0), or the card cannot hold the grid at once):
-    nothing ran, and the caller sweeps one direction at a time."""
-    n_t, n_b, n_h = x.shape
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid, cols = bi_grid(n_b, n_h, x.dtype, n_sm)
-    if not grid:
-        return None
-    kernel = _BI[backward, cols]
-    for w, third in zip(ws, thirds):
-        _checked(kernel.name, x, w, third)
-    x = x.contiguous()
-    ws = [w.contiguous() for w in ws]
+    ws = [wide_weights(w) if p.code == "wide" else w.contiguous()
+          for w in ws]
+    thirds = [t.contiguous() for t in thirds]
+    h0 = None if h0 is None else h0.contiguous()
     outs = [torch.empty_like(x) for _ in ws]
-    xbuf = torch.zeros((2,) + exchange_shape(n_b, n_h), dtype=x.dtype,
+    xbuf = torch.zeros((len(ws),) + exchange_shape(n_b, n_h), dtype=x.dtype,
                        device=x.device)
-    count = torch.zeros((2 * _COUNT_STRIDE,), dtype=torch.int32,
+    count = torch.zeros((len(ws) * _COUNT_STRIDE,), dtype=torch.int32,
                         device=x.device)
-    fn = getattr(kernel.lib(), kernel.name + "_launch")
+    # B1 takes the shared lengths and h0 (null: a zero carry), B2 each
+    # direction's states
+    mid = ([ptr(thirds[0]), ptr(thirds[-1])] if backward else
+           [ptr(thirds[0]), ctypes.c_void_p(None) if h0 is None else ptr(h0)])
+    kernel = p.counter(backward)
+    fn = getattr(lib or kernel.lib(),
+                 "birnn_bwd_launch" if backward else "birnn_fwd_launch")
     fn.restype = ctypes.c_int
-    # B1 takes the shared lengths once, B2 each direction's states
-    third = thirds if backward else thirds[:1]
-    args = [ptr(t) for t in (x, *ws, *third, *outs, xbuf, count)]
-    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(*args, n_t, n_b, n_h, float(clip),
-             stream_of(kernel.name, x, *ws, *thirds, *outs, xbuf, count))
-    if err == _COOP_TOO_LARGE:
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(ptr(x), ptr(ws[0]), ptr(ws[-1]), *mid, ptr(outs[0]),
+             ptr(outs[-1]), ptr(xbuf), ptr(count), n_t, n_b, n_h,
+             int(reverse), float(clip), int(x.dtype == torch.bfloat16),
+             int(p.code == "wide"), p.directions, p.cols,
+             stream_of(kernel.name, x, *ws, *thirds, h0, *outs, xbuf, count))
+    if err == _COOP_TOO_LARGE and p.directions == 2:
         return None
+    if err == _COOP_TOO_LARGE:
+        raise NotImplementedError(
+            f"{kernel.name} kernel: H={n_h} needs more co-resident blocks "
+            "than the card holds at once")
     check(err, kernel.name)
     kernel.launches += 1
     return tuple(outs)
 
 
-def fwd_recurrence_cuda(z: torch.Tensor, w: torch.Tensor,
-                        lengths: torch.Tensor, *, reverse: bool,
-                        clip: float, h0: torch.Tensor = None) -> torch.Tensor:
-    """Launch kernel B1 for one direction.  Same contract as
-    :func:`fwd_recurrence_plain`; z and w must share the io dtype, and h0
-    is rounded to it."""
-    return _sweep_cuda(KERNEL, z, w, lengths.to(torch.int32).contiguous(),
-                       reverse=reverse, clip=clip,
-                       h0=None if h0 is None else h0.to(z.dtype))
+def _is_plain(p: Plan, x: torch.Tensor) -> bool:
+    return p.code == "plain" if p else not x.is_cuda
 
 
-def fwd_recurrence(z, w, lengths, *, reverse: bool, clip: float, h0=None):
-    """One direction: kernel B1 for CUDA tensors, the plain loop for CPU
-    tensors."""
-    if z.is_cuda:
-        return fwd_recurrence_cuda(z, w, lengths, reverse=reverse, clip=clip,
-                                   h0=h0)
-    return fwd_recurrence_plain(z, w, lengths, reverse=reverse, clip=clip,
-                                h0=h0)
-
-
-def fwd_bi_recurrence(z, wf, wb, lengths, *, clip: float,
-                      plain: bool = False):
-    """Both directions' states (hs_f swept forward with wf, hs_b reversed
-    with wb): one launch of B1 for the two on a card where :func:`bi_grid`
-    engages, else one a direction; the plain loops for CPU tensors and
-    with ``plain``."""
-    if z.is_cuda and not plain:
-        lengths = lengths.to(torch.int32).contiguous()
-        pair = _bi_sweep_cuda(False, z, (wf, wb), (lengths, lengths),
-                              clip=clip)
-        if pair is not None:
-            return pair
-    fwd = fwd_recurrence_plain if plain else fwd_recurrence
-    return (fwd(z, wf, lengths, reverse=False, clip=clip),
-            fwd(z, wb, lengths, reverse=True, clip=clip))
+def fwd_recurrence(z: torch.Tensor, ws: Sequence, lengths: torch.Tensor, *,
+                   reverse: bool, clip: float, h0: torch.Tensor = None,
+                   plan: Plan = None) -> tuple:
+    """B1: the states of each direction in ``ws`` (W [H, H] each), z [T,
+    B, H] in the io dtype shared, lengths [B] int, the first direction
+    swept in ``reverse`` time order from h0 [B, H] (rounded to z's dtype;
+    zero when None; one direction only), the second the other way -> a
+    tuple of [T, B, H] in z's dtype.  Under ``plan`` (None: the plain
+    loops for CPU tensors, else :func:`plan`'s on the card); a launch's ws
+    must share z's dtype."""
+    if _is_plain(plan, z):
+        return tuple(fwd_recurrence_plain(z, w, lengths, reverse=rev,
+                                          clip=clip, h0=h0)
+                     for w, rev in zip(ws, (reverse, not reverse)))
+    return launch(plan, False, z, ws, (lengths.to(torch.int32),),
+                  reverse=reverse, clip=clip,
+                  h0=None if h0 is None else h0.to(z.dtype))
 
 
 def bwd_recurrence_plain(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
@@ -497,46 +489,22 @@ def bwd_recurrence_plain(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
     return out
 
 
-def bwd_recurrence_cuda(g: torch.Tensor, hs: torch.Tensor, wt: torch.Tensor,
-                        *, reverse: bool, clip: float) -> torch.Tensor:
-    """Launch kernel B2 for one direction.  Same contract as
-    :func:`bwd_recurrence_plain`; g, hs and wt must share the io dtype."""
-    _check_states(g, hs)
-    return _sweep_cuda(BWD_KERNEL, g, wt, hs.contiguous(), reverse=reverse,
-                       clip=clip)
-
-
-def _check_states(g: torch.Tensor, hs: torch.Tensor) -> None:
-    if hs.shape != g.shape or hs.dtype != g.dtype:
-        raise ValueError(f"birnn_bwd kernel: hs {tuple(hs.shape)} {hs.dtype} "
-                         f"does not match g {tuple(g.shape)} {g.dtype}")
-
-
-def bwd_recurrence(g, hs, wt, *, reverse: bool, clip: float):
-    """One direction's delta sweep: kernel B2 for CUDA tensors, the plain
-    loop for CPU tensors."""
-    if g.is_cuda:
-        return bwd_recurrence_cuda(g, hs, wt, reverse=reverse, clip=clip)
-    return bwd_recurrence_plain(g, hs, wt, reverse=reverse, clip=clip)
-
-
-def bwd_bi_recurrence(g, hs_f, hs_b, wft, wbt, *, clip: float,
-                      plain: bool = False):
-    """Both directions' deltas (d_f right to left over hs_f with wft =
-    W_f^T, d_b left to right over hs_b with wbt): one launch of B2 for the
-    two on a card where :func:`bi_grid` engages, else one a direction; the
-    plain loops for CPU tensors and with ``plain``."""
-    if g.is_cuda and not plain:
-        for hs in (hs_f, hs_b):
-            _check_states(g, hs)
-        pair = _bi_sweep_cuda(True, g, (wft, wbt),
-                              (hs_f.contiguous(), hs_b.contiguous()),
-                              clip=clip)
-        if pair is not None:
-            return pair
-    bwd = bwd_recurrence_plain if plain else bwd_recurrence
-    return (bwd(g, hs_f, wft, reverse=True, clip=clip),
-            bwd(g, hs_b, wbt, reverse=False, clip=clip))
+def bwd_recurrence(g: torch.Tensor, hs: Sequence, wts: Sequence, *,
+                   reverse: bool, clip: float, plan: Plan = None) -> tuple:
+    """B2: the deltas of each direction over its stored forward states in
+    ``hs`` with its W^T in ``wts`` [H, H], g [T, B, H] in the io dtype
+    shared, the first direction swept in ``reverse`` time order, the
+    second the other way -> a tuple of [T, B, H] in g's dtype.  Under
+    ``plan`` as :func:`fwd_recurrence`."""
+    for h in hs:
+        if h.shape != g.shape or h.dtype != g.dtype:
+            raise ValueError(f"birnn_bwd kernel: hs {tuple(h.shape)} "
+                             f"{h.dtype} does not match g {tuple(g.shape)} "
+                             f"{g.dtype}")
+    if _is_plain(plan, g):
+        return tuple(bwd_recurrence_plain(g, h, wt, reverse=rev, clip=clip)
+                     for h, wt, rev in zip(hs, wts, (reverse, not reverse)))
+    return launch(plan, True, g, wts, hs, reverse=reverse, clip=clip)
 
 
 def _weight_grad(h_nb: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -556,38 +524,36 @@ class BiRecurrence(torch.autograd.Function):
     sweeps; the backward rounds g to the io dtype, runs the delta sweeps
     (right to left for the forward direction, left to right for the
     reversed one), forms dz = d_f + d_b in f32 and dwf = h_prev^T d_f,
-    dwb = h_next^T d_b with a zero state at the edge.  On a card the two
-    directions' sweeps are one launch where :func:`bi_grid` engages."""
+    dwb = h_next^T d_b with a zero state at the edge.  Both passes run
+    under one plan: ``plan``, or None for :func:`plan_for`'s."""
 
     @staticmethod
     def forward(ctx, z, wf, wb, lengths, clip, cdt, io, bidirectional,
-                plain):
+                plan):
         z_io = z.to(io)
+        ws = (wf.to(cdt), wb.to(cdt)) if bidirectional else (wf.to(cdt),)
+        plan = plan or plan_for(z_io, len(ws))
+        hs_f, hs_b = (*fwd_recurrence(z_io, ws, lengths, reverse=False,
+                                      clip=clip, plan=plan), None)[:2]
+        out = hs_f.to(torch.float32)
         if bidirectional:
-            hs_f, hs_b = fwd_bi_recurrence(z_io, wf.to(cdt), wb.to(cdt),
-                                           lengths, clip=clip, plain=plain)
-            out = hs_f.to(torch.float32) + hs_b.to(torch.float32)
-        else:
-            fwd = fwd_recurrence_plain if plain else fwd_recurrence
-            hs_f = fwd(z_io, wf.to(cdt), lengths, reverse=False, clip=clip)
-            hs_b, out = None, hs_f.to(torch.float32)
+            out = out + hs_b.to(torch.float32)
         ctx.save_for_backward(hs_f, hs_b, wf, wb)
-        ctx.opts = (clip, cdt, io, bidirectional, plain)
+        ctx.opts = (clip, cdt, io, bidirectional, plan)
         return out
 
     @staticmethod
     def backward(ctx, g):
         hs_f, hs_b, wf, wb = ctx.saved_tensors
-        clip, cdt, io, bidirectional, plain = ctx.opts
+        clip, cdt, io, bidirectional, plan = ctx.opts
         g_io = g.to(io)
         zeros = torch.zeros_like(hs_f[:1])
         if bidirectional:
-            d_f, d_b = bwd_bi_recurrence(g_io, hs_f, hs_b, wf.to(cdt).t(),
-                                         wb.to(cdt).t(), clip=clip,
-                                         plain=plain)
+            hs, wts = (hs_f, hs_b), (wf.to(cdt).t(), wb.to(cdt).t())
         else:
-            bwd = bwd_recurrence_plain if plain else bwd_recurrence
-            d_f = bwd(g_io, hs_f, wf.to(cdt).t(), reverse=True, clip=clip)
+            hs, wts = (hs_f,), (wf.to(cdt).t(),)
+        d_f, d_b = (*bwd_recurrence(g_io, hs, wts, reverse=True, clip=clip,
+                                    plan=plan), None)[:2]
         dz = d_f.to(torch.float32)
         dwf = _weight_grad(torch.cat([zeros, hs_f[:-1]]), d_f)
         if bidirectional:
@@ -612,7 +578,7 @@ def bi_recurrence(z: torch.Tensor, wf: torch.Tensor, wb: torch.Tensor,
     return BiRecurrence.apply(z.to(torch.float32), wf, wb, lengths,
                               float(clip), compute_dtype,
                               io_dtype or compute_dtype, bool(bidirectional),
-                              bool(plain))
+                              PLAIN if plain else None)
 
 
 def carry_sweep_grad(g: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
@@ -626,8 +592,9 @@ def carry_sweep_grad(g: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
     order from zero; h0 is the neighbour of the first processed frame in
     dW; dh0 = d_first W^T from the compute-dtype operands."""
     wc = w.to(cdt)
-    bwd = bwd_recurrence_plain if plain else bwd_recurrence
-    d = bwd(g.to(hs.dtype), hs, wc.t(), reverse=not reverse, clip=clip)
+    d, = bwd_recurrence(g.to(hs.dtype), (hs,), (wc.t(),),
+                        reverse=not reverse, clip=clip,
+                        plan=PLAIN if plain else None)
     h0_row = h0[None].to(hs.dtype)
     if reverse:
         h_nb, d_first = torch.cat([hs[1:], h0_row]), d[-1]
@@ -646,10 +613,10 @@ class CarryRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, w, h0, lengths, clip, cdt, io, reverse, plain):
-        fwd = fwd_recurrence_plain if plain else fwd_recurrence
         h0_io = h0.to(io)
-        hs = fwd(z.to(io), w.to(cdt), lengths, reverse=reverse, clip=clip,
-                 h0=h0_io)
+        hs, = fwd_recurrence(z.to(io), (w.to(cdt),), lengths,
+                             reverse=reverse, clip=clip, h0=h0_io,
+                             plan=PLAIN if plain else None)
         ctx.save_for_backward(hs, h0_io, w)
         ctx.opts = (clip, cdt, reverse, plain)
         return hs.to(torch.float32)

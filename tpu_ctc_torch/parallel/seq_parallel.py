@@ -89,8 +89,7 @@ class SpRecurrence(torch.autograd.Function):
     def forward(ctx, z, wf, wb, lengths, mesh, clip, cdt, io, bidirectional,
                 plain):
         n, i = mesh.axis_size(AXIS_SEQ), mesh.axis_index(AXIS_SEQ)
-        fwd = (birnn_cuda.fwd_recurrence_plain if plain
-               else birnn_cuda.fwd_recurrence)
+        plan = birnn_cuda.PLAIN if plain else None
         z_io = z.to(io)
         zeros = torch.zeros(z.shape[1:], dtype=io, device=z.device)
         h_in_f = h_in_b = zeros
@@ -98,12 +97,14 @@ class SpRecurrence(torch.autograd.Function):
         for r in range(n):              # n wavefront rounds
             if i == r:
                 h0_f = h_in_f
-                hs_f = fwd(z_io, wf.to(cdt), lengths, reverse=False,
-                           clip=clip, h0=h0_f)
+                hs_f, = birnn_cuda.fwd_recurrence(
+                    z_io, (wf.to(cdt),), lengths, reverse=False, clip=clip,
+                    h0=h0_f, plan=plan)
             if bidirectional and i == n - 1 - r:
                 h0_b = h_in_b
-                hs_b = fwd(z_io, wb.to(cdt), lengths, reverse=True,
-                           clip=clip, h0=h0_b)
+                hs_b, = birnn_cuda.fwd_recurrence(
+                    z_io, (wb.to(cdt),), lengths, reverse=True, clip=clip,
+                    h0=h0_b, plan=plan)
             if r < n - 1:
                 h_in_f, h_in_b = (h.to(io) for h in ring_shift(
                     mesh, hs_f[-1] if i == r else zeros,
